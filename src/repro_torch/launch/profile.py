@@ -1,0 +1,106 @@
+"""Where serving time goes on the card: ``torch.profiler`` over one prefill
+and a few steady decode steps of ``Engine.generate``'s path.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile --attention-impl pallas
+
+Serves qwen3-0.6b at full width (seeded bf16 weights, as ``chip_smoke.py``)
+once to warm up, then profiles a fresh-cache prefill and ``--steps``
+decode steps.  Per phase it prints the host wall time, the device's busy
+time (the sum of kernel and copy times on the card; the port runs one
+stream), the idle share, the kernel count and the kernels that take most
+device time.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import dataclasses
+import time
+from typing import Optional, Sequence
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.configs.base import load_arch
+from repro_torch.models import convert
+from repro_torch.models import model as model_mod
+from repro_torch.serve.engine import Engine, ServeConfig
+
+
+def _report(name: str, prof, wall_s: float, steps: int, top: int) -> None:
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print(f"[profile] {name}: the profiler recorded no device events; "
+              f"device time not measured")
+        return
+    busy_us = sum(e.time_range.elapsed_us() for e in events)
+    wall_us = wall_s * 1e6
+    print(f"[profile] {name}: wall {wall_us / steps / 1e3:.3f} ms/step, "
+          f"device busy {busy_us / steps / 1e3:.3f} ms/step, idle "
+          f"{max(0.0, 1 - busy_us / wall_us):.1%}, {len(events) / steps:.0f} "
+          f"device kernels/step over {steps} step(s)")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    for kname, (us, n) in ranked:
+        print(f"[profile]   {us / busy_us:6.1%} {us / steps / 1e3:8.4f} "
+              f"ms/step  x{n / steps:5.1f}/step  {kname[:90]}")
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--attention-impl", default="pallas",
+                    choices=("xla_chunked", "pallas"))
+    ap.add_argument("--top", type=int, default=8)
+    args = ap.parse_args(argv)
+
+    cfg = dataclasses.replace(load_arch(args.arch),
+                              attention_impl=args.attention_impl)
+    model = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    eng = Engine(cfg, model, ServeConfig(
+        batch=args.batch, max_len=args.prompt_len + args.steps + 2))
+    toks = eng.generate(prompts, 2)           # warm: builds, cuBLAS, allocator
+    print(f"[profile] {cfg.name} {cfg.attention_impl}, batch {args.batch}, "
+          f"prompt {args.prompt_len}, on {torch.cuda.get_device_name(0)}")
+
+    def run_prefill(_cache):
+        eng.prefill(prompts)                  # ends in a synchronize
+
+    def run_decode(cache):
+        cur = toks[:, :1]
+        with torch.no_grad():
+            for _ in range(args.steps):
+                logits, cache = model_mod.decode_step(eng.cfg, eng.model,
+                                                      {"tokens": cur}, cache)
+                cur = logits[:, -1].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+
+    for name, run, steps in (("prefill", run_prefill, 1),
+                             ("decode", run_decode, args.steps)):
+        # the wall time comes from an unprofiled run: the profiler adds
+        # host work; the device time from a profiled run of the same steps
+        fresh = (lambda: eng.prefill(prompts)[0]) if name == "decode" \
+            else (lambda: None)
+        cache = fresh()
+        t0 = time.perf_counter()
+        run(cache)
+        wall = time.perf_counter() - t0
+        cache = fresh()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(cache)
+        _report(name, prof, wall, steps, args.top)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,95 @@
+"""Shared layers: the port of ``repro.models.layers``.
+
+Parameters live in small ``nn.Module``s whose attribute names are the
+reference pytree's keys (``w``, ``b``, ``scale``, ``embedding``), so a
+flattened JAX params tree maps one to one onto a ``state_dict``; the
+apply functions beside them take the module as the reference's take the
+params dict.  The numerics follow the reference: ``dense`` is ``x @ w``
+with w in (d_in, d_out) layout, ``rmsnorm`` computes in fp32 and casts
+back, ``embed`` casts the table to the activation dtype, ``unembed`` is an
+fp32 product against the table, and rope rotates split halves.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+class Dense(nn.Module):
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.w = nn.Parameter(torch.empty(d_in, d_out, dtype=dtype))
+        self.b: Optional[nn.Parameter] = (
+            nn.Parameter(torch.empty(d_out, dtype=dtype)) if bias else None)
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w.to(x.dtype)
+    if p.b is not None:
+        y = y + p.b.to(x.dtype)
+    return y
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, dtype=dtype))
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    dtype = x.dtype
+    x = x.float()
+    var = x.square().mean(dim=-1, keepdim=True)
+    x = x * torch.rsqrt(var + eps)
+    return (x * p.scale.float()).to(dtype)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embedding = nn.Parameter(torch.empty(vocab, d, dtype=dtype))
+
+
+def embed(p: Embedding, ids: torch.Tensor,
+          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    return p.embedding.to(dtype)[ids]
+
+
+def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
+    """Logits through the (tied) embedding table; fp32 output."""
+    return x.float() @ p.embedding.float().T
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gate = Dense(d, d_ff, dtype=dtype)
+        self.up = Dense(d, d_ff, dtype=dtype)
+        self.down = Dense(d_ff, d, dtype=dtype)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.down, F.silu(dense(p.gate, x)) * dense(p.up, x))
+
+
+def rope_freqs(head_dim: int, theta: float = 10000.0,
+               device: Optional[torch.device] = None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)      # (head_dim / 2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x (..., S, D) with D even; positions broadcastable to (..., S)."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)
+    ang = positions[..., None].float() * inv           # (..., S, D/2)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)

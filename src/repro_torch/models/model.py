@@ -1,0 +1,61 @@
+"""Family dispatcher: the single entry point the engine and launcher use.
+
+Only the dense family is ported.  Other families raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from . import transformer
+
+# ROADMAP.md queue 1 items for the families this slice does not port
+_NOT_PORTED = {
+    "ssm": "item 4 (SSM family)",
+    "hybrid": "item 4 (SSM family)",
+    "moe": "item 5 (MoE family)",
+    "encdec": "item 7 (enc-dec and VLM)",
+    "vlm": "item 7 (enc-dec and VLM)",
+}
+
+
+def check_supported(cfg) -> None:
+    if cfg.family in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
+            f"(ROADMAP.md queue 1, {_NOT_PORTED[cfg.family]})")
+    if cfg.mla is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention is not ported yet "
+            f"(ROADMAP.md queue 1, item 6 (MLA))")
+    if cfg.family != "dense":
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+
+
+def build(cfg, dtype: torch.dtype = torch.float32) -> transformer.Transformer:
+    """Uninitialised parameters for ``cfg`` (see ``convert``)."""
+    check_supported(cfg)
+    return transformer.Transformer(cfg, dtype)
+
+
+def forward(cfg, model, batch: Dict, *, last_only: bool = False):
+    check_supported(cfg)
+    return transformer.forward(cfg, model, batch["tokens"],
+                               last_only=last_only)
+
+
+def init_cache(cfg, batch: int, max_len: int,
+               dtype: torch.dtype = torch.bfloat16,
+               device: Optional[torch.device] = None) -> Dict:
+    check_supported(cfg)
+    return transformer.init_cache(cfg, batch, max_len, dtype, device)
+
+
+def decode_step(cfg, model, batch: Dict, cache: Dict, *,
+                last_only: bool = False):
+    """One cached step; batch carries tokens (B, S)."""
+    check_supported(cfg)
+    return transformer.decode_step(cfg, model, batch["tokens"], cache,
+                                   last_only=last_only)

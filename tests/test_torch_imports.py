@@ -1,0 +1,93 @@
+"""Import boundary of the PyTorch port: it runs without JAX and without the
+reference package, and its entry points default to the card."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_with_jax_and_reference_blocked():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "assert not any(n == 'jax' or n.startswith(('jax.', 'repro.'))\n"
+        "               for n in sys.modules if sys.modules[n] is not None)\n"
+        "print('ok')\n")
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    from repro_torch import device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device.resolve()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device.resolve("cuda")
+    assert device.resolve("cpu") == torch.device("cpu")
+
+
+def test_device_below_hopper_raises(monkeypatch):
+    from repro_torch import device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_capability", lambda d: (8, 0))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda d: "A100")
+    with pytest.raises(RuntimeError, match="sm_90a"):
+        device.resolve()
+
+
+def test_engine_defaults_to_cuda(monkeypatch):
+    from repro_torch.configs.qwen3_0_6b import SMOKE
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(SMOKE, model_mod.build(SMOKE), ServeConfig())
+
+
+def test_kernel_build_key_follows_source(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "k.cu").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", src)
+    first = _build.lib_path("k")
+    (src / "k.cu").write_text("// two\n")
+    assert _build.lib_path("k") != first
+    assert first.parent == _build.BUILD_DIR
