@@ -10,16 +10,23 @@ Phases, in order; any failure exits non-zero:
    versions; TF32 off for matmuls and cuDNN.
 2. build: nvcc builds every kernel of ``src/repro_torch/csrc`` in parallel.
 3. each kernel against its plain PyTorch version on the same inputs:
-   (a) fp32 at small ragged GQA shapes, atol 1e-5;
-   (b) the serving shapes and dtypes of the main path, atol 2e-2 on the
-       bf16 outputs; then kernel, plain and SDPA times beside the bound.
-4. end to end: qwen3-0.6b at full width (seeded random bf16 weights),
+   (a) flash and (b) decode attention: fp32 at small ragged GQA shapes,
+       atol 1e-5, then the serving shapes and dtypes of the qwen3 path,
+       atol 2e-2 on the bf16 outputs, with kernel, plain and SDPA times
+       beside the bound;
+   (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
+       shapes through strided views, then the mamba2-1.3b path's shapes
+       and dtypes, each under the relative tolerance stated at its
+       constant, with kernel and plain times beside the bound.
+4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
    The same weights and tokens then go through the plain route
    (``attention_impl='xla_chunked'``) and each step's logits are held to
    the kernel route's.
-5. a ``{"kernels": [...]}`` line, then the last line
+5. end to end, mamba2-1.3b at full width the same way, with
+   ``ssm_impl='pallas'`` against ``ssm_impl='xla'``.
+6. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
@@ -47,6 +54,22 @@ ATOL_BF16 = 2e-2              # kernel vs plain, bf16 outputs (2^-8 rounding)
 # roundings of attention outputs; logits of these random weights are
 # about 3 at most, so 0.1 bounds a 3% drift
 ATOL_E2E_LOGITS = 0.1
+# SSD kernels vs their plain versions, relative to the largest |value| of
+# the plain output: in fp32 the two sum the same products in another order
+# (1e-5 leaves some 50x over fp32's 2^-24 per add for sums of up to 128
+# terms); the scan's bf16 y may differ by two bf16 ulps (2^-7) wherever the
+# fp32 values straddle a rounding boundary
+RTOL_SSD_FP32 = 1e-5
+RTOL_SSD_BF16 = 2.0 ** -7
+# mamba2 kernel route vs plain route logits after 48 bf16 layers: the plain
+# route (a mirror of the reference's _ssd_xla) rounds G, w, the chunk start
+# states and exp(logP) to bf16 before its products, the kernel keeps them
+# fp32, so each layer's y differs by bf16 rounding (about 2^-9 relative).
+# With those operands left fp32 the two routes agree exactly, so this
+# rounding is the whole difference; it adds up across layers like a random
+# walk, to some 5% of logits that reach about 5 here, and 0.5 (10%) leaves
+# room for it while a wrong decay or a lost chunk moves logits by O(1)
+ATOL_E2E_SSM_LOGITS = 0.5
 TIMING_ITERS = 20
 
 
@@ -104,6 +127,11 @@ def randn(gen, *shape, dtype=torch.float32):
 
 def err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max(1, max |want|)."""
+    return err(got, want) / max(1.0, want.float().abs().max().item())
 
 
 def warm_ttft_ms(eng, prompts, reps: int = 3) -> float:
@@ -239,40 +267,176 @@ def phase_kernels(timer: Timer):
     ]
 
 
-def phase_e2e():
-    """Full-width qwen3-0.6b through Engine.generate; returns launches."""
-    from repro_torch.configs.qwen3_0_6b import CONFIG
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
+def ssd_inputs(gen, b, l, h, g, n, p, dtype=torch.float32):
+    """x, dt, A, B, C as the model makes them: x, B and C strided views of
+    one (B, L, H·P + 2·G·N) conv output, dt = softplus(·), A =
+    -linspace(1, 16, H)."""
+    conv = torch.nn.functional.silu(randn(gen, b, l, h * p + 2 * g * n))
+    conv = conv.to(dtype)
+    x = conv[..., :h * p].reshape(b, l, h, p)
+    bm = conv[..., h * p:h * p + g * n].reshape(b, l, g, n)
+    cm = conv[..., h * p + g * n:].reshape(b, l, g, n)
+    dt = F.softplus(randn(gen, b, l, h)).to(dtype)
+    a = -torch.linspace(1.0, 16.0, h, device="cuda")
+    return x, dt, a, bm, cm
+
+
+def phase_ssd_kernels(timer: Timer):
+    """The SSD scan and decode kernels against their plain versions;
+    returns their kernels entries."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+
+    # (c) the SSD scan, fp32, ragged L, grouped B / C
+    for b, l, h, g, n, p, chunk in [
+            (2, 37, 4, 1, 16, 32, 16), (1, 100, 8, 2, 64, 64, 64),
+            (2, 130, 4, 2, 128, 64, 64), (1, 130, 6, 1, 32, 16, 16),
+            (2, 100, 8, 1, 128, 64, 16), (1, 37, 4, 2, 128, 64, 64)]:
+        x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p)
+        y, st = ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                 final_state=True)
+        y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                     final_state=True)
+        e_y, e_s = rel_err(y, y_ref), rel_err(st, st_ref)
+        print(f"[ssd_scan fp32] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}: "
+              f"rel err y {e_y:.3g}, state {e_s:.3g}")
+        check(max(e_y, e_s) <= RTOL_SSD_FP32,
+              f"ssd_scan fp32 rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
+    e_y = rel_err(ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=64), y_ref)
+    check(e_y <= RTOL_SSD_FP32, f"ssd_scan without state: rel err {e_y}")
+
+    # the mamba2-1.3b path: B 8, L 512, 64 heads x 64, N 128, G 1, chunk 64
+    b, l, h, g, n, p, chunk = 8, 512, 64, 1, 128, 64, 64
+    x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
+    y, st = ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk, final_state=True)
+    y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                 final_state=True)
+    e_y, e_s = rel_err(y, y_ref), rel_err(st, st_ref)
+    e_scan = max(err(y, y_ref), err(st, st_ref))
+    print(f"[ssd_scan bf16] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}: rel "
+          f"err y {e_y:.3g} (rtol {RTOL_SSD_BF16:.3g}), state {e_s:.3g} "
+          f"(rtol {RTOL_SSD_FP32}); max abs err {e_scan:.3g}")
+    check(e_y <= RTOL_SSD_BF16, f"ssd_scan bf16 y rel err {e_y}")
+    check(e_s <= RTOL_SSD_FP32, f"ssd_scan bf16 state rel err {e_s}")
+    # bytes: each input read once, y and the state written once; operations:
+    # the causal half of C·Bᵀ once per (b, group, chunk), since the heads of
+    # a group share it, and per (b, h, chunk) the causal half of G·x, C·S and
+    # the state update, in fp32 as the kernel and the reference compute them
+    tri = chunk * (chunk + 1) // 2
+    flops = b * (l // chunk) * 2 * (g * tri * n + h * (chunk * p * n
+                                                      + tri * p
+                                                      + n * p * chunk))
+    nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, cm, y,
+                                                         st))
+    ss_bound, ss_by = bound(nbytes, flops, PEAK_FP32)
+    ss_ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                              final_state=True))
+    ss_plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                             final_state=True))
+    print(f"[ssd_scan] kernel {ss_ms:.4f} ms, plain {ss_plain:.4f} ms, bound "
+          f"{ss_bound:.4f} ms ({ss_by}: {nbytes / 1e6:.1f} MB, "
+          f"{flops / 1e9:.2f} GFLOP fp32)")
+
+    # (d) the SSD decode step, fp32, grouped B / C, strided views
+    for b, h, g, n, p in [(1, 4, 1, 16, 32), (3, 8, 2, 64, 64),
+                          (2, 6, 2, 128, 64), (2, 4, 4, 128, 16)]:
+        x, dt, a, bm, cm = ssd_inputs(gen, b, 1, h, g, n, p)
+        x, dt, bm, cm = x[:, 0], dt[:, 0], bm[:, 0], cm[:, 0]
+        st = randn(gen, b, h, n, p)
+        y, st2 = sd.ssd_decode_cuda(st, x, dt, a, bm, cm)
+        y_ref, st2_ref = ref.ssd_decode(st, x, dt, a, bm, cm)
+        e_y, e_s = rel_err(y, y_ref), rel_err(st2, st2_ref)
+        print(f"[ssd_decode fp32] B{b} H{h} G{g} N{n} P{p}: rel err y "
+              f"{e_y:.3g}, state {e_s:.3g}")
+        check(max(e_y, e_s) <= RTOL_SSD_FP32,
+              f"ssd_decode fp32 rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
+
+    b, h, g, n, p = 8, 64, 1, 128, 64
+    x, dt, a, bm, cm = ssd_inputs(gen, b, 1, h, g, n, p, torch.bfloat16)
+    x, dt, bm, cm = x[:, 0], dt[:, 0], bm[:, 0], cm[:, 0]
+    st = randn(gen, b, h, n, p)
+    y, st2 = sd.ssd_decode_cuda(st, x, dt, a, bm, cm)
+    y_ref, st2_ref = ref.ssd_decode(st, x, dt, a, bm, cm)
+    e_y, e_s = rel_err(y, y_ref), rel_err(st2, st2_ref)
+    e_dec = max(err(y, y_ref), err(st2, st2_ref))
+    print(f"[ssd_decode bf16] B{b} H{h} G{g} N{n} P{p}, x / dt / B / C bf16, "
+          f"state fp32: rel err y {e_y:.3g}, state {e_s:.3g} (rtol "
+          f"{RTOL_SSD_FP32}); max abs err {e_dec:.3g}")
+    check(max(e_y, e_s) <= RTOL_SSD_FP32,
+          f"ssd_decode rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
+    nbytes = sum(t.numel() * t.element_size() for t in (st, x, dt, a, bm, cm,
+                                                         y, st2))
+    sd_bound, sd_by = bound(nbytes, 5.0 * b * h * n * p, PEAK_FP32)
+    sd_ms = timer.ms(lambda: sd.ssd_decode_cuda(st, x, dt, a, bm, cm))
+    sd_plain = timer.ms(lambda: ref.ssd_decode(st, x, dt, a, bm, cm))
+    print(f"[ssd_decode] kernel {sd_ms:.4f} ms, plain {sd_plain:.4f} ms, "
+          f"bound {sd_bound:.4f} ms ({sd_by}: {nbytes / 1e6:.1f} MB)")
+    print(f"[ssd_decode] host time per call: kernel wrapper "
+          f"{host_us(lambda: sd.ssd_decode_cuda(st, x, dt, a, bm, cm)):.1f} "
+          f"µs, plain {host_us(lambda: ref.ssd_decode(st, x, dt, a, bm, cm)):.1f}"
+          f" µs")
+
+    return [
+        {"name": "ssd_scan", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_scan.cu",
+         "replaces": "src/repro/kernels/ssd_scan.py:97",
+         "max_abs_err": e_scan, "ms": ss_ms, "plain_ms": ss_plain,
+         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None},
+        {"name": "ssd_decode", "route": "cuda",
+         "source": "src/repro_torch/csrc/ssd_decode.cu",
+         "replaces": "src/repro/compiler/pallas_backend.py:814",
+         "max_abs_err": e_dec, "ms": sd_ms, "plain_ms": sd_plain,
+         "bound_ms": sd_bound, "bound_by": sd_by, "library_ms": None},
+    ]
+
+
+def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
+              per_prefill: str, per_step: str, atol: float):
+    """One model at full width through Engine.generate, batch 8, prompt
+    512, 64 new tokens, on seeded random bf16 weights: ``cfg.<impl>`` set to
+    ``kernel_impl`` for the kernel route, ``plain_impl`` for the plain one.
+    The kernel ``per_prefill`` must launch once per layer in the prefill,
+    ``per_step`` once per layer in each decode step.  Returns the launches
+    of that run."""
+    import importlib
+    from repro_torch.configs.base import load_arch
     from repro_torch.models import convert
     from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import Engine, ServeConfig
+    mods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
+            for name in (per_prefill, per_step)}
 
     batch, prompt_len, n_new = 8, 512, 64
-    cfg = dataclasses.replace(CONFIG, attention_impl="pallas")
+    cfg = dataclasses.replace(load_arch(arch), **{impl: kernel_impl})
     t0 = time.perf_counter()
     model = convert.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
         torch.bfloat16)
     torch.cuda.synchronize()
+    mixer = (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads "
+             f"x {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, chunk "
+             f"{cfg.ssm.chunk}" if cfg.ssm else
+             f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}")
     print(f"[e2e] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}, vocab "
-          f"{cfg.vocab_size}; seeded bf16 weights in "
+          f"{mixer}, vocab {cfg.vocab_size}; seeded bf16 weights in "
           f"{time.perf_counter() - t0:.2f}s")
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(1))
     scfg = ServeConfig(batch=batch, max_len=prompt_len + n_new + 1)
     eng = Engine(cfg, model, scfg)
 
-    fa.launches = da.launches = 0
+    for mod in mods.values():
+        mod.launches = 0
     toks, logits = eng.generate(prompts, n_new, return_logits=True)
-    launches = {"flash_attention": fa.launches,
-                "decode_attention": da.launches}
+    launches = {name: mod.launches for name, mod in mods.items()}
     print(f"[e2e] launches: {launches}")
-    check(launches["flash_attention"] == cfg.n_layers,
-          f"flash launches {launches['flash_attention']} != {cfg.n_layers}")
-    check(launches["decode_attention"] == cfg.n_layers * n_new,
-          f"decode launches {launches['decode_attention']} != "
+    check(launches[per_prefill] == cfg.n_layers,
+          f"{per_prefill} launches {launches[per_prefill]} != "
+          f"{cfg.n_layers}")
+    check(launches[per_step] == cfg.n_layers * n_new,
+          f"{per_step} launches {launches[per_step]} != "
           f"{cfg.n_layers * n_new}")
     check(tuple(toks.shape) == (batch, n_new), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
@@ -283,8 +447,8 @@ def phase_e2e():
     st = eng.stats()
     dec = st["phases"]["decode"]
     steady = dec["steady_mean_s"]
-    print(f"[e2e] pallas route: TTFT {st['ttft_s'] * 1e3:.2f} ms (first "
-          f"prefill of the process), warm TTFT "
+    print(f"[e2e] {kernel_impl} route: TTFT {st['ttft_s'] * 1e3:.2f} ms "
+          f"(first prefill of the process), warm TTFT "
           f"{warm_ttft_ms(eng, prompts):.2f} ms; decode "
           f"{steady * 1e3:.3f} ms/step mean, "
           f"{dec['steady_p50_s'] * 1e3:.3f} ms p50 over {dec['steps']} "
@@ -292,12 +456,13 @@ def phase_e2e():
 
     # plain route, same weights: timed through the same Engine.generate,
     # then the kernel route's tokens fed to it for the logits comparison
-    cfg_plain = dataclasses.replace(eng.cfg, attention_impl="xla_chunked")
+    cfg_plain = dataclasses.replace(eng.cfg, **{impl: plain_impl})
     plain = Engine(cfg_plain, model, scfg)
     plain.generate(prompts, n_new)
     pdec = plain.stats()["phases"]["decode"]
-    print(f"[e2e] plain route: warm TTFT {warm_ttft_ms(plain, prompts):.2f} "
-          f"ms; decode {pdec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
+    print(f"[e2e] {plain_impl} route: warm TTFT "
+          f"{warm_ttft_ms(plain, prompts):.2f} ms; decode "
+          f"{pdec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
           f"{pdec['steady_p50_s'] * 1e3:.3f} ms p50 over {pdec['steps']} "
           f"steps")
     cache, last = plain.prefill(prompts)
@@ -313,10 +478,10 @@ def phase_e2e():
                          .float().mean().item())
     print(f"[e2e] kernel vs plain route logits: prefill max abs diff "
           f"{diffs[0]:.4g}, decode steps max {max(diffs[1:]):.4g} (atol "
-          f"{ATOL_E2E_LOGITS}; max |logit| {logits.abs().max().item():.3g}); "
+          f"{atol}; max |logit| {logits.abs().max().item():.3g}); "
           f"greedy argmax agreement {statistics.fmean(agree):.4f}")
-    check(max(diffs) <= ATOL_E2E_LOGITS,
-          f"route logits differ by {max(diffs)} > {ATOL_E2E_LOGITS}")
+    check(max(diffs) <= atol,
+          f"route logits differ by {max(diffs)} > {atol}")
     return launches
 
 
@@ -335,8 +500,12 @@ def main() -> int:
     phase_env()
     phase_build()
     timer = Timer()
-    kernels = phase_kernels(timer)
-    launches = phase_e2e()
+    kernels = phase_kernels(timer) + phase_ssd_kernels(timer)
+    launches = phase_e2e("qwen3-0.6b", "attention_impl", "pallas",
+                         "xla_chunked", "flash_attention", "decode_attention",
+                         ATOL_E2E_LOGITS)
+    launches.update(phase_e2e("mamba2-1.3b", "ssm_impl", "pallas", "xla",
+                              "ssd_scan", "ssd_decode", ATOL_E2E_SSM_LOGITS))
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

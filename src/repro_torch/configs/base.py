@@ -1,9 +1,9 @@
 """Model configs: a jax-free mirror of ``repro.configs.base``.
 
 Field names and defaults match the reference dataclasses, so a config
-means the same in both packages.  Only the dense family is served by this
-port's model (``models.model``); other families are accepted here and
-rejected there.
+means the same in both packages.  The dense and SSM families are served
+by this port's model (``models.model``); other families are accepted here
+and rejected there.
 """
 from __future__ import annotations
 
@@ -75,6 +75,8 @@ class ModelConfig:
     # hand-written CUDA kernels (csrc/) for fresh-cache prefill and decode;
     # the name is the reference's, so a config means the same in both.
     attention_impl: str = "xla_chunked"
+    # 'xla': the plain chunked SSD in torch.  'pallas': the hand-written
+    # CUDA SSD scan (every prefill) and SSD decode (every decode step)
     ssm_impl: str = "xla"
     # route cache prefill (s > 1) through the flash kernel; valid only when
     # every prefill starts on a fresh cache (pos == 0).  The Engine sets it.
@@ -103,6 +105,7 @@ def load_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
             f"repro_torch.configs.{_modname(arch_id)}")
     except ModuleNotFoundError as e:
         raise NotImplementedError(
-            f"arch {arch_id!r} has no config in the port yet; only the "
-            f"dense qwen3-0.6b is ported (ROADMAP.md queue 1)") from e
+            f"arch {arch_id!r} has no config in the port yet; only "
+            f"qwen3-0.6b and mamba2-1.3b are ported (ROADMAP.md queue 1)"
+        ) from e
     return mod.SMOKE if smoke else mod.CONFIG

@@ -1,3 +1,3 @@
-"""Attention kernels: hand-written CUDA (``csrc/``) behind ``ops``, with the
+"""Attention and SSD kernels: hand-written CUDA (``csrc/``) behind ``ops``, with the
 plain PyTorch versions in ``ref``.  Importing this package builds nothing;
 a kernel is built at its first launch."""

@@ -1,9 +1,10 @@
-"""Public attention wrappers: the port's ``repro.kernels.ops``.
+"""Public kernel wrappers: the port's ``repro.kernels.ops``.
 
 A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
 takes the plain PyTorch version in ``ref``.  Nothing falls back from the
 card to the plain version.  The launch counts live on the kernel modules
-(``flash_attention.launches``, ``decode_attention.launches``).
+(``flash_attention.launches``, ``decode_attention.launches``,
+``ssd_scan.launches``, ``ssd_decode.launches``).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import ref
+from . import ssd_decode as _sd
+from . import ssd_scan as _ss
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -44,3 +47,23 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return _da.decode_attention_cuda(q, k_cache, v_cache, pos,
                                          scale=scale)
     return ref.decode_attention(q, k_cache, v_cache, pos, scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+             final_state: bool = False):
+    """Mamba-2 chunked SSD scan: x (B, L, H, P), dt (B, L, H), A (H,), B / C
+    (B, L, G, N).  Returns y, or (y, fp32 (B, H, N, P) final state)."""
+    if _route(x, "ssd_scan"):
+        return _ss.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
+                                 final_state=final_state)
+    return ref.ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=final_state)
+
+
+def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+               A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+    """One-token SSD step: state (B, H, N, P) fp32, x (B, H, P), dt (B, H),
+    A (H,), B / C (B, G, N).  Returns (y fp32 (B, H, P), new state)."""
+    if _route(x, "ssd_decode"):
+        return _sd.ssd_decode_cuda(state, x, dt, A, B, C)
+    return ref.ssd_decode(state, x, dt, A, B, C)

@@ -67,3 +67,74 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgt,bktd->bkgd", p, v_cache.float())
     return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, *, chunk: int,
+             final_state: bool = False):
+    """Mamba-2 chunked SSD scan, the Pallas kernel's math
+    (``repro/kernels/ssd_scan.py:45-72``, ``_ssd_graph``'s ``step_fn``).
+
+    x (B, L, H, P); dt (B, L, H) post-softplus; A (H,); B / C (B, L, G, N)
+    with head h reading group h // (H / G).  fp32 throughout, one loop step
+    per chunk.  A ragged L is padded to a chunk multiple with dt = 0 steps,
+    which leave the carried state untouched, so the padding is exact.  The
+    decay cumsum accumulates in fp64 and rounds once to fp32, so the CPU
+    and the card (and the CUDA kernel) agree on it.  Returns y in x's
+    dtype and, with ``final_state``, the fp32 (B, H, N, P) state."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    heads = torch.arange(h, device=x.device) // (h // g)
+    nch = -(-l // chunk)
+    pad = nch * chunk - l
+    f32 = torch.float32
+
+    def prep(t: torch.Tensor) -> torch.Tensor:
+        t = t.to(f32)
+        return torch.nn.functional.pad(t, (0,) * (2 * (t.dim() - 2))
+                                       + (0, pad)) if pad else t
+
+    xs = prep(x).transpose(1, 2)                          # (b, h, l', p)
+    dts = prep(dt).transpose(1, 2)                        # (b, h, l')
+    Bs = prep(B)[:, :, heads].transpose(1, 2)             # (b, h, l', n)
+    Cs = prep(C)[:, :, heads].transpose(1, 2)
+    Af = A.to(f32)[None, :, None]
+    idx = torch.arange(chunk, device=x.device)
+    mask = idx[:, None] >= idx[None, :]
+    state = torch.zeros((b, h, n, p), dtype=f32, device=x.device)
+    ys = []
+    for ci in range(nch):
+        sl = slice(ci * chunk, (ci + 1) * chunk)
+        xc, dtc, bc, cc = xs[:, :, sl], dts[:, :, sl], Bs[:, :, sl], Cs[:, :, sl]
+        logp = torch.cumsum(Af * dtc, dim=-1, dtype=torch.float64).to(f32)
+        y_carry = torch.exp(logp)[..., None] * (cc @ state)
+        cb = cc @ bc.transpose(-1, -2)                    # (b, h, c, c)
+        ratio = logp[..., :, None] - logp[..., None, :]
+        gmat = torch.where(mask, cb * torch.exp(torch.where(mask, ratio, 0.0))
+                           * dtc[..., None, :], 0.0)
+        ys.append(y_carry + gmat @ xc)
+        p_total = logp[..., -1:]
+        w = torch.exp(p_total - logp) * dtc               # (b, h, c)
+        state = state * torch.exp(p_total)[..., None] \
+            + (bc * w[..., None]).transpose(-1, -2) @ xc
+    y = torch.cat(ys, dim=2)[:, :, :l].transpose(1, 2).to(x.dtype)
+    return (y, state) if final_state else y
+
+
+def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
+               A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+    """One-token SSD step: ``state' = state·exp(A·dt) + (B·dt)⊗x`` and
+    ``y = C·state'`` (``repro/core/autopump.py:564-640``,
+    ``registry.py::_ssd_decode_reference``).  state (B, H, N, P); x
+    (B, H, P); dt (B, H) post-softplus; A (H,); B / C (B, G, N).  Returns
+    (y fp32 (B, H, P), state' fp32 (B, H, N, P))."""
+    h, g = x.shape[1], B.shape[1]
+    heads = torch.arange(h, device=x.device) // (h // g)
+    f32 = torch.float32
+    Bh, Ch = B.to(f32)[:, heads], C.to(f32)[:, heads]     # (b, h, n)
+    dtf = dt.to(f32)
+    decay = torch.exp(A.to(f32)[None] * dtf)
+    st = state.to(f32) * decay[..., None, None] \
+        + (Bh * dtf[..., None])[..., :, None] * x.to(f32)[..., None, :]
+    y = torch.einsum("bhn,bhnp->bhp", Ch, st)
+    return y, st

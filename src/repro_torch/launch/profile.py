@@ -2,9 +2,11 @@
 and a few steady decode steps of ``Engine.generate``'s path.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --attention-impl pallas
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b \
+        --ssm-impl pallas
 
-Serves qwen3-0.6b at full width (seeded bf16 weights, as ``chip_smoke.py``)
-once to warm up, then profiles a fresh-cache prefill and ``--steps``
+Serves ``--arch`` (qwen3-0.6b by default) at full width (seeded bf16
+weights, as ``chip_smoke.py``) once to warm up, then profiles a fresh-cache prefill and ``--steps``
 decode steps.  Per phase it prints the host wall time, the device's busy
 time (the sum of kernel and copy times on the card; the port runs one
 stream), the idle share, the kernel count and the kernels that take most
@@ -58,11 +60,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--attention-impl", default="pallas",
                     choices=("xla_chunked", "pallas"))
+    ap.add_argument("--ssm-impl", default="pallas", choices=("xla", "pallas"))
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
 
     cfg = dataclasses.replace(load_arch(args.arch),
-                              attention_impl=args.attention_impl)
+                              attention_impl=args.attention_impl,
+                              ssm_impl=args.ssm_impl)
     model = convert.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
         torch.bfloat16)
@@ -71,7 +75,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     eng = Engine(cfg, model, ServeConfig(
         batch=args.batch, max_len=args.prompt_len + args.steps + 2))
     toks = eng.generate(prompts, 2)           # warm: builds, cuBLAS, allocator
-    print(f"[profile] {cfg.name} {cfg.attention_impl}, batch {args.batch}, "
+    impl = cfg.ssm_impl if cfg.family == "ssm" else cfg.attention_impl
+    print(f"[profile] {cfg.name} {impl}, batch {args.batch}, "
           f"prompt {args.prompt_len}, on {torch.cuda.get_device_name(0)}")
 
     def run_prefill(_cache):

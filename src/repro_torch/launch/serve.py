@@ -3,8 +3,9 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 8 --prompt-len 512 --new 64 --attention-impl pallas
 
-runs on the card; ``--smoke --device cpu`` runs the SMOKE config on the
-CPU through the plain attention.  Weights are seeded random draws with the
+runs on the card (``--arch mamba2-1.3b --ssm-impl pallas`` serves the SSM
+family through the SSD kernels); ``--smoke --device cpu`` runs the SMOKE
+config on the CPU, where every op takes its plain version.  Weights are seeded random draws with the
 reference init's distributions (fp32 for ``--smoke``, else bf16, as in
 ``repro.launch.serve``).
 """
@@ -34,6 +35,9 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
                     choices=("xla_chunked", "pallas"),
                     help="override cfg.attention_impl; 'pallas' runs the "
                          "hand-written CUDA attention kernels")
+    ap.add_argument("--ssm-impl", default=None, choices=("xla", "pallas"),
+                    help="override cfg.ssm_impl; 'pallas' runs the "
+                         "hand-written CUDA SSD scan and decode kernels")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -41,6 +45,8 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     cfg = load_arch(args.arch, smoke=args.smoke)
     if args.attention_impl:
         cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
+    if args.ssm_impl:
+        cfg = dataclasses.replace(cfg, ssm_impl=args.ssm_impl)
     dev = device_mod.resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = convert.init_params(
@@ -58,7 +64,8 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     dec = stats["phases"].get("decode", {})
     steady = dec.get("steady_mean_s")
     tps = args.batch / steady if steady else float("nan")
-    print(f"[serve] {cfg.name} on {dev} ({cfg.attention_impl}): generated "
+    impl = cfg.ssm_impl if cfg.family == "ssm" else cfg.attention_impl
+    print(f"[serve] {cfg.name} on {dev} ({impl}): generated "
           f"{tuple(out.shape)} in {dt:.3f}s wall")
     print(f"[serve] ttft {stats['ttft_s'] * 1e3:.2f} ms; steady-state decode "
           f"{(steady or float('nan')) * 1e3:.3f} ms/step ({tps:.1f} tok/s) "

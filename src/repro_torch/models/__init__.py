@@ -1,2 +1,2 @@
-"""Model stack: layers, GQA attention, the dense transformer, the family
-dispatcher and parameter conversion."""
+"""Model stack: layers, GQA attention, the Mamba-2 mixer, the dense and SSM
+transformer, the family dispatcher and parameter conversion."""

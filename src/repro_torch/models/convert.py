@@ -4,10 +4,12 @@
 converted to numpy arrays (the caller does that; this module imports no
 JAX), un-stacks the leading layer axis of ``"blocks"`` and loads every leaf
 into the port's modules.  ``init_params`` draws with the reference init's
-distributions (``repro/models/layers.py``): dense weights normal · 1/√d_in,
-the embedding normal · 0.02, norm scales ones, biases zeros.  The numbers
-differ from JAX's for the same seed; tests hand weights across with
-``from_jax_params`` instead.
+distributions (``repro/models/layers.py``, ``ssm.py:27-46``): dense
+weights normal · 1/√d_in, the embedding normal · 0.02, norm scales ones,
+biases zeros; in a Mamba-2 mixer ``conv_w`` normal · 0.1, ``conv_b`` and
+``dt_bias`` zeros, ``A_log = log(linspace(1, 16, H))`` and ``D`` ones.
+The numbers differ from JAX's for the same seed; tests hand weights
+across with ``from_jax_params`` instead.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from . import model as model_mod
 from .layers import Dense, Embedding, RMSNorm
+from .ssm import Mamba2
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -72,6 +75,13 @@ def init_params(cfg, generator: torch.Generator,
             mod.embedding.copy_(_normal(mod.embedding.shape, generator) * 0.02)
         elif isinstance(mod, RMSNorm):
             mod.scale.fill_(1.0)
+        elif isinstance(mod, Mamba2):
+            mod.conv_w.copy_(_normal(mod.conv_w.shape, generator) * 0.1)
+            mod.conv_b.zero_()
+            mod.A_log.copy_(torch.log(torch.linspace(
+                1.0, 16.0, mod.A_log.shape[0], device=generator.device)))
+            mod.dt_bias.zero_()
+            mod.D.fill_(1.0)
     return model.requires_grad_(False)
 
 

@@ -1,6 +1,6 @@
 """Family dispatcher: the single entry point the engine and launcher use.
 
-Only the dense family is ported.  Other families raise
+The dense and SSM families are ported.  Other families raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
@@ -13,8 +13,7 @@ from . import transformer
 
 # ROADMAP.md queue 1 items for the families this slice does not port
 _NOT_PORTED = {
-    "ssm": "item 4 (SSM family)",
-    "hybrid": "item 4 (SSM family)",
+    "hybrid": "item 1 (hybrid family, zamba2-2.7b)",
     "moe": "item 5 (MoE family)",
     "encdec": "item 7 (enc-dec and VLM)",
     "vlm": "item 7 (enc-dec and VLM)",
@@ -30,7 +29,7 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet "
             f"(ROADMAP.md queue 1, item 6 (MLA))")
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
 
 

@@ -1,10 +1,13 @@
-"""Decoder-only LM, dense family: the port of ``repro.models.transformer``.
+"""Decoder-only LM, dense and SSM families: the port of
+``repro.models.transformer``.
 
 The reference scans stacked per-layer params; here the layers are a
-``ModuleList`` walked in Python, and the cache is a list with one
-dict(k, v, pos) per layer under ``"blocks"``.  Attribute names follow the
-reference params tree (``embed.embedding``, ``final_norm.scale``,
-``blocks.<i>.attn.wq.w`` ...), which ``convert.from_jax_params`` relies on.
+``ModuleList`` walked in Python, and the cache is a list with one dict per
+layer under ``"blocks"``: (k, v, pos) for a dense block, (state, conv,
+pos) for a Mamba-2 block.  Attribute names follow the reference params
+tree (``embed.embedding``, ``final_norm.scale``, ``blocks.<i>.attn.wq.w``,
+``blocks.<i>.mixer.A_log`` ...), which ``convert.from_jax_params`` relies
+on.
 
 Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``.
 """
@@ -18,6 +21,7 @@ from torch import nn
 from .attention import GQA, gqa_apply, gqa_cache_init
 from .layers import (Dense, Embedding, RMSNorm, SwiGLU, dense, embed, rmsnorm,
                      swiglu, unembed)
+from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
 
 
 class DenseBlock(nn.Module):
@@ -39,8 +43,28 @@ def dense_block_apply(p: DenseBlock, cfg, x: torch.Tensor,
     return x, new_cache
 
 
+class MambaBlock(nn.Module):
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm = RMSNorm(cfg.d_model, dtype)
+        self.mixer = Mamba2(cfg, dtype)
+
+
+def mamba_block_apply(p: MambaBlock, cfg, x: torch.Tensor,
+                      positions: torch.Tensor, cache: Optional[Dict] = None
+                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    h, new_cache = mamba2_apply(p.mixer, cfg, rmsnorm(p.norm, x, cfg.norm_eps),
+                                cache=cache)
+    return x + h, new_cache
+
+
+# family -> (block parameters, block apply)
+_BLOCKS = {"dense": (DenseBlock, dense_block_apply),
+           "ssm": (MambaBlock, mamba_block_apply)}
+
+
 class Transformer(nn.Module):
-    """Parameters of a dense decoder-only LM (the reference's params tree)."""
+    """Parameters of a decoder-only LM (the reference's params tree)."""
 
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -48,16 +72,18 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dtype)
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype)
-        self.blocks = nn.ModuleList(DenseBlock(cfg, dtype)
+        block = _BLOCKS[cfg.family][0]
+        self.blocks = nn.ModuleList(block(cfg, dtype)
                                     for _ in range(cfg.n_layers))
 
 
 def _backbone(cfg, model: Transformer, x: torch.Tensor,
               positions: torch.Tensor, caches: Optional[Dict] = None):
     """Embedded input -> final hidden states.  Returns (x, new_caches)."""
+    apply = _BLOCKS[cfg.family][1]
     new_layers: List[Dict] = []
     for i, block in enumerate(model.blocks):
-        x, nc = dense_block_apply(
+        x, nc = apply(
             block, cfg, x, positions,
             caches["blocks"][i] if caches is not None else None)
         new_layers.append(nc)
@@ -86,6 +112,11 @@ def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None) -> Dict:
+    """One cache per layer; ``max_len`` sizes the KV cache of a dense
+    block and nothing of an SSM block."""
+    if cfg.family == "ssm":
+        return {"blocks": [mamba2_cache_init(cfg, batch, dtype, device)
+                           for _ in range(cfg.n_layers)]}
     return {"blocks": [gqa_cache_init(cfg, batch, max_len, dtype, device)
                        for _ in range(cfg.n_layers)]}
 

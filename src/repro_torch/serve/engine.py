@@ -6,6 +6,9 @@ prompt batch, then one decode step per new token for every row together.
 The engine sets ``cfg.fresh_prefill_kernel`` as the reference does, since
 its prefill always starts on a new cache; under ``attention_impl='pallas'``
 the prefill runs the flash kernel and every decode step the decode kernel.
+An SSM model is served the same way: under ``ssm_impl='pallas'`` the
+prefill runs the SSD scan kernel and every decode step the SSD decode
+kernel; ``max_len`` sizes no SSM cache.
 Steps run through ``StepTimer``, so the first call of each phase is kept
 apart from steady-state time.
 
@@ -40,7 +43,7 @@ class Engine:
         if scfg.temperature > 0.0:
             raise NotImplementedError(
                 "sampling with temperature > 0 needs the reference's "
-                "threefry key chains (ROADMAP.md queue 1, item 2)")
+                "threefry key chains (ROADMAP.md queue 1, item 3)")
         model_mod.check_supported(cfg)
         if not cfg.fresh_prefill_kernel:
             cfg = dataclasses.replace(cfg, fresh_prefill_kernel=True)

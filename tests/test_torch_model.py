@@ -143,7 +143,7 @@ def test_chunked_attention_matches(valid, causal, block):
 
 
 @pytest.mark.parametrize("family,item", [("moe", "item 5"),
-                                         ("ssm", "item 4"),
+                                         ("hybrid", "item 1"),
                                          ("encdec", "item 7")])
 def test_unported_family_names_roadmap_item(family, item):
     cfg = dataclasses.replace(port_qwen3.SMOKE, family=family)
