@@ -17,7 +17,13 @@ Phases, in order; any failure exits non-zero:
    (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
        shapes through strided views, then the mamba2-1.3b path's shapes
        and dtypes, each under the relative tolerance stated at its
-       constant, with kernel and plain times beside the bound.
+       constant, with kernel and plain times beside the bound;
+   (e) vecadd, (f) matmul, (g) the stencil stage and (h) Floyd-Warshall:
+       small ragged shapes in every pump case (vecadd, integer-valued
+       matmul and Floyd-Warshall exact; stencil under
+       ``launch.paper.RTOL_STENCIL``), then the paper tables' card sizes
+       (matmul under ``launch.paper.RTOL_MATMUL``) with kernel, plain,
+       library and bound times.
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -26,7 +32,10 @@ Phases, in order; any failure exits non-zero:
    the kernel route's.
 5. end to end, mamba2-1.3b at full width the same way, with
    ``ssm_impl='pallas'`` against ``ssm_impl='xla'``.
-6. a ``{"kernels": [...]}`` line, then the last line
+6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
+   card sizes, in this process, every row held to its plain version;
+   launch counts of the four paper kernels are read around that run.
+7. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
@@ -44,9 +53,6 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
-PEAK_BF16 = 989e12            # dense bf16 tensor-core FLOP/s
-PEAK_FP32 = 67e12             # fp32 outside the tensor cores
 ATOL_FP32 = 1e-5              # kernel vs plain, fp32 inputs
 ATOL_BF16 = 2e-2              # kernel vs plain, bf16 outputs (2^-8 rounding)
 # kernel route vs plain route logits after 28 bf16 layers: the two differ
@@ -70,42 +76,11 @@ RTOL_SSD_BF16 = 2.0 ** -7
 # walk, to some 5% of logits that reach about 5 here, and 0.5 (10%) leaves
 # room for it while a wrong decay or a lost chunk moves logits by O(1)
 ATOL_E2E_SSM_LOGITS = 0.5
-TIMING_ITERS = 20
 
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def bound(nbytes: float, flops: float, peak: float):
-    """Least time (ms) the card could take, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-class Timer:
-    """Per-launch CUDA-event times, with L2 (50 MB) flushed before each."""
-
-    def __init__(self):
-        self._flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
-                                  device="cuda")
-
-    def ms(self, fn, iters: int = TIMING_ITERS) -> float:
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(iters):
-            self._flush.zero_()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        return statistics.median(times)
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -175,8 +150,10 @@ def phase_build():
     print(f"[build] all kernels built in {wall:.2f}s (parallel nvcc)")
 
 
-def phase_kernels(timer: Timer):
+def phase_kernels(timer):
     """Each kernel against its plain version; returns the kernels entries."""
+    from repro_torch.core.pump_plan import (PEAK_FLOPS_BF16, PEAK_FLOPS_FP32,
+                                            bound_ms)
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -217,8 +194,8 @@ def phase_kernels(timer: Timer):
           f"{e_fa:.3g} (atol {ATOL_BF16})")
     check(e_fa <= ATOL_BF16, f"flash bf16 err {e_fa} > {ATOL_BF16}")
     pairs = sum(min(i + 1, s) for i in range(s))
-    fa_bound, fa_by = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                            4.0 * b * h * d * pairs, PEAK_BF16)
+    fa_bound, fa_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                               4.0 * b * h * d * pairs, PEAK_FLOPS_BF16)
     fa_ms = timer.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
     fa_plain = timer.ms(lambda: ref.flash_attention(q, k, v, causal=True))
     fa_lib = timer.ms(lambda: F.scaled_dot_product_attention(
@@ -236,9 +213,9 @@ def phase_kernels(timer: Timer):
           f"pos {pos_main}: max abs err {e_da:.3g} (atol {ATOL_BF16})")
     check(e_da <= ATOL_BF16, f"decode err {e_da} > {ATOL_BF16}")
     n_keys = b * (pos_main + 1)
-    da_bound, da_by = bound(
+    da_bound, da_by = bound_ms(
         2 * qd.numel() * 2 + pd.numel() * 4 + 2 * n_keys * hkv * d * 4,
-        4.0 * h * d * n_keys, PEAK_FP32)
+        4.0 * h * d * n_keys, PEAK_FLOPS_FP32)
     da_ms = timer.ms(lambda: da.decode_attention_cuda(qd, kc, vc, pd))
     da_plain = timer.ms(lambda: ref.decode_attention(qd, kc, vc, pd))
     q4 = qd.float()[:, :, None, :]
@@ -281,9 +258,10 @@ def ssd_inputs(gen, b, l, h, g, n, p, dtype=torch.float32):
     return x, dt, a, bm, cm
 
 
-def phase_ssd_kernels(timer: Timer):
+def phase_ssd_kernels(timer):
     """The SSD scan and decode kernels against their plain versions;
     returns their kernels entries."""
+    from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_decode as sd
     from repro_torch.kernels import ssd_scan as ss
@@ -330,7 +308,7 @@ def phase_ssd_kernels(timer: Timer):
                                                       + n * p * chunk))
     nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, cm, y,
                                                          st))
-    ss_bound, ss_by = bound(nbytes, flops, PEAK_FP32)
+    ss_bound, ss_by = bound_ms(nbytes, flops, PEAK_FLOPS_FP32)
     ss_ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
                                               final_state=True))
     ss_plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
@@ -368,7 +346,8 @@ def phase_ssd_kernels(timer: Timer):
           f"ssd_decode rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
     nbytes = sum(t.numel() * t.element_size() for t in (st, x, dt, a, bm, cm,
                                                          y, st2))
-    sd_bound, sd_by = bound(nbytes, 5.0 * b * h * n * p, PEAK_FP32)
+    sd_bound, sd_by = bound_ms(nbytes, 5.0 * b * h * n * p,
+                               PEAK_FLOPS_FP32)
     sd_ms = timer.ms(lambda: sd.ssd_decode_cuda(st, x, dt, a, bm, cm))
     sd_plain = timer.ms(lambda: ref.ssd_decode(st, x, dt, a, bm, cm))
     print(f"[ssd_decode] kernel {sd_ms:.4f} ms, plain {sd_plain:.4f} ms, "
@@ -390,6 +369,228 @@ def phase_ssd_kernels(timer: Timer):
          "max_abs_err": e_dec, "ms": sd_ms, "plain_ms": sd_plain,
          "bound_ms": sd_bound, "bound_by": sd_by, "library_ms": None},
     ]
+
+
+def phase_paper_kernels(timer):
+    """(e) vecadd, (f) matmul, (g) the stencil stage, (h) Floyd-Warshall
+    against their plain versions: fp32 at small ragged shapes for every
+    pump case, then the paper tables' card sizes with kernel, plain,
+    library and bound times.  Returns their kernels entries."""
+    from repro_torch.core.ir import PumpSpec
+    from repro_torch.core.pump_plan import (PEAK_FLOPS_FP32, PEAK_OPS_FP32,
+                                            bound_ms)
+    from repro_torch.kernels import floyd_warshall as fw
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stencil as st
+    from repro_torch.kernels import vecadd as va
+    from repro_torch.launch import paper
+    gen = torch.Generator(device="cuda").manual_seed(2024)
+    pumps = [PumpSpec(1), PumpSpec(2), PumpSpec(4), PumpSpec(2, "R")]
+
+    def ints(*shape, dtype=torch.float32):
+        """Integer values in [-4, 4]: every partial sum of a product is an
+        exact fp32 integer, so matmul must agree exactly."""
+        return torch.randint(-4, 5, shape, generator=gen,
+                             device="cuda").to(dtype)
+
+    # (e) vecadd: ragged lengths, V 2 / 4 / 8 in every pump case, fp32 and
+    # bf16, exact (both round one add once)
+    worst = 0.0
+    for n in (1, 37, 100, 4099, 1000003):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, y = randn(gen, n, dtype=dtype), randn(gen, n, dtype=dtype)
+            for v in (2, 4, 8):
+                for spec in pumps + [PumpSpec(4, "R")]:
+                    if spec.mode == "R" and v % spec.factor:
+                        continue
+                    e = err(va.vecadd_cuda(x, y, vector_width=v, pump=spec),
+                            ref.vecadd(x, y))
+                    worst = max(worst, e)
+                    check(e == 0, f"vecadd n={n} {dtype} V={v} {spec}: "
+                                  f"max abs err {e}")
+    print(f"[vecadd] n 1 / 37 / 100 / 4099 / 1000003, fp32 and bf16, V 2-8, "
+          f"M 1 / 2 / 4 T and 2 / 4 R: max abs err {worst} (exact)")
+    n = paper.CARD["vecadd_n"]
+    x, y = randn(gen, n), randn(gen, n)
+    dp = PumpSpec(2, "R")
+    e_va = err(va.vecadd_cuda(x, y, vector_width=8, pump=dp), ref.vecadd(x, y))
+    check(e_va == 0, f"vecadd card size: max abs err {e_va}")
+    va_bound, va_by = bound_ms(3 * n * 4, n, PEAK_OPS_FP32)
+    va_o = timer.ms(lambda: va.vecadd_cuda(x, y, vector_width=8, pump=1))
+    va_ms = timer.ms(lambda: va.vecadd_cuda(x, y, vector_width=8, pump=dp))
+    va_plain = timer.ms(lambda: ref.vecadd(x, y))
+    va_lib = timer.ms(lambda: torch.add(x, y))
+    print(f"[vecadd] N 2^28 fp32, V 8: kernel O {va_o:.4f} ms, DP (M 2 R) "
+          f"{va_ms:.4f} ms, plain {va_plain:.4f} ms, torch.add "
+          f"{va_lib:.4f} ms, bound {va_bound:.4f} ms ({va_by}); max abs err "
+          f"{e_va}")
+    del x, y
+
+    # (f) matmul: ragged and unaligned M, N, K; both tiles, every pump
+    # case; integer values (exact) in fp32 and bf16, normal values under
+    # RTOL_MATMUL
+    worst = 0.0
+    for m, k, n in ((100, 70, 50), (37, 129, 65), (64, 64, 64),
+                    (130, 33, 200), (1, 300, 7)):
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = ints(m, k, dtype=dtype), ints(k, n, dtype=dtype)
+            want = ref.matmul(a, b, out_dtype=dtype)
+            for bn in (64, 128):
+                for spec in pumps + [PumpSpec(4, "R")]:
+                    e = err(mm.matmul_cuda(a, b, bm=64, bn=bn, bk=32,
+                                           pump=spec), want)
+                    worst = max(worst, e)
+                    check(e == 0, f"matmul {m}x{k}x{n} {dtype} bn {bn} "
+                                  f"{spec}: max abs err {e}")
+        a, b = randn(gen, m, k), randn(gen, k, n)
+        e = rel_err(mm.matmul_cuda(a, b, pump=PumpSpec(2, "R")),
+                    ref.matmul(a, b))
+        check(e <= paper.RTOL_MATMUL, f"matmul {m}x{k}x{n} normal: rel {e}")
+    print(f"[matmul] integer-valued fp32 / bf16 at 100x70x50, 37x129x65, "
+          f"64^3, 130x33x200, 1x300x7, tiles 64x64 / 64x128 x 32, M 1 / 2 / "
+          f"4 T and 2 / 4 R: max abs err {worst} (exact)")
+    size = paper.CARD["mm"]
+    a, b = randn(gen, size, size), randn(gen, size, size)
+    want = ref.matmul(a, b)
+    cases = {}
+    for name, bn, spec in paper.TABLE3_CASES:
+        out = mm.matmul_cuda(a, b, bm=paper.BM, bn=bn, bk=paper.BK, pump=spec)
+        e = rel_err(out, want)
+        check(e <= paper.RTOL_MATMUL,
+              f"{name} {size}^3: rel err {e} > {paper.RTOL_MATMUL}")
+        ms = timer.ms(lambda: mm.matmul_cuda(a, b, bm=paper.BM, bn=bn,
+                                             bk=paper.BK, pump=spec))
+        cases[name] = (ms, e, err(out, want))
+    mm_ms, mm_rel, e_mm = cases["mmm_32PE_DP"]
+    mm_bound, mm_by = bound_ms(3 * size * size * 4, 2.0 * size ** 3,
+                               PEAK_FLOPS_FP32)
+    mm_plain = timer.ms(lambda: ref.matmul(a, b))
+    mm_lib = timer.ms(lambda: torch.matmul(a, b))
+    print(f"[matmul] {size}^3 fp32: " + ", ".join(
+        f"{k} {v[0]:.4f} ms (rel err {v[1]:.3g})" for k, v in cases.items())
+        + f"; plain {mm_plain:.4f} ms, torch.matmul {mm_lib:.4f} ms, bound "
+        f"{mm_bound:.4f} ms ({mm_by}; rtol {paper.RTOL_MATMUL})")
+    del a, b, want
+
+    # (g) stencil: ragged planes, both kinds, M 1 / 2 / 4, 1 and 3 stages,
+    # under RTOL_STENCIL
+    worst = 0.0
+    for shape in ((10, 8, 8), (18, 16, 16), (6, 37, 70), (34, 33, 65),
+                  (4, 3, 3)):
+        x = randn(gen, *shape)
+        for kind in ("jacobi", "diffusion"):
+            for stages in (1, 3):
+                want = ref.stencil_chain(x, stages, kind=kind)
+                for m in (1, 2, 4):
+                    if (shape[0] - 2) % m:
+                        continue
+                    got = st.stencil_chain_cuda(x, stages, kind=kind, pump=m)
+                    e = rel_err(got, want)
+                    worst = max(worst, err(got, want))
+                    check(e <= paper.RTOL_STENCIL,
+                          f"stencil {shape} {kind} S{stages} M{m}: rel {e}")
+    print(f"[stencil] (10,8,8), (18,16,16), (6,37,70), (34,33,65), (4,3,3), "
+          f"jacobi and diffusion, S 1 / 3, M 1 / 2 / 4: max abs err {worst} "
+          f"(rtol {paper.RTOL_STENCIL})")
+    shape = paper.CARD["volume"]
+    x = randn(gen, *shape)
+    interior = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
+    want = ref.jacobi3d(x)
+    got = st.stencil_chain_cuda(x, 1, pump=2)
+    e_st = err(got, want)
+    check(rel_err(got, want) <= paper.RTOL_STENCIL,
+          f"stencil card size: max abs err {e_st}")
+    st_bound, st_by = bound_ms(2 * x.numel() * 4, 7 * interior,
+                               PEAK_OPS_FP32)
+    st_o = timer.ms(lambda: st.stencil_chain_cuda(x, 1, pump=1))
+    st_ms = timer.ms(lambda: st.stencil_chain_cuda(x, 1, pump=2))
+    st_plain = timer.ms(lambda: ref.jacobi3d(x))
+    # the interior of one jacobi stage as one cuDNN convolution (boundary
+    # not copied), TF32 off
+    w = torch.zeros(1, 1, 3, 3, 3, device="cuda")
+    for i, j, k in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0),
+                    (1, 1, 2), (1, 1, 1)):
+        w[0, 0, i, j, k] = 1.0 / 7.0
+    x5 = x[None, None]
+    st_lib = timer.ms(lambda: F.conv3d(x5, w))
+    print(f"[stencil] jacobi stage on {shape} fp32: kernel O {st_o:.4f} ms, "
+          f"DP (M 2) {st_ms:.4f} ms, plain {st_plain:.4f} ms, conv3d "
+          f"(interior) {st_lib:.4f} ms, bound {st_bound:.4f} ms ({st_by}); "
+          f"max abs err {e_st:.3g}")
+    del x, x5, want, got
+
+    # (h) Floyd-Warshall: n 37 at M 1, every M dividing n up to 16, exact
+    for n, ms_ in ((37, (1,)), (8, (1, 2, 4, 8)), (100, (1, 2, 4)),
+                   (128, (1, 2, 4, 8, 16)), (500, (1, 2, 4))):
+        d = paper.distances(n, gen, torch.device("cuda"))
+        want = ref.floyd_warshall(d)
+        for m in ms_:
+            e = err(fw.floyd_warshall_cuda(d, pump=m), want)
+            check(e == 0, f"floyd_warshall n={n} M={m}: max abs err {e}")
+    print("[floyd_warshall] n 37 (M 1), 8 (M 1-8), 100 (M 1-4), 128 "
+          "(M 1-16), 500 (M 1-4): exact")
+    n = paper.CARD["fw"][-1]
+    d = paper.distances(n, gen, torch.device("cuda"))
+    want = ref.floyd_warshall(d)
+    e_fw = err(fw.floyd_warshall_cuda(d, pump=2), want)
+    check(e_fw == 0, f"floyd_warshall n={n}: max abs err {e_fw}")
+    fw_bound, fw_by = bound_ms(2 * n * n * 4, 2.0 * n ** 3, PEAK_OPS_FP32)
+    fw_o = timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=1), iters=3)
+    fw_ms = timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=2), iters=3)
+    fw_plain = timer.ms(lambda: ref.floyd_warshall(d), iters=2)
+    print(f"[floyd_warshall] n {n} fp32: kernel O {fw_o:.4f} ms, DP (M 2) "
+          f"{fw_ms:.4f} ms, plain {fw_plain:.4f} ms, bound {fw_bound:.4f} ms "
+          f"({fw_by}); max abs err {e_fw}")
+    del d, want
+
+    return [
+        {"name": "vecadd", "route": "cuda",
+         "source": "src/repro_torch/csrc/vecadd.cu",
+         "replaces": "src/repro/kernels/vecadd.py:64",
+         "max_abs_err": e_va, "ms": va_ms, "plain_ms": va_plain,
+         "bound_ms": va_bound, "bound_by": va_by, "library_ms": va_lib},
+        {"name": "matmul", "route": "cuda",
+         "source": "src/repro_torch/csrc/matmul.cu",
+         "replaces": "src/repro/kernels/matmul.py:97",
+         "max_abs_err": e_mm, "ms": mm_ms, "plain_ms": mm_plain,
+         "bound_ms": mm_bound, "bound_by": mm_by, "library_ms": mm_lib},
+        {"name": "stencil", "route": "cuda",
+         "source": "src/repro_torch/csrc/stencil.cu",
+         "replaces": "src/repro/kernels/stencil.py:77",
+         "max_abs_err": e_st, "ms": st_ms, "plain_ms": st_plain,
+         "bound_ms": st_bound, "bound_by": st_by, "library_ms": st_lib},
+        {"name": "floyd_warshall", "route": "cuda",
+         "source": "src/repro_torch/csrc/floyd_warshall.cu",
+         "replaces": "src/repro/kernels/floyd_warshall.py:63",
+         "max_abs_err": e_fw, "ms": fw_ms, "plain_ms": fw_plain,
+         "bound_ms": fw_bound, "bound_by": fw_by, "library_ms": None},
+    ]
+
+
+def phase_paper():
+    """The paper-table path: ``launch.paper --mode all`` at the card sizes,
+    in this process; every row is held to its plain version inside the
+    launcher.  Returns the launches of that run."""
+    import importlib
+    from repro_torch.launch import paper
+    names = ("vecadd", "matmul", "stencil", "floyd_warshall")
+    mods = {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in names}
+    t0 = time.perf_counter()
+    for mod in mods.values():
+        mod.launches = 0
+    rows = paper.main(["--mode", "all"])
+    launches = {n: mod.launches for n, mod in mods.items()}
+    print(f"[paper] {len(rows)} rows in {time.perf_counter() - t0:.1f}s; "
+          f"launches: {launches}")
+    check(len(rows) == 6 + 3 + 8 + 3 * len(paper.CARD["fw"]),
+          f"paper rows {len(rows)}")
+    check(all(r.us > 0 for r in rows if not r.name.endswith("_speedup")),
+          "a paper row was not timed")
+    for n in names:
+        check(launches[n] > 0, f"{n} was not launched on the paper path")
+    return launches
 
 
 def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
@@ -496,16 +697,19 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    from repro_torch.launch.timing import Timer
     t_start = time.perf_counter()
     phase_env()
     phase_build()
     timer = Timer()
-    kernels = phase_kernels(timer) + phase_ssd_kernels(timer)
+    kernels = (phase_kernels(timer) + phase_ssd_kernels(timer)
+               + phase_paper_kernels(timer))
     launches = phase_e2e("qwen3-0.6b", "attention_impl", "pallas",
                          "xla_chunked", "flash_attention", "decode_attention",
                          ATOL_E2E_LOGITS)
     launches.update(phase_e2e("mamba2-1.3b", "ssm_impl", "pallas", "xla",
                               "ssd_scan", "ssd_decode", ATOL_E2E_SSM_LOGITS))
+    launches.update(phase_paper())
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     print(f"[done] {time.perf_counter() - t_start:.1f}s")

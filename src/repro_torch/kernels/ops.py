@@ -4,7 +4,13 @@ A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
 takes the plain PyTorch version in ``ref``.  Nothing falls back from the
 card to the plain version.  The launch counts live on the kernel modules
 (``flash_attention.launches``, ``decode_attention.launches``,
-``ssd_scan.launches``, ``ssd_decode.launches``).
+``ssd_scan.launches``, ``ssd_decode.launches``, ``vecadd.launches``,
+``matmul.launches``, ``stencil.launches``, ``floyd_warshall.launches``).
+
+The paper's four kernels take ``pump`` as a factor or a ``PumpSpec`` and
+raise the reference's ``ValueError`` for shapes the pump cannot divide, on
+either device; ``'auto'`` and ``'measure'`` need the compiler, which is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -12,11 +18,16 @@ from typing import Optional, Union
 
 import torch
 
+from ..core.ir import PumpSpec
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import floyd_warshall as _fw
+from . import matmul as _mm
 from . import ref
 from . import ssd_decode as _sd
 from . import ssd_scan as _ss
+from . import stencil as _st
+from . import vecadd as _va
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -67,3 +78,72 @@ def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     if _route(x, "ssd_decode"):
         return _sd.ssd_decode_cuda(state, x, dt, A, B, C)
     return ref.ssd_decode(state, x, dt, A, B, C)
+
+
+# ------------------------------------------------ the paper's four kernels --
+def _as_spec(pump: Union[PumpSpec, int, str]) -> PumpSpec:
+    if pump in ("auto", "measure"):
+        raise NotImplementedError(
+            f"pump={pump!r} plans the factor through the compiler, which the "
+            f"port does not have yet; pass a factor or a PumpSpec")
+    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
+
+
+def vecadd(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
+           pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
+    """z = x + y, 1-D, with spatial width V and temporal pump M (paper
+    Table 2); any length (the kernel masks the ragged tail)."""
+    spec = _as_spec(pump)
+    if spec.mode == "R" and vector_width % spec.factor:
+        raise ValueError(f"V={vector_width} not divisible by M={spec.factor} "
+                         f"in mode R")
+    if _route(x, "vecadd"):
+        return _va.vecadd_cuda(x, y, vector_width=vector_width, pump=spec)
+    return ref.vecadd(x, y)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64, bn: int = 64,
+           bk: int = 32, pump: Union[PumpSpec, int, str] = 1,
+           out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """a (M, K) · b (K, N) with a pump-M K stream (paper Table 3), fp32
+    accumulation over the whole K, rounded once to ``out_dtype`` (default
+    a's).  The default tile is one the kernel is built for (the reference's
+    default is 128 x 128 x 128)."""
+    spec = _as_spec(pump)
+    if spec.mode == "R" and bn % spec.factor:
+        raise ValueError(f"bn={bn} not divisible by M={spec.factor} for "
+                         f"mode R")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} do not chain")
+    if _route(a, "matmul"):
+        return _mm.matmul_cuda(a, b, bm=bm, bn=bn, bk=bk, pump=spec,
+                               out_dtype=out_dtype)
+    return ref.matmul(a, b, out_dtype=out_dtype or a.dtype)
+
+
+def stencil_chain(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
+                  coef: float = 0.1,
+                  pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
+    """``stages`` 7-point stages (jacobi or diffusion) over a (d0, d1, d2)
+    volume, M interior planes per program (paper Tables 4-5)."""
+    f = _as_spec(pump).factor
+    if (x.shape[0] - 2) % f:
+        raise ValueError("interior plane count must divide the pump factor")
+    if _route(x, "stencil_chain"):
+        return _st.stencil_chain_cuda(x, stages, kind=kind, coef=coef,
+                                      pump=f)
+    return ref.stencil_chain(x, stages, kind=kind, coef=coef)
+
+
+def floyd_warshall(dist: torch.Tensor, *,
+                   pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
+    """All-pairs shortest paths, M dependent pivots per slab (paper
+    Table 6)."""
+    f = _as_spec(pump).factor
+    n = dist.shape[0]
+    if n % f:
+        raise ValueError(f"n={n} must divide pump factor {f}")
+    if _route(dist, "floyd_warshall"):
+        return _fw.floyd_warshall_cuda(dist, pump=f)
+    return ref.floyd_warshall(dist)

@@ -138,3 +138,60 @@ def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
         + (Bh * dtf[..., None])[..., :, None] * x.to(f32)[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", Ch, st)
     return y, st
+
+
+# ------------------------------------------------ the paper's four kernels --
+def vecadd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """z = x + y (``repro/kernels/ref.py:13``)."""
+    return x + y
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor,
+           out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """a (M, K) · b (K, N) in fp32, rounded once to ``out_dtype``."""
+    return torch.matmul(a.float(), b.float()).to(out_dtype)
+
+
+def _stencil_interior(x: torch.Tensor, kind: str, coef: float) -> torch.Tensor:
+    """The updated interior of one stage, summed in the Pallas body's order
+    (``repro/kernels/stencil.py:40-51``): the planes before and after, then
+    the rows above and below, then the columns left and right."""
+    prev, cur, nxt = x[:-2], x[1:-1], x[2:]
+    c = cur[:, 1:-1, 1:-1]
+    neigh = (prev[:, 1:-1, 1:-1] + nxt[:, 1:-1, 1:-1]
+             + cur[:, :-2, 1:-1] + cur[:, 2:, 1:-1]
+             + cur[:, 1:-1, :-2] + cur[:, 1:-1, 2:])
+    if kind == "jacobi":
+        return (neigh + c) * (1.0 / 7.0)
+    return c + coef * (neigh - 6.0 * c)
+
+
+def jacobi3d(x: torch.Tensor) -> torch.Tensor:
+    """One 7-point Jacobi stage on a (d0, d1, d2) volume, boundary copied."""
+    y = x.clone()
+    y[1:-1, 1:-1, 1:-1] = _stencil_interior(x, "jacobi", 0.0)
+    return y
+
+
+def diffusion3d(x: torch.Tensor, coef: float = 0.1) -> torch.Tensor:
+    """One explicit diffusion stage, c + coef·(Σ6 − 6c), boundary copied."""
+    y = x.clone()
+    y[1:-1, 1:-1, 1:-1] = _stencil_interior(x, "diffusion", coef)
+    return y
+
+
+def stencil_chain(x: torch.Tensor, stages: int, kind: str = "jacobi",
+                  coef: float = 0.1) -> torch.Tensor:
+    """``stages`` stencil stages in a row (``kind`` jacobi or diffusion)."""
+    for _ in range(stages):
+        x = jacobi3d(x) if kind == "jacobi" else diffusion3d(x, coef)
+    return x
+
+
+def floyd_warshall(dist: torch.Tensor) -> torch.Tensor:
+    """All-pairs shortest paths over an (n, n) matrix: for k in order,
+    d ← min(d, d[:, k] + d[k, :]) from the d of step k − 1."""
+    d = dist
+    for k in range(d.shape[0]):
+        d = torch.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+    return d

@@ -1,1 +1,2 @@
-"""Launchers: the serving CLI and step timing."""
+"""Launchers: the serving CLI, the paper-table launcher, step and kernel
+timing."""
