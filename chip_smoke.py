@@ -23,7 +23,14 @@ Phases, in order; any failure exits non-zero:
        matmul and Floyd-Warshall exact; stencil under
        ``launch.paper.RTOL_STENCIL``), then the paper tables' card sizes
        (matmul under ``launch.paper.RTOL_MATMUL``) with kernel, plain,
-       library and bound times.
+       library and bound times;
+   (i) the grouped GEMM: small ragged groups (empty experts, one-row
+       groups), the dense form with ragged C, F and D, and a worst-case
+       device table, in every pump case (exact on integer values, 1e-5 of
+       the largest value on normal ones); then deepseek-v2-lite's MoE
+       shapes in bf16 (the padded groups of a seeded top-6 routing of a
+       prefill of 8 x 512 tokens and of one decode step of 8) under
+       ``RTOL_GG_BF16``, with kernel, plain, library and bound times.
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -31,7 +38,13 @@ Phases, in order; any failure exits non-zero:
    (``attention_impl='xla_chunked'``) and each step's logits are held to
    the kernel route's.
 5. end to end, mamba2-1.3b at full width the same way, with
-   ``ssm_impl='pallas'`` against ``ssm_impl='xla'``.
+   ``ssm_impl='pallas'`` against ``ssm_impl='xla'``; then
+   deepseek-v2-lite-16b at full width (27 layers, 64 experts, 31.4 GB of
+   bf16 weights) the same way, its MoE layers dropless through the ragged
+   grouped GEMM (78 launches per prefill and per decode step) against the
+   dense dropless einsum path: one MoE layer on the same input under
+   ``RTOL_MOE_LAYER``, then every step's logits under
+   ``ATOL_E2E_MOE_LOGITS``, with the peak device memory.
 6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
@@ -76,6 +89,29 @@ RTOL_SSD_BF16 = 2.0 ** -7
 # walk, to some 5% of logits that reach about 5 here, and 0.5 (10%) leaves
 # room for it while a wrong decay or a lost chunk moves logits by O(1)
 ATOL_E2E_SSM_LOGITS = 0.5
+# grouped GEMM kernel vs plain on the MoE path's bf16 shapes, relative to
+# the largest |value|: both sum D in fp32 (in another order) and round once
+# to bf16, so an output may differ by one bf16 ulp, 2^-8 of its binade and
+# so at most 2^-7 of the largest value
+RTOL_GG_BF16 = 2.0 ** -7
+# one MoE layer, ragged kernel route vs dense dropless plain route, on the
+# same input, relative to the largest |value|: the routing is identical, the
+# expert products sum in another order (kernel fp32 FMAs vs cuBLAS), so h
+# and y each round to bf16 with up to one ulp (2^-8 relative) of
+# difference, and h's differences carry through the down product: 2^-6
+# leaves twice that room, while a wrong expert or row moves y by O(1)
+RTOL_MOE_LAYER = 2.0 ** -6
+# deepseek-v2-lite kernel route vs plain route logits after 27 bf16 layers:
+# on top of the bf16 rounding above, one ulp in a hidden state flips a
+# token's top-6 choice wherever two router probabilities nearly tie, and a
+# flipped expert moves that token's hidden state by a share of the routed
+# output; those flips are real differences between two correct routes, so
+# the logits (about 5 at most here) get 2.0, while a wrong kernel makes
+# every step's logits unrelated (a diff of the logits' own size).  The
+# greedy argmax agreement is printed, not held: over 102,400 random-weight
+# logits the top two lie close, and even the qwen3 and mamba2 routes, with
+# no routing to flip, agree on only 94-97% of the rows
+ATOL_E2E_MOE_LOGITS = 2.0
 
 
 def check(cond: bool, msg: str) -> None:
@@ -101,12 +137,16 @@ def randn(gen, *shape, dtype=torch.float32):
 
 
 def err(a: torch.Tensor, b: torch.Tensor) -> float:
+    check(a.shape == b.shape, f"shapes {tuple(a.shape)} != {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0.0
     return (a.float() - b.float()).abs().max().item()
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max(1, max |want|)."""
-    return err(got, want) / max(1.0, want.float().abs().max().item())
+    return err(got, want) / max(1.0, want.float().abs().max().item()
+                                if want.numel() else 0.0)
 
 
 def warm_ttft_ms(eng, prompts, reps: int = 3) -> float:
@@ -568,6 +608,151 @@ def phase_paper_kernels(timer):
     ]
 
 
+def routed_layout(gen, tokens: int, e: int = 64, k: int = 6, d: int = 2048):
+    """The ragged route's layout for a top-k routing of ``tokens`` seeded
+    hidden states through a seeded router, as ``models.moe`` builds it:
+    (assignment rows, padded group sizes, tile table, buffer rows)."""
+    from repro_torch.models import moe
+    x = randn(gen, tokens, d)
+    probs = torch.softmax(x @ (randn(gen, d, e) / d ** 0.5), dim=-1)
+    return moe.ragged_layout(torch.topk(probs, k, dim=-1)[1], e)
+
+
+def phase_grouped_gemm(timer):
+    """(i) the grouped GEMM against its plain version: fp32 at small ragged
+    shapes in every pump case (empty experts, one-row groups, ragged C, F
+    and D in the dense form, surplus tiles of a worst-case table), then the
+    deepseek-v2-lite MoE path's shapes in bf16.  Returns its kernels
+    entry."""
+    from repro_torch.core.ir import PumpSpec
+    from repro_torch.core.pump_plan import PEAK_FLOPS_BF16, bound_ms
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    pumps = [PumpSpec(1), PumpSpec(2), PumpSpec(4), PumpSpec(2, "R"),
+             PumpSpec(4, "R")]
+
+    def ints(*shape, dtype=torch.float32):
+        """Integer values in [-4, 4]: every partial sum is an exact fp32
+        integer, so any summation order gives the same result."""
+        return torch.randint(-4, 5, shape, generator=gen,
+                             device="cuda").to(dtype)
+
+    def sweep(run, want, label, exact):
+        worst = 0.0
+        for bc, bf, bd in gg.TILES:
+            for spec in pumps:
+                got = run(bc=bc, bf=bf, bd=bd, pump=spec)
+                e = err(got, want) if exact else rel_err(got, want)
+                worst = max(worst, e)
+                check(e <= (0.0 if exact else ATOL_FP32),
+                      f"grouped_gemm {label} tile {(bc, bf, bd)} {spec}: "
+                      f"{'max abs' if exact else 'rel'} err {e}")
+        return worst
+
+    # ragged groups: empty experts, one-row groups, groups that are not
+    # row-tile multiples, unaligned D and F
+    worst = 0.0
+    for sizes, d, f in (([5, 0, 12, 3], 70, 50), ([1, 1, 0, 33], 33, 130),
+                        ([0, 0, 0, 17], 64, 128), ([40, 16, 1, 0, 7], 129, 65),
+                        ([0, 0], 8, 8)):
+        e = len(sizes)
+        for dtype in (torch.float32, torch.bfloat16):
+            for exact in (True, False):
+                if not exact and dtype != torch.float32:
+                    continue
+                mk = ints if exact else (lambda *s, dtype: randn(gen, *s))
+                x, w = mk(sum(sizes), d, dtype=dtype), mk(e, d, f, dtype=dtype)
+                want = ops.grouped_gemm(x.cpu(), w.cpu(), group_sizes=sizes)
+                worst = max(worst, sweep(
+                    lambda **kw: ops.grouped_gemm(x, w, group_sizes=sizes,
+                                                  **kw).cpu(),
+                    want, f"sizes {sizes} D{d} F{f} {dtype}", exact))
+    # the dense form: ragged C, F and D
+    for e, c, d, f in ((3, 37, 70, 50), (2, 16, 64, 128), (5, 1, 300, 7),
+                       (4, 130, 33, 200)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w = ints(e, c, d, dtype=dtype), ints(e, d, f, dtype=dtype)
+            want = ref.grouped_gemm(x, w)
+            worst = max(worst, sweep(
+                lambda **kw: ops.grouped_gemm(x, w, **kw), want,
+                f"dense E{e} C{c} D{d} F{f} {dtype}", True))
+    # a worst-case table built on the card: surplus tiles zero their rows
+    rows, padded, tiles, n_rows = routed_layout(gen, 40, e=8, k=2, d=64)
+    x, w = randn(gen, n_rows, 64), randn(gen, 8, 64, 96)
+    want = ref.ragged_grouped_gemm(x, w, tiles)
+    worst = max(worst, sweep(
+        lambda **kw: ops.grouped_gemm(x, w, tiles=tiles, **kw), want,
+        "device table", False))
+    check(bool((want[int(padded.sum()):] == 0).all()), "surplus rows not zero")
+    print(f"[grouped_gemm fp32/bf16] group sizes [5,0,12,3], [1,1,0,33], "
+          f"[0,0,0,17], [40,16,1,0,7], [0,0]; dense E3 C37 D70 F50, E2 C16 "
+          f"D64 F128, E5 C1 D300 F7, E4 C130 D33 F200; a worst-case device "
+          f"table; tiles {gg.TILES}, T1 / T2 / T4 / R2 / R4: exact on "
+          f"integer values, rel err {worst:.3g} on normal values (rtol "
+          f"{ATOL_FP32})")
+
+    # the deepseek-v2-lite path: top-6 of 64 experts for a prefill of
+    # 8 x 512 tokens and for one decode step of 8; gate / up (D 2048 ->
+    # F 1408) and down (1408 -> 2048), bf16
+    e, d, f = 64, 2048, 1408
+    w_up = (randn(gen, e, d, f) / d ** 0.5).to(torch.bfloat16)
+    w_down = (randn(gen, e, f, d) / f ** 0.5).to(torch.bfloat16)
+    shapes = []
+    for phase, tokens in (("prefill", 8 * 512), ("decode", 8)):
+        rows, padded, tiles, n_rows = routed_layout(gen, tokens)
+        used = int(padded.sum())
+        active = int((padded > 0).sum())
+        for name, w in (("gate/up", w_up), ("down", w_down)):
+            din, dout = w.shape[1], w.shape[2]
+            x = torch.zeros(n_rows, din, device="cuda", dtype=torch.bfloat16)
+            x[rows] = randn(gen, rows.numel(), din, dtype=torch.bfloat16)
+            got = ops.grouped_gemm(x, w, bc=16, tiles=tiles)
+            want = ref.ragged_grouped_gemm(x, w, tiles)
+            e_rel, e_abs = rel_err(got, want), err(got, want)
+            check(e_rel <= RTOL_GG_BF16,
+                  f"grouped_gemm {phase} {name}: rel err {e_rel}")
+            nbytes = 2 * (used * din + active * din * dout + used * dout)
+            bound, by = bound_ms(nbytes, 2.0 * used * din * dout,
+                                 PEAK_FLOPS_BF16)
+            ms = timer.ms(lambda: ops.grouped_gemm(x, w, bc=16, tiles=tiles))
+            plain = timer.ms(lambda: ref.ragged_grouped_gemm(x, w, tiles),
+                             iters=5)
+            lib = None
+            if hasattr(torch, "_grouped_mm"):
+                # the yardstick only: the port never calls it
+                offs = torch.cumsum(padded, 0).to(torch.int32)
+                try:
+                    lib = timer.ms(lambda: torch._grouped_mm(x, w, offs=offs))
+                except RuntimeError as exc:
+                    print(f"[grouped_gemm] torch._grouped_mm refused these "
+                          f"inputs: {str(exc).splitlines()[0]}")
+            print(f"[grouped_gemm {phase} {name}] {tokens} tokens x top-6: "
+                  f"{used} padded rows in {active} experts, D{din} F{dout} "
+                  f"bf16: rel err {e_rel:.3g} (rtol {RTOL_GG_BF16:.3g}), "
+                  f"max abs err {e_abs:.3g}; kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, torch._grouped_mm "
+                  f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                  f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+            shapes.append({"shape": f"{phase} {name}", "rows": used,
+                           "experts": active, "max_abs_err": e_abs, "ms": ms,
+                           "plain_ms": plain, "bound_ms": bound,
+                           "bound_by": by, "library_ms": lib})
+            del x, got, want
+    del w_up, w_down
+    # the kernels line carries the decode step's gate / up shape, the one
+    # launched most (52 of the 78 launches of each of the 64 steps); every
+    # shape is under "shapes"
+    main = shapes[2]
+    return [{"name": "grouped_gemm", "route": "cuda",
+             "source": "src/repro_torch/csrc/grouped_gemm.cu",
+             "replaces": "src/repro/kernels/grouped_gemm.py:70",
+             "max_abs_err": max(s_["max_abs_err"] for s_ in shapes),
+             **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+             "shapes": shapes}]
+
+
 def phase_paper():
     """The paper-table path: ``launch.paper --mode all`` at the card sizes,
     in this process; every row is held to its plain version inside the
@@ -593,35 +778,95 @@ def phase_paper():
     return launches
 
 
-def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
-              per_prefill: str, per_step: str, atol: float):
+def plain_moe(cfg):
+    """The ragged variant's plain route: the dense dropless einsum path,
+    the reference's own direct reference for MoE
+    (``benchmarks/serve_report.py:152``)."""
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ragged_dropless=False, inference_capacity_factor=0.0))
+
+
+def set_field(**fields):
+    return lambda cfg: dataclasses.replace(cfg, **fields)
+
+
+def check_moe_layer(cfg_k, cfg_p, model, prompts):
+    """One MoE layer on the same input through both routes: the hidden
+    states of the prompts after the dense block, through ``blocks[0]``'s
+    MoE at the prefill's shape and at one decode step's.  The routing is the
+    same (one router, one input), so only the expert products' summation
+    order and their bf16 roundings differ."""
+    from repro_torch.models import moe, transformer
+    from repro_torch.models.layers import embed, rmsnorm
+    with torch.no_grad():
+        x = embed(model.embed, prompts.cuda(), cfg_k.activation_dtype)
+        pos = torch.arange(x.shape[1], device="cuda")
+        for block in model.blocks_dense:
+            x = transformer.dense_block_apply(block, cfg_k, x, pos)[0]
+        layer = model.blocks[0]
+        x = rmsnorm(layer.norm2, x, cfg_k.norm_eps)
+        for name, xin in (("prefill", x), ("decode", x[:, -1:])):
+            y_k, aux_k = moe.moe_apply(layer.moe, cfg_k, xin, dropless=True)
+            y_p, aux_p = moe.moe_apply(layer.moe, cfg_p, xin, dropless=True)
+            e = rel_err(y_k, y_p)
+            print(f"[e2e] one MoE layer, kernel vs plain route, {name} "
+                  f"{tuple(xin.shape)}: rel err {e:.3g} (rtol "
+                  f"{RTOL_MOE_LAYER:.3g}), aux {aux_k.item():.6g} / "
+                  f"{aux_p.item():.6g}")
+            check(e <= RTOL_MOE_LAYER, f"MoE layer {name}: rel err {e}")
+            check(aux_k.item() == aux_p.item(), "aux losses differ")
+
+
+def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
+              per_step: dict, atol: float):
     """One model at full width through Engine.generate, batch 8, prompt
-    512, 64 new tokens, on seeded random bf16 weights: ``cfg.<impl>`` set to
-    ``kernel_impl`` for the kernel route, ``plain_impl`` for the plain one.
-    The kernel ``per_prefill`` must launch once per layer in the prefill,
-    ``per_step`` once per layer in each decode step.  Returns the launches
-    of that run."""
+    512, 64 new tokens, on seeded random bf16 weights.  ``kernel_route``
+    and ``plain_route`` are (name, config transform) pairs.  Each kernel
+    of ``per_prefill`` / ``per_step`` must launch that many times in the
+    prefill / in each decode step; the kernel route's logits must stay
+    within ``atol`` of the plain route's at every step.  Returns the
+    launches of the kernel route's run."""
+    import gc
     import importlib
     from repro_torch.configs.base import load_arch
     from repro_torch.models import convert
     from repro_torch.models import model as model_mod
     from repro_torch.serve.engine import Engine, ServeConfig
+    names = sorted(set(per_prefill) | set(per_step))
     mods = {name: importlib.import_module(f"repro_torch.kernels.{name}")
-            for name in (per_prefill, per_step)}
+            for name in names}
 
     batch, prompt_len, n_new = 8, 512, 64
-    cfg = dataclasses.replace(load_arch(arch), **{impl: kernel_impl})
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (k_name, k_cfg), (p_name, p_cfg) = kernel_route, plain_route
+    cfg = k_cfg(load_arch(arch))
     t0 = time.perf_counter()
     model = convert.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
         torch.bfloat16)
     torch.cuda.synchronize()
-    mixer = (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} heads "
-             f"x {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, chunk "
-             f"{cfg.ssm.chunk}" if cfg.ssm else
-             f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}")
+    n_params = sum(p.numel() for p in model.parameters())
+    if cfg.ssm:
+        mixer = (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
+                 f"heads x {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, "
+                 f"chunk {cfg.ssm.chunk}")
+    elif cfg.mla:
+        m = cfg.mla
+        mixer = (f"MLA {cfg.n_heads} heads, kv_lora {m.kv_lora_rank}, nope "
+                 f"{m.nope_head_dim} + rope {m.rope_head_dim}, v "
+                 f"{m.v_head_dim}")
+    else:
+        mixer = f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}"
+    if cfg.moe:
+        mo = cfg.moe
+        mixer += (f"; {mo.n_dense_layers} dense layer(s) then MoE "
+                  f"{mo.n_experts} experts top-{mo.top_k} x {mo.d_expert}, "
+                  f"{mo.n_shared_experts} shared")
     print(f"[e2e] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{mixer}, vocab {cfg.vocab_size}; seeded bf16 weights in "
+          f"{mixer}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B seeded "
+          f"bf16 weights ({n_params * 2 / 1e9:.1f} GB) in "
           f"{time.perf_counter() - t0:.2f}s")
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(1))
@@ -633,12 +878,10 @@ def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
     toks, logits = eng.generate(prompts, n_new, return_logits=True)
     launches = {name: mod.launches for name, mod in mods.items()}
     print(f"[e2e] launches: {launches}")
-    check(launches[per_prefill] == cfg.n_layers,
-          f"{per_prefill} launches {launches[per_prefill]} != "
-          f"{cfg.n_layers}")
-    check(launches[per_step] == cfg.n_layers * n_new,
-          f"{per_step} launches {launches[per_step]} != "
-          f"{cfg.n_layers * n_new}")
+    for name in names:
+        want = per_prefill.get(name, 0) + n_new * per_step.get(name, 0)
+        check(launches[name] == want,
+              f"{name} launches {launches[name]} != {want}")
     check(tuple(toks.shape) == (batch, n_new), f"tokens {tuple(toks.shape)}")
     check(bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "token ids out of range")
@@ -648,20 +891,27 @@ def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
     st = eng.stats()
     dec = st["phases"]["decode"]
     steady = dec["steady_mean_s"]
-    print(f"[e2e] {kernel_impl} route: TTFT {st['ttft_s'] * 1e3:.2f} ms "
-          f"(first prefill of the process), warm TTFT "
-          f"{warm_ttft_ms(eng, prompts):.2f} ms; decode "
+    for mod in mods.values():
+        mod.launches = 0
+    warm = warm_ttft_ms(eng, prompts)
+    for name, n in per_prefill.items():
+        check(mods[name].launches == 3 * n,
+              f"{name}: {mods[name].launches} launches in 3 prefills")
+    print(f"[e2e] {k_name} route: TTFT {st['ttft_s'] * 1e3:.2f} ms (first "
+          f"prefill of the process), warm TTFT {warm:.2f} ms; decode "
           f"{steady * 1e3:.3f} ms/step mean, "
           f"{dec['steady_p50_s'] * 1e3:.3f} ms p50 over {dec['steps']} "
           f"steps; {batch / steady:.1f} tokens/s")
 
+    cfg_plain = p_cfg(eng.cfg)
+    if cfg.moe:
+        check_moe_layer(eng.cfg, cfg_plain, model, prompts)
     # plain route, same weights: timed through the same Engine.generate,
     # then the kernel route's tokens fed to it for the logits comparison
-    cfg_plain = dataclasses.replace(eng.cfg, **{impl: plain_impl})
     plain = Engine(cfg_plain, model, scfg)
     plain.generate(prompts, n_new)
     pdec = plain.stats()["phases"]["decode"]
-    print(f"[e2e] {plain_impl} route: warm TTFT "
+    print(f"[e2e] {p_name} route: warm TTFT "
           f"{warm_ttft_ms(plain, prompts):.2f} ms; decode "
           f"{pdec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
           f"{pdec['steady_p50_s'] * 1e3:.3f} ms p50 over {pdec['steps']} "
@@ -677,10 +927,12 @@ def phase_e2e(arch: str, impl: str, kernel_impl: str, plain_impl: str,
             diffs.append(err(lg, logits[i + 1]))
             agree.append((lg.argmax(-1) == logits[i + 1].argmax(-1))
                          .float().mean().item())
+    mean_agree = statistics.fmean(agree)
     print(f"[e2e] kernel vs plain route logits: prefill max abs diff "
           f"{diffs[0]:.4g}, decode steps max {max(diffs[1:]):.4g} (atol "
           f"{atol}; max |logit| {logits.abs().max().item():.3g}); "
-          f"greedy argmax agreement {statistics.fmean(agree):.4f}")
+          f"greedy argmax agreement {mean_agree:.4f}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(max(diffs) <= atol,
           f"route logits differ by {max(diffs)} > {atol}")
     return launches
@@ -697,18 +949,27 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    from repro_torch.launch.serve import moe_ragged
     from repro_torch.launch.timing import Timer
     t_start = time.perf_counter()
     phase_env()
     phase_build()
     timer = Timer()
     kernels = (phase_kernels(timer) + phase_ssd_kernels(timer)
-               + phase_paper_kernels(timer))
-    launches = phase_e2e("qwen3-0.6b", "attention_impl", "pallas",
-                         "xla_chunked", "flash_attention", "decode_attention",
-                         ATOL_E2E_LOGITS)
-    launches.update(phase_e2e("mamba2-1.3b", "ssm_impl", "pallas", "xla",
-                              "ssd_scan", "ssd_decode", ATOL_E2E_SSM_LOGITS))
+               + phase_paper_kernels(timer) + phase_grouped_gemm(timer))
+    del timer
+    launches = phase_e2e(
+        "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
+        ("xla_chunked", set_field(attention_impl="xla_chunked")),
+        {"flash_attention": 28}, {"decode_attention": 28}, ATOL_E2E_LOGITS)
+    launches.update(phase_e2e(
+        "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
+        ("xla", set_field(ssm_impl="xla")),
+        {"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS))
+    launches.update(phase_e2e(
+        "deepseek-v2-lite-16b", ("ragged grouped GEMM", moe_ragged),
+        ("dense dropless", plain_moe),
+        {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS))
     launches.update(phase_paper())
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

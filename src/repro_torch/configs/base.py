@@ -1,9 +1,9 @@
 """Model configs: a jax-free mirror of ``repro.configs.base``.
 
 Field names and defaults match the reference dataclasses, so a config
-means the same in both packages.  The dense and SSM families are served
-by this port's model (``models.model``); other families are accepted here
-and rejected there.
+means the same in both packages.  The dense, SSM and MoE families are
+served by this port's model (``models.model``); other families are
+accepted here and rejected there.
 """
 from __future__ import annotations
 
@@ -24,6 +24,9 @@ class MoEConfig:
     inference_capacity_factor: float = 0.0
     router_aux_weight: float = 0.001
     n_dense_layers: int = 0
+    # dropless serving (icf <= 0): the expert GEMMs as ragged grouped GEMMs
+    # over row groups padded to 16 (csrc/grouped_gemm.cu on the card)
+    # instead of the dense (E, t·k, d) einsum path
     ragged_dropless: bool = False
 
 
@@ -105,7 +108,8 @@ def load_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
             f"repro_torch.configs.{_modname(arch_id)}")
     except ModuleNotFoundError as e:
         raise NotImplementedError(
-            f"arch {arch_id!r} has no config in the port yet; only "
-            f"qwen3-0.6b and mamba2-1.3b are ported (ROADMAP.md queue 1)"
+            f"arch {arch_id!r} has no config in the port yet; ported: "
+            f"qwen3-0.6b, mamba2-1.3b, deepseek-v2-lite-16b (ROADMAP.md "
+            f"queue 1: the hybrid family is item 3, enc-dec and VLM item 5)"
         ) from e
     return mod.SMOKE if smoke else mod.CONFIG

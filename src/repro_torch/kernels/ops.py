@@ -5,7 +5,8 @@ takes the plain PyTorch version in ``ref``.  Nothing falls back from the
 card to the plain version.  The launch counts live on the kernel modules
 (``flash_attention.launches``, ``decode_attention.launches``,
 ``ssd_scan.launches``, ``ssd_decode.launches``, ``vecadd.launches``,
-``matmul.launches``, ``stencil.launches``, ``floyd_warshall.launches``).
+``matmul.launches``, ``stencil.launches``, ``floyd_warshall.launches``,
+``grouped_gemm.launches``).
 
 The paper's four kernels take ``pump`` as a factor or a ``PumpSpec`` and
 raise the reference's ``ValueError`` for shapes the pump cannot divide, on
@@ -14,7 +15,7 @@ ported yet.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -22,6 +23,7 @@ from ..core.ir import PumpSpec
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import floyd_warshall as _fw
+from . import grouped_gemm as _gg
 from . import matmul as _mm
 from . import ref
 from . import ssd_decode as _sd
@@ -147,3 +149,67 @@ def floyd_warshall(dist: torch.Tensor, *,
     if _route(dist, "floyd_warshall"):
         return _fw.floyd_warshall_cuda(dist, pump=f)
     return ref.floyd_warshall(dist)
+
+
+# ------------------------------------------------------- the grouped GEMM --
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 16,
+                 bf: int = 128, bd: int = 32,
+                 pump: Union[PumpSpec, int, str] = 1,
+                 group_sizes: Optional[Sequence[int]] = None,
+                 tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-expert batched GEMM, the MoE hot spot, with a pump-M contraction
+    stream (the reference's ``ops.grouped_gemm``).  Three forms, each summed
+    over the whole D in fp32 and rounded once to x's dtype:
+
+    - dense (no ``group_sizes``, no ``tiles``): x (E, C, D) · w (E, D, F)
+      -> (E, C, F);
+    - ragged, ``group_sizes`` a sequence of per-expert row counts: x is the
+      (sum, D) row-major concatenation of the groups and the result keeps
+      that layout;
+    - ragged, ``tiles`` a table from ``grouped_gemm.tile_table`` on x's
+      device with row counts of at most ``bc``: x (rows, D) in the layout
+      the table describes, the result (rows, F), zero where no tile covers
+      a row.  This is the form a routing made on the card uses.
+
+    The kernel masks a ragged C, F, D or group where the reference pads
+    it, so every ``bc`` serves every size.  The default tile is one the
+    kernel is built for (the reference's is 128 x 128 x 128)."""
+    spec = _as_spec(pump)
+    if spec.mode == "R" and bf % spec.factor:
+        raise ValueError(f"bf={bf} not divisible by M={spec.factor} in "
+                         f"mode R")
+    if w.dim() != 3:
+        raise ValueError(f"grouped_gemm: w must be (E, D, F), got "
+                         f"{tuple(w.shape)}")
+    e, d, f = w.shape
+    if group_sizes is not None:
+        if tiles is not None:
+            raise ValueError("grouped_gemm: pass group_sizes or tiles, not "
+                             "both")
+        sizes = [int(sz) for sz in group_sizes]
+        if x.dim() != 2 or x.shape[0] != sum(sizes):
+            raise ValueError(f"ragged x has {x.shape[0]} rows, group_sizes "
+                             f"sum to {sum(sizes)}")
+        if len(sizes) != e:
+            raise ValueError(f"{len(sizes)} group sizes for {e} experts")
+        tiles = _gg.tile_table(torch.tensor(sizes, device=x.device), bc,
+                               sum(-(-sz // bc) for sz in sizes))
+    if tiles is not None:
+        if x.dim() != 2 or x.shape[1] != d:
+            raise ValueError(f"ragged x {tuple(x.shape)} does not chain with "
+                             f"w {tuple(w.shape)}")
+        if _route(x, "grouped_gemm"):
+            return _gg.grouped_gemm_cuda(x, w, tiles, bc=bc, bf=bf, bd=bd,
+                                         pump=spec)
+        return ref.ragged_grouped_gemm(x, w, tiles)
+    if x.dim() != 3 or x.shape[0] != e or x.shape[2] != d:
+        raise ValueError(f"grouped_gemm: x {tuple(x.shape)} and w "
+                         f"{tuple(w.shape)} do not chain")
+    if not _route(x, "grouped_gemm"):
+        return ref.grouped_gemm(x, w)
+    c = x.shape[1]
+    tiles = _gg.tile_table(torch.full((e,), c, device=x.device), bc,
+                           e * -(-c // bc))
+    out = _gg.grouped_gemm_cuda(x.reshape(e * c, d).contiguous(), w, tiles,
+                                bc=bc, bf=bf, bd=bd, pump=spec)
+    return out.reshape(e, c, f)

@@ -195,3 +195,36 @@ def floyd_warshall(dist: torch.Tensor) -> torch.Tensor:
     for k in range(d.shape[0]):
         d = torch.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
     return d
+
+
+# ------------------------------------------------------- the grouped GEMM --
+def grouped_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """out[e] = x[e] · w[e]: x (E, C, D), w (E, D, F) -> (E, C, F) in x's
+    dtype, summed over the whole D in fp32 and rounded once."""
+    return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def ragged_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
+                        tiles: torch.Tensor) -> torch.Tensor:
+    """The ragged form: x (rows, D) is a row-major concatenation of expert
+    row groups, w (E, D, F).  Tile table row i = (expert, first row, row
+    count) says that rows [first, first + count) belong to that expert's
+    group; expert -1 marks a surplus tile, whose rows are zero.  Returns
+    (rows, F) in x's dtype, summed over the whole D in fp32 and rounded
+    once; rows no tile covers are zero."""
+    rows, f = x.shape[0], w.shape[2]
+    out = torch.zeros((rows, f), dtype=torch.float32, device=x.device)
+    if tiles.numel() == 0 or rows == 0:
+        return out.to(x.dtype)
+    ex, r0, nr = tiles.long().unbind(1)
+    bc = max(int(nr.max()), 1)
+    r = r0[:, None] + torch.arange(bc, device=x.device)[None, :]
+    valid = (torch.arange(bc, device=x.device)[None, :] < nr[:, None]) \
+        & (r < rows) & (r >= 0)
+    row_expert = torch.full((rows,), -1, dtype=torch.long, device=x.device)
+    row_expert[r[valid]] = ex[:, None].expand_as(r)[valid]
+    for e in range(w.shape[0]):
+        sel = (row_expert == e).nonzero().squeeze(1)
+        if sel.numel():
+            out[sel] = x[sel].float() @ w[e].float()
+    return out.to(x.dtype)

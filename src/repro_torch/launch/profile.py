@@ -4,6 +4,8 @@ and a few steady decode steps of ``Engine.generate``'s path.
     PYTHONPATH=src python -m repro_torch.launch.profile --attention-impl pallas
     PYTHONPATH=src python -m repro_torch.launch.profile --arch mamba2-1.3b \
         --ssm-impl pallas
+    PYTHONPATH=src python -m repro_torch.launch.profile \
+        --arch deepseek-v2-lite-16b --moe-ragged
 
 Serves ``--arch`` (qwen3-0.6b by default) at full width (seeded bf16
 weights, as ``chip_smoke.py``) once to warm up, then profiles a fresh-cache prefill and ``--steps``
@@ -25,6 +27,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.configs.base import load_arch
+from repro_torch.launch import serve
 from repro_torch.models import convert
 from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -61,12 +64,16 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--attention-impl", default="pallas",
                     choices=("xla_chunked", "pallas"))
     ap.add_argument("--ssm-impl", default="pallas", choices=("xla", "pallas"))
+    ap.add_argument("--moe-ragged", action="store_true",
+                    help="MoE layers through the ragged grouped-GEMM kernel")
     ap.add_argument("--top", type=int, default=8)
     args = ap.parse_args(argv)
 
     cfg = dataclasses.replace(load_arch(args.arch),
                               attention_impl=args.attention_impl,
                               ssm_impl=args.ssm_impl)
+    if args.moe_ragged:
+        cfg = serve.moe_ragged(cfg)
     model = convert.init_params(
         cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
         torch.bfloat16)
@@ -75,7 +82,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     eng = Engine(cfg, model, ServeConfig(
         batch=args.batch, max_len=args.prompt_len + args.steps + 2))
     toks = eng.generate(prompts, 2)           # warm: builds, cuBLAS, allocator
-    impl = cfg.ssm_impl if cfg.family == "ssm" else cfg.attention_impl
+    impl = serve.route(cfg)
     print(f"[profile] {cfg.name} {impl}, batch {args.batch}, "
           f"prompt {args.prompt_len}, on {torch.cuda.get_device_name(0)}")
 

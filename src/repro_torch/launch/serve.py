@@ -4,10 +4,11 @@
         --batch 8 --prompt-len 512 --new 64 --attention-impl pallas
 
 runs on the card (``--arch mamba2-1.3b --ssm-impl pallas`` serves the SSM
-family through the SSD kernels); ``--smoke --device cpu`` runs the SMOKE
-config on the CPU, where every op takes its plain version.  Weights are seeded random draws with the
-reference init's distributions (fp32 for ``--smoke``, else bf16, as in
-``repro.launch.serve``).
+family through the SSD kernels; ``--arch deepseek-v2-lite-16b --moe-ragged``
+the MoE family through the grouped-GEMM kernel); ``--smoke --device cpu``
+runs the SMOKE config on the CPU, where every op takes its plain version.
+Weights are seeded random draws with the reference init's distributions
+(fp32 for ``--smoke``, else bf16, as in ``repro.launch.serve``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,27 @@ from repro_torch.models import convert
 from repro_torch.serve.engine import Engine, ServeConfig
 
 
+def moe_ragged(cfg):
+    """The ragged dropless variant of an MoE config: the fields the
+    reference's ``benchmarks/serve_report.py:142`` sets."""
+    if cfg.moe is None:
+        raise ValueError(f"--moe-ragged: {cfg.name} has no MoE layers")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, ragged_dropless=True, inference_capacity_factor=0.0))
+
+
+def route(cfg) -> str:
+    """Which kernels serve the config, for a report line."""
+    if cfg.family == "ssm":
+        return cfg.ssm_impl
+    if cfg.family == "moe":
+        mo = cfg.moe
+        ragged = mo.ragged_dropless and mo.inference_capacity_factor <= 0
+        return (f"{cfg.attention_impl}, MoE "
+                f"{'ragged grouped GEMM' if ragged else 'dense'}")
+    return cfg.attention_impl
+
+
 def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -38,6 +60,10 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     ap.add_argument("--ssm-impl", default=None, choices=("xla", "pallas"),
                     help="override cfg.ssm_impl; 'pallas' runs the "
                          "hand-written CUDA SSD scan and decode kernels")
+    ap.add_argument("--moe-ragged", action="store_true",
+                    help="serve the MoE layers dropless through the ragged "
+                         "grouped-GEMM kernel (moe.ragged_dropless=True, "
+                         "moe.inference_capacity_factor=0)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -47,6 +73,8 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
         cfg = dataclasses.replace(cfg, attention_impl=args.attention_impl)
     if args.ssm_impl:
         cfg = dataclasses.replace(cfg, ssm_impl=args.ssm_impl)
+    if args.moe_ragged:
+        cfg = moe_ragged(cfg)
     dev = device_mod.resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     model = convert.init_params(
@@ -64,7 +92,7 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     dec = stats["phases"].get("decode", {})
     steady = dec.get("steady_mean_s")
     tps = args.batch / steady if steady else float("nan")
-    impl = cfg.ssm_impl if cfg.family == "ssm" else cfg.attention_impl
+    impl = route(cfg)
     print(f"[serve] {cfg.name} on {dev} ({impl}): generated "
           f"{tuple(out.shape)} in {dt:.3f}s wall")
     print(f"[serve] ttft {stats['ttft_s'] * 1e3:.2f} ms; steady-state decode "

@@ -1,4 +1,4 @@
-"""GQA attention: the port of the GQA half of ``repro.models.attention``.
+"""Attention: the port of ``repro.models.attention`` (GQA and MLA).
 
 Two execution paths, selected by ``cfg.attention_impl`` as in the reference:
 
@@ -9,6 +9,14 @@ Two execution paths, selected by ``cfg.attention_impl`` as in the reference:
     flash kernel for cache-free forward and fresh-cache prefill, the decode
     kernel for every cached S == 1 step.  On CPU tensors the ops take their
     plain versions.
+
+MLA (``mla_apply``) follows the reference's three branches: a fresh-cache
+prefill writes the compressed cache and attends over the current tokens
+through chunked attention, a decode step runs the absorbed path over the
+compressed cache with fp32 accumulation, and the cache-free forward
+decompresses and attends.  Its nope + rope head width (192 in
+deepseek-v2-lite) is not its v width (128), so the flash kernel's branch
+(``dn + dr == dv``) is reached by no shipped config.
 
 Cache positions are a Python int (one depth for every row); per-slot
 position vectors belong to the continuous-batching slice.  The cache is
@@ -178,4 +186,144 @@ def gqa_cache_init(cfg, batch: int, max_len: int,
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": 0}
+
+
+# --------------------------------------------------------------------- MLA --
+class MLA(nn.Module):
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        m = cfg.mla
+        d, h = cfg.d_model, cfg.n_heads
+        dn, dr, dv, kvr = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                           m.kv_lora_rank)
+        if m.q_lora_rank:
+            self.wq_a = Dense(d, m.q_lora_rank, dtype=dtype)
+            self.q_norm = RMSNorm(m.q_lora_rank, dtype)
+            self.wq_b = Dense(m.q_lora_rank, h * (dn + dr), dtype=dtype)
+        else:
+            self.wq = Dense(d, h * (dn + dr), dtype=dtype)
+        self.wkv_a = Dense(d, kvr + dr, dtype=dtype)
+        self.kv_norm = RMSNorm(kvr, dtype)
+        self.wkv_b = Dense(kvr, h * (dn + dv), dtype=dtype)
+        self.wo = Dense(h * dv, d, dtype=dtype)
+
+
+def _mla_q(p: MLA, cfg, x: torch.Tensor):
+    m = cfg.mla
+    h, dn, dr = cfg.n_heads, m.nope_head_dim, m.rope_head_dim
+    b, s, _ = x.shape
+    if m.q_lora_rank:
+        q = dense(p.wq_b, rmsnorm(p.q_norm, dense(p.wq_a, x), cfg.norm_eps))
+    else:
+        q = dense(p.wq, x)
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
+                kernel: bool) -> torch.Tensor:
+    """Decompressed causal attention over the current tokens: q (B, S, H,
+    dn / dr), kv (B, S, H, dn + dv), k_rope (B, S, dr) shared over heads.
+    ``kernel`` takes the flash kernel, which needs dn + dr == dv.  Returns
+    (B, S, H·dv)."""
+    m = cfg.mla
+    h, dn, dr = cfg.n_heads, m.nope_head_dim, m.rope_head_dim
+    b, s = q_nope.shape[:2]
+    k = torch.cat([kv[..., :dn], k_rope[:, :, None, :].expand(b, s, h, dr)],
+                  dim=-1).transpose(1, 2)
+    v = kv[..., dn:].transpose(1, 2)
+    q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    if kernel:
+        out = ops.flash_attention(q, k, v, causal=True)
+    else:
+        out = chunked_attention(q, k, v, causal=True, q_pos=positions,
+                                block=cfg.attn_block_kv,
+                                scale=(dn + dr) ** -0.5)
+    return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
+
+
+def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
+              cache: Optional[Dict] = None
+              ) -> Tuple[torch.Tensor, Optional[Dict]]:
+    """MLA self-attention (causal).  x (B, S, d); positions (S,); ``cache``
+    is dict(c_kv, k_rope, pos) with an int pos, written in place.  Prefill
+    and the cache-free forward decompress and attend; a decode step (S == 1)
+    attends over the compressed cache through the absorbed projections."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, kvr = (m.nope_head_dim, m.rope_head_dim, m.v_head_dim,
+                       m.kv_lora_rank)
+
+    # the reference's flash branch: reached only when dn + dr == dv, which
+    # no shipped config has (deepseek-v2-lite: 128 + 64 != 128)
+    flash = cfg.attention_impl == "pallas" and dn + dr == dv
+    q_nope, q_rope = _mla_q(p, cfg, x)
+    rp = positions[None, :]
+    q_rope = apply_rope(q_rope.transpose(1, 2), rp,
+                        cfg.rope_theta).transpose(1, 2)
+    kv_a = dense(p.wkv_a, x)
+    c_kv = rmsnorm(p.kv_norm, kv_a[..., :kvr], cfg.norm_eps)   # (B, S, kvr)
+    k_rope = apply_rope(kv_a[:, None, :, kvr:], rp, cfg.rope_theta)[:, 0]
+
+    if cache is None:
+        kv = dense(p.wkv_b, c_kv).reshape(b, s, h, dn + dv)
+        out = _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions, flash)
+        return dense(p.wo, out), None
+
+    pos = cache["pos"]
+    if not isinstance(pos, int):
+        raise NotImplementedError(
+            "per-slot (B,) cache positions are not ported yet (ROADMAP.md "
+            "queue 1, item 4)")
+    ckv_c, krope_c = cache["c_kv"], cache["k_rope"]
+    ckv_c[:, pos:pos + s] = c_kv.to(ckv_c.dtype)
+    krope_c[:, pos:pos + s] = k_rope.to(krope_c.dtype)
+    new_cache = {"c_kv": ckv_c, "k_rope": krope_c, "pos": pos + s}
+
+    if s > 1:
+        if cfg.prefill_continuation:
+            raise NotImplementedError(
+                "continuation prefill into a filled MLA cache is not ported "
+                "yet (ROADMAP.md queue 1, item 4)")
+        # prefill: attend over the current tokens; the flash kernel only on
+        # a fresh cache, as the reference's lax.cond on pos == 0
+        kv = dense(p.wkv_b, c_kv).reshape(b, s, h, dn + dv)
+        out = _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
+                          flash and cfg.fresh_prefill_kernel and pos == 0)
+        return dense(p.wo, out), new_cache
+
+    # absorbed decode: w_uk (kvr, h, dn), w_uv (kvr, h, dv); every product
+    # that touches the cache reads it in its own dtype and sums in fp32
+    t = ckv_c.shape[1]
+    wkv_b = p.wkv_b.w.reshape(kvr, h, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
+    f32 = torch.float32
+    q_abs = torch.einsum("bhd,khd->bhk", q_nope[:, 0].to(f32),
+                         w_uk.to(f32))                            # (B, H, kvr)
+    sc = torch.einsum("bhk,btk->bht", q_abs.to(ckv_c.dtype).to(f32),
+                      ckv_c.to(f32))
+    sc = sc + torch.einsum("bhr,btr->bht",
+                           q_rope[:, 0].to(krope_c.dtype).to(f32),
+                           krope_c.to(f32))
+    keep = _kv_valid_mask(t, pos, 1, x.device)
+    sc = torch.where(keep[None, None, :], sc * (dn + dr) ** -0.5, NEG_INF)
+    attn = torch.softmax(sc, dim=-1)
+    out_c = torch.einsum("bht,btk->bhk", attn.to(ckv_c.dtype).to(f32),
+                         ckv_c.to(f32))
+    out = torch.einsum("bhk,khd->bhd", out_c.to(w_uv.dtype).to(f32),
+                       w_uv.to(f32))
+    out = out.reshape(b, 1, h * dv).to(x.dtype)
+    return dense(p.wo, out), new_cache
+
+
+def mla_cache_init(cfg, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16,
+                   device: Optional[torch.device] = None) -> Dict:
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
+                                dtype=dtype, device=device),
+            "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
+                                  dtype=dtype, device=device),
             "pos": 0}

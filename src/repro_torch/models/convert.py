@@ -2,12 +2,15 @@
 
 ``from_jax_params`` takes the JAX params pytree with its leaves already
 converted to numpy arrays (the caller does that; this module imports no
-JAX), un-stacks the leading layer axis of ``"blocks"`` and loads every leaf
+JAX), un-stacks the leading layer axis of each scanned segment
+(``"blocks"``, and ``"blocks_dense"`` in an MoE tree) and loads every leaf
 into the port's modules.  ``init_params`` draws with the reference init's
-distributions (``repro/models/layers.py``, ``ssm.py:27-46``): dense
-weights normal · 1/√d_in, the embedding normal · 0.02, norm scales ones,
-biases zeros; in a Mamba-2 mixer ``conv_w`` normal · 0.1, ``conv_b`` and
-``dt_bias`` zeros, ``A_log = log(linspace(1, 16, H))`` and ``D`` ones.
+distributions (``repro/models/layers.py``, ``ssm.py:27-46``,
+``moe.py:113-129``): dense weights normal · 1/√d_in, the embedding normal
+· 0.02, norm scales ones, biases zeros; in a Mamba-2 mixer ``conv_w``
+normal · 0.1, ``conv_b`` and ``dt_bias`` zeros, ``A_log = log(linspace(1,
+16, H))`` and ``D`` ones; the routed experts' stacked ``gate`` and ``up``
+normal · 1/√d, ``down`` normal · 1/√d_expert.
 The numbers differ from JAX's for the same seed; tests hand weights
 across with ``from_jax_params`` instead.
 """
@@ -21,7 +24,9 @@ import torch
 
 from . import model as model_mod
 from .layers import Dense, Embedding, RMSNorm
+from .moe import MoE
 from .ssm import Mamba2
+from .transformer import _segments
 
 
 def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -40,16 +45,17 @@ def from_jax_params(cfg, tree: Mapping[str, Any], *,
                     dtype: Optional[torch.dtype] = None):
     """The reference params tree (numpy leaves) as a port model.  ``dtype``
     defaults to the leaves' own (fp32 for the reference's default init)."""
-    flat = _flatten(tree)
+    stacked = tuple(f"{name}." for name, _, _ in _segments(cfg))
     state: Dict[str, torch.Tensor] = {}
-    for name, arr in flat.items():
+    for name, arr in _flatten(tree).items():
         t = torch.tensor(np.asarray(arr))
-        if name.startswith("blocks."):
-            rest = name[len("blocks."):]
-            for i in range(t.shape[0]):
-                state[f"blocks.{i}.{rest}"] = t[i]
-        else:
+        seg = next((p for p in stacked if name.startswith(p)), None)
+        if seg is None:
             state[name] = t
+            continue
+        rest = name[len(seg):]
+        for i in range(t.shape[0]):
+            state[f"{seg}{i}.{rest}"] = t[i]
     dtype = dtype or next(iter(state.values())).dtype
     with torch.device(device or "cpu"):
         model = model_mod.build(cfg, dtype)
@@ -82,6 +88,10 @@ def init_params(cfg, generator: torch.Generator,
                 1.0, 16.0, mod.A_log.shape[0], device=generator.device)))
             mod.dt_bias.zero_()
             mod.D.fill_(1.0)
+        elif isinstance(mod, MoE):
+            d, de = mod.gate.shape[1], mod.gate.shape[2]
+            for w, fan_in in ((mod.gate, d), (mod.up, d), (mod.down, de)):
+                w.copy_(_normal(w.shape, generator) / math.sqrt(fan_in))
     return model.requires_grad_(False)
 
 

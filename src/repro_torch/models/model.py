@@ -1,7 +1,7 @@
 """Family dispatcher: the single entry point the engine and launcher use.
 
-The dense and SSM families are ported.  Other families raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The dense, SSM and MoE families are ported, with GQA or MLA attention.
+Other families raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -11,12 +11,11 @@ import torch
 
 from . import transformer
 
-# ROADMAP.md queue 1 items for the families this slice does not port
+# ROADMAP.md queue 1 items for the families the port does not have yet
 _NOT_PORTED = {
-    "hybrid": "item 1 (hybrid family, zamba2-2.7b)",
-    "moe": "item 5 (MoE family)",
-    "encdec": "item 7 (enc-dec and VLM)",
-    "vlm": "item 7 (enc-dec and VLM)",
+    "hybrid": "item 3 (hybrid family, zamba2-2.7b)",
+    "encdec": "item 5 (enc-dec and VLM)",
+    "vlm": "item 5 (enc-dec and VLM)",
 }
 
 
@@ -25,12 +24,10 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP.md queue 1, {_NOT_PORTED[cfg.family]})")
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet "
-            f"(ROADMAP.md queue 1, item 6 (MLA))")
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "moe"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
 
 
 def build(cfg, dtype: torch.dtype = torch.float32) -> transformer.Transformer:

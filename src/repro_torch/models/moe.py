@@ -1,0 +1,182 @@
+"""Mixture-of-Experts layer (DeepSeek style: shared + routed top-k experts):
+the port of ``repro.models.moe``.
+
+``moe_apply`` takes the reference's three routes:
+
+  - **capacity** (no cache; training semantics): GShard capacity
+    ``int(capacity_factor · t·k / E) + 1``, rounded up to 256 from 4096
+    tokens; tokens past an expert's capacity are dropped.
+  - **dense dropless** (serving, ``dropless=True``): capacity ``t·k`` for
+    ``inference_capacity_factor <= 0``, else the capped form, which drops.
+    Both scatter into an (E, cap + 1, d) buffer and run the expert SwiGLU
+    as three batched products.
+  - **ragged dropless** (serving with ``ragged_dropless`` and icf <= 0):
+    tokens sort by expert into row groups padded to 16 rows, and the three
+    expert products run as ragged grouped GEMMs (``kernels.ops.
+    grouped_gemm``, ``csrc/grouped_gemm.cu`` on the card) over a tile table
+    built on the device.  The reference builds its group tables on the host
+    from concrete routing, so it takes this route only outside a jit trace;
+    the port runs eagerly and always has concrete routing.
+
+Routing is fp32 softmax, top-k, renormalised gates; the Switch aux loss
+comes back beside the output.  The routed experts are stacked (E, d, de)
+parameters ``gate`` / ``up`` and (E, de, d) ``down``, as in the reference's
+params tree.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.kernels import grouped_gemm as gg
+from repro_torch.kernels import ops
+
+from .layers import Dense, SwiGLU, dense, swiglu
+
+# the ragged route's row tile and group bucket (the reference's 'direct'
+# plan: group sizes rounded up to 16, bc=16)
+ROW_TILE = 16
+
+
+class MoE(nn.Module):
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        mo = cfg.moe
+        d, de, e = cfg.d_model, mo.d_expert, mo.n_experts
+        self.router = Dense(d, e, dtype=dtype)
+        self.gate = nn.Parameter(torch.empty(e, d, de, dtype=dtype))
+        self.up = nn.Parameter(torch.empty(e, d, de, dtype=dtype))
+        self.down = nn.Parameter(torch.empty(e, de, d, dtype=dtype))
+        if mo.n_shared_experts:
+            self.shared = SwiGLU(d, de * mo.n_shared_experts, dtype)
+
+
+def _bincount(flat_e: torch.Tensor, e: int) -> torch.Tensor:
+    """Assignments per expert.  ``torch.bincount`` reads the largest id back
+    to the host on the card; a scatter-add of fixed length does not."""
+    return torch.zeros((e,), dtype=flat_e.dtype, device=flat_e.device) \
+        .scatter_add_(0, flat_e, torch.ones_like(flat_e))
+
+
+def ragged_layout(idx: torch.Tensor, e: int):
+    """The ragged route's row layout for a routing ``idx`` (t, k), built on
+    idx's device with no host round trip.  Assignments sort by expert id
+    (stably) into a row-major concatenation of groups, each padded to a
+    multiple of ``ROW_TILE`` rows; the buffer and the tile table are sized
+    for the worst case, ⌈t·k / 16⌉ + E tiles, whose surplus tiles' rows
+    come out zero.  Returns (rows: the buffer row of each assignment (t·k,),
+    padded group sizes (E,), the tile table, the buffer's row count)."""
+    t, k = idx.shape
+    flat_e = idx.reshape(-1)                                      # (t·k,)
+    order = torch.argsort(flat_e, stable=True)
+    counts = _bincount(flat_e, e)
+    padded = (counts + ROW_TILE - 1) // ROW_TILE * ROW_TILE
+    n_tiles = -(-t * k // ROW_TILE) + e
+    offs = torch.cumsum(padded, 0) - padded
+    starts = torch.cumsum(counts, 0) - counts
+    sorted_e = flat_e[order]
+    rows = torch.empty_like(flat_e)
+    rows[order] = offs[sorted_e] + (torch.arange(t * k, device=idx.device)
+                                    - starts[sorted_e])
+    return rows, padded, gg.tile_table(padded, ROW_TILE, n_tiles), \
+        n_tiles * ROW_TILE
+
+
+def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """Expert SwiGLU over ragged row groups (the megablocks idiom), the
+    reference's ``_ragged_dropless_experts`` on its 'direct' plan: tokens
+    scatter once into the padded layout of ``ragged_layout`` and the three
+    products read it through one tile table."""
+    t, d = xt.shape
+    k = idx.shape[1]
+    rows, _, tiles, n_rows = ragged_layout(idx, p.gate.shape[0])
+    xs = torch.zeros((n_rows, d), dtype=xt.dtype, device=xt.device)
+    xs[rows] = xt.repeat_interleave(k, dim=0)
+
+    def gemm(a, w):
+        return ops.grouped_gemm(a, w.to(xt.dtype), bc=ROW_TILE, tiles=tiles)
+
+    h = F.silu(gemm(xs, p.gate), inplace=True).mul_(gemm(xs, p.up))
+    del xs
+    y_pad = gemm(h, p.down)
+    gathered = y_pad[rows].reshape(t, k, d)                       # dropless:
+    return torch.einsum("tkd,tk->td", gathered.float(),
+                        gate).to(xt.dtype)                        # keep all
+
+
+def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, d) -> (out, aux loss).  ``dropless=True`` (the serving path)
+    sizes capacity so that no token is dropped when icf <= 0; training
+    uses GShard capacity semantics."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e, k = mo.n_experts, mo.top_k
+    if dropless:
+        icf = mo.inference_capacity_factor
+        cap = t * k if icf <= 0 else min(t * k, -(-int(icf * t * k) // e) + 1)
+    else:
+        cap = int(mo.capacity_factor * t * k / e) + 1
+        if t >= 4096:                    # production shapes: align for EP×DP
+            cap = ((cap + 255) // 256) * 256
+
+    xt = x.reshape(t, d)
+    logits = dense(p.router, xt.float())                          # (t, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)                      # (t, k)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+
+    # load-balance aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, idx.reshape(-1), torch.ones((t * k,), device=x.device)) / (t * k)
+    aux = e * torch.sum(me * ce) * mo.router_aux_weight
+
+    if dropless and mo.ragged_dropless and mo.inference_capacity_factor <= 0:
+        y = _ragged_dropless_experts(p, xt, gate, idx)
+    else:
+        y = _capacity_experts(p, xt, gate, idx, cap)
+    if mo.n_shared_experts:
+        y = y + swiglu(p.shared, xt)
+    return y.reshape(b, s, d), aux
+
+
+def _capacity_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
+                      idx: torch.Tensor, cap: int) -> torch.Tensor:
+    """Capacity dispatch: a stable sort of (expert, arrival) assigns slots,
+    tokens scatter into an (E, cap + 1, d) buffer whose last row takes the
+    overflow, the expert SwiGLU runs as batched products over the first cap
+    rows and the kept slots gather back, weighted by their gates.  The
+    buffers are freed as the products go: at deepseek-v2-lite's serving
+    prefill (cap = t·k = 24,576) each is several GB."""
+    t, d = xt.shape
+    e, k = p.gate.shape[0], idx.shape[1]
+    dev = xt.device
+    flat_e = idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = _bincount(flat_e, e)
+    starts = torch.cumsum(counts, 0) - counts
+    pos = torch.empty_like(flat_e)
+    pos[order] = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos < cap
+    posc = torch.where(keep, pos, cap)                  # cap = the trash row
+
+    buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=dev)
+    buf[flat_e, posc] = xt.repeat_interleave(k, dim=0)
+    expert_in = buf[:, :cap]
+    h = F.silu(torch.bmm(expert_in, p.gate.to(xt.dtype)), inplace=True)
+    h.mul_(torch.bmm(expert_in, p.up.to(xt.dtype)))
+    del buf, expert_in
+    expert_out = torch.bmm(h, p.down.to(xt.dtype))                # (E, cap, d)
+    del h
+    padded = torch.cat([expert_out, expert_out.new_zeros((e, 1, d))], dim=1)
+    del expert_out
+    gathered = padded[flat_e, posc].reshape(t, k, d)
+    return torch.einsum("tkd,tk->td", gathered.float(),
+                        gate * keep.reshape(t, k)).to(xt.dtype)

@@ -169,7 +169,7 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         if cache is not None and cfg.prefill_continuation:
             raise NotImplementedError(
                 "continuation prefill into a filled SSM cache is not ported "
-                "yet (ROADMAP.md queue 1, item 3)")
+                "yet (ROADMAP.md queue 1, item 4)")
         conv_out = _causal_conv(xbc, p.conv_w.to(x.dtype),
                                 p.conv_b.to(x.dtype))
         xs, B_, C_ = torch.split(conv_out, [d_in, gn, gn], dim=-1)

@@ -1,13 +1,17 @@
-"""Decoder-only LM, dense and SSM families: the port of
+"""Decoder-only LM, dense, SSM and MoE families: the port of
 ``repro.models.transformer``.
 
-The reference scans stacked per-layer params; here the layers are a
-``ModuleList`` walked in Python, and the cache is a list with one dict per
-layer under ``"blocks"``: (k, v, pos) for a dense block, (state, conv,
-pos) for a Mamba-2 block.  Attribute names follow the reference params
-tree (``embed.embedding``, ``final_norm.scale``, ``blocks.<i>.attn.wq.w``,
-``blocks.<i>.mixer.A_log`` ...), which ``convert.from_jax_params`` relies
-on.
+The reference scans stacked per-layer params over segments of one block
+kind; here each segment is a ``ModuleList`` walked in Python, and the cache
+holds one list of per-layer dicts per segment: (k, v, pos) for a GQA block,
+(c_kv, k_rope, pos) for an MLA block, (state, conv, pos) for a Mamba-2
+block.  The segments are the reference's (``_segments``): ``blocks`` for
+the dense and SSM families; ``blocks_dense`` (attention + SwiGLU) then
+``blocks`` (attention + MoE) for the MoE family, whose router aux losses
+add up.  Attribute names follow the reference params tree
+(``embed.embedding``, ``final_norm.scale``, ``blocks.<i>.attn.wq.w``,
+``blocks_dense.<i>.mlp.up.w``, ``blocks.<i>.moe.gate`` ...), which
+``convert.from_jax_params`` relies on.
 
 Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``.
 """
@@ -18,29 +22,60 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import GQA, gqa_apply, gqa_cache_init
+from .attention import (GQA, MLA, gqa_apply, gqa_cache_init, mla_apply,
+                        mla_cache_init)
 from .layers import (Dense, Embedding, RMSNorm, SwiGLU, dense, embed, rmsnorm,
                      swiglu, unembed)
+from .moe import MoE, moe_apply
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
+
+
+def _attn_apply(p, cfg, x, positions, cache):
+    fn = mla_apply if cfg.mla else gqa_apply
+    return fn(p, cfg, x, positions=positions, cache=cache)
 
 
 class DenseBlock(nn.Module):
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = RMSNorm(cfg.d_model, dtype)
-        self.attn = GQA(cfg, dtype)
+        self.attn = (MLA if cfg.mla else GQA)(cfg, dtype)
         self.norm2 = RMSNorm(cfg.d_model, dtype)
         self.mlp = SwiGLU(cfg.d_model, cfg.d_ff, dtype)
 
 
 def dense_block_apply(p: DenseBlock, cfg, x: torch.Tensor,
                       positions: torch.Tensor, cache: Optional[Dict] = None
-                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    h, new_cache = gqa_apply(p.attn, cfg, rmsnorm(p.norm1, x, cfg.norm_eps),
-                             positions=positions, cache=cache)
+                      ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    h, new_cache = _attn_apply(p.attn, cfg,
+                               rmsnorm(p.norm1, x, cfg.norm_eps), positions,
+                               cache)
     x = x + h
     x = x + swiglu(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
-    return x, new_cache
+    return x, None, new_cache
+
+
+class MoEBlock(nn.Module):
+    def __init__(self, cfg, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.norm1 = RMSNorm(cfg.d_model, dtype)
+        self.attn = (MLA if cfg.mla else GQA)(cfg, dtype)
+        self.norm2 = RMSNorm(cfg.d_model, dtype)
+        self.moe = MoE(cfg, dtype)
+
+
+def moe_block_apply(p: MoEBlock, cfg, x: torch.Tensor,
+                    positions: torch.Tensor, cache: Optional[Dict] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Attention + MoE.  A cached call is serving, so the MoE is dropless
+    (the reference's ``dropless=cache is not None``)."""
+    h, new_cache = _attn_apply(p.attn, cfg,
+                               rmsnorm(p.norm1, x, cfg.norm_eps), positions,
+                               cache)
+    x = x + h
+    y, aux = moe_apply(p.moe, cfg, rmsnorm(p.norm2, x, cfg.norm_eps),
+                       dropless=cache is not None)
+    return x + y, aux, new_cache
 
 
 class MambaBlock(nn.Module):
@@ -52,15 +87,28 @@ class MambaBlock(nn.Module):
 
 def mamba_block_apply(p: MambaBlock, cfg, x: torch.Tensor,
                       positions: torch.Tensor, cache: Optional[Dict] = None
-                      ) -> Tuple[torch.Tensor, Optional[Dict]]:
+                      ) -> Tuple[torch.Tensor, None, Optional[Dict]]:
     h, new_cache = mamba2_apply(p.mixer, cfg, rmsnorm(p.norm, x, cfg.norm_eps),
                                 cache=cache)
-    return x + h, new_cache
+    return x + h, None, new_cache
 
 
-# family -> (block parameters, block apply)
+# block kind -> (block parameters, block apply -> (x, aux or None, cache))
 _BLOCKS = {"dense": (DenseBlock, dense_block_apply),
-           "ssm": (MambaBlock, mamba_block_apply)}
+           "moe": (MoEBlock, moe_block_apply),
+           "mamba": (MambaBlock, mamba_block_apply)}
+
+
+def _segments(cfg) -> List[Tuple[str, str, int]]:
+    """(name, block kind, layers) of the decoder stack, in order: the
+    reference's ``_segments``."""
+    if cfg.family == "moe":
+        nd = cfg.moe.n_dense_layers
+        segs = [("blocks_dense", "dense", nd)] if nd else []
+        return segs + [("blocks", "moe", cfg.n_layers - nd)]
+    if cfg.family == "ssm":
+        return [("blocks", "mamba", cfg.n_layers)]
+    return [("blocks", "dense", cfg.n_layers)]
 
 
 class Transformer(nn.Module):
@@ -72,22 +120,30 @@ class Transformer(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dtype)
         if not cfg.tie_embeddings:
             self.lm_head = Dense(cfg.d_model, cfg.vocab_size, dtype=dtype)
-        block = _BLOCKS[cfg.family][0]
-        self.blocks = nn.ModuleList(block(cfg, dtype)
-                                    for _ in range(cfg.n_layers))
+        for name, kind, n in _segments(cfg):
+            block = _BLOCKS[kind][0]
+            setattr(self, name, nn.ModuleList(block(cfg, dtype)
+                                              for _ in range(n)))
 
 
 def _backbone(cfg, model: Transformer, x: torch.Tensor,
               positions: torch.Tensor, caches: Optional[Dict] = None):
-    """Embedded input -> final hidden states.  Returns (x, new_caches)."""
-    apply = _BLOCKS[cfg.family][1]
-    new_layers: List[Dict] = []
-    for i, block in enumerate(model.blocks):
-        x, nc = apply(
-            block, cfg, x, positions,
-            caches["blocks"][i] if caches is not None else None)
-        new_layers.append(nc)
-    return x, ({"blocks": new_layers} if caches is not None else None)
+    """Embedded input -> final hidden states.  Returns (x, summed aux loss,
+    new_caches)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches: Dict[str, List[Dict]] = {}
+    for name, kind, _ in _segments(cfg):
+        apply = _BLOCKS[kind][1]
+        layers: List[Dict] = []
+        for i, block in enumerate(getattr(model, name)):
+            x, aux, nc = apply(block, cfg, x, positions,
+                               caches[name][i] if caches is not None
+                               else None)
+            if aux is not None:
+                aux_total = aux_total + aux
+            layers.append(nc)
+        new_caches[name] = layers
+    return x, aux_total, (new_caches if caches is not None else None)
 
 
 def _logits(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -99,26 +155,32 @@ def _logits(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V) fp32, aux loss).  ``last_only``
-    projects only the final position, as serving prefill needs."""
+    """tokens (B, S) -> (logits (B, S, V) fp32, aux loss: the MoE layers'
+    router losses summed, 0 for other families).  ``last_only`` projects
+    only the final position, as serving prefill needs."""
     x = embed(model.embed, tokens, cfg.activation_dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    x, _ = _backbone(cfg, model, x, positions)
+    x, aux, _ = _backbone(cfg, model, x, positions)
     if last_only:
         x = x[:, -1:]
-    return _logits(cfg, model, x), torch.zeros((), device=x.device)
+    return _logits(cfg, model, x), aux
 
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None) -> Dict:
-    """One cache per layer; ``max_len`` sizes the KV cache of a dense
-    block and nothing of an SSM block."""
-    if cfg.family == "ssm":
-        return {"blocks": [mamba2_cache_init(cfg, batch, dtype, device)
-                           for _ in range(cfg.n_layers)]}
-    return {"blocks": [gqa_cache_init(cfg, batch, max_len, dtype, device)
-                       for _ in range(cfg.n_layers)]}
+    """One cache per layer, in one list per segment; ``max_len`` sizes the
+    KV (or compressed MLA) cache of an attention block and nothing of an
+    SSM block."""
+    def one(kind):
+        if kind == "mamba":
+            return mamba2_cache_init(cfg, batch, dtype, device)
+        if cfg.mla:
+            return mla_cache_init(cfg, batch, max_len, dtype, device)
+        return gqa_cache_init(cfg, batch, max_len, dtype, device)
+
+    return {name: [one(kind) for _ in range(n)]
+            for name, kind, n in _segments(cfg)}
 
 
 def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,
@@ -128,9 +190,9 @@ def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,
     projects only the final position (the Engine's prefill reads no other);
     the reference always projects all S."""
     x = embed(model.embed, tokens, cfg.activation_dtype)
-    pos = cache["blocks"][0]["pos"]
+    pos = cache[_segments(cfg)[0][0]][0]["pos"]
     positions = pos + torch.arange(tokens.shape[1], device=x.device)
-    x, new_caches = _backbone(cfg, model, x, positions, caches=cache)
+    x, _, new_caches = _backbone(cfg, model, x, positions, caches=cache)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, model, x), new_caches

@@ -8,7 +8,11 @@ its prefill always starts on a new cache; under ``attention_impl='pallas'``
 the prefill runs the flash kernel and every decode step the decode kernel.
 An SSM model is served the same way: under ``ssm_impl='pallas'`` the
 prefill runs the SSD scan kernel and every decode step the SSD decode
-kernel; ``max_len`` sizes no SSM cache.
+kernel; ``max_len`` sizes no SSM cache.  An MoE model with MLA
+(deepseek-v2-lite) is served with its compressed cache; with
+``moe.ragged_dropless`` and ``inference_capacity_factor <= 0`` each MoE
+layer's three expert products run the grouped-GEMM kernel, in the prefill
+and in every decode step.
 Steps run through ``StepTimer``, so the first call of each phase is kept
 apart from steady-state time.
 
@@ -43,7 +47,7 @@ class Engine:
         if scfg.temperature > 0.0:
             raise NotImplementedError(
                 "sampling with temperature > 0 needs the reference's "
-                "threefry key chains (ROADMAP.md queue 1, item 3)")
+                "threefry key chains (ROADMAP.md queue 1, item 4)")
         model_mod.check_supported(cfg)
         if not cfg.fresh_prefill_kernel:
             cfg = dataclasses.replace(cfg, fresh_prefill_kernel=True)

@@ -142,9 +142,9 @@ def test_chunked_attention_matches(valid, causal, block):
                                rtol=5e-6, atol=5e-6)
 
 
-@pytest.mark.parametrize("family,item", [("moe", "item 5"),
-                                         ("hybrid", "item 1"),
-                                         ("encdec", "item 7")])
+@pytest.mark.parametrize("family,item", [("hybrid", "item 3"),
+                                         ("encdec", "item 5"),
+                                         ("vlm", "item 5")])
 def test_unported_family_names_roadmap_item(family, item):
     cfg = dataclasses.replace(port_qwen3.SMOKE, family=family)
     with pytest.raises(NotImplementedError, match=item):

@@ -277,7 +277,7 @@ def test_continuation_prefill_is_not_ported(weights):
     _, model = weights
     cfg = dataclasses.replace(port_mamba2.SMOKE, prefill_continuation=True)
     cache = port_model.init_cache(cfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 3"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         port_model.decode_step(cfg, model,
                                {"tokens": torch.zeros(1, 4).long()}, cache)
 
