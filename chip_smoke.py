@@ -30,7 +30,23 @@ Phases, in order; any failure exits non-zero:
        the largest value on normal ones); then deepseek-v2-lite's MoE
        shapes in bf16 (the padded groups of a seeded top-6 routing of a
        prefill of 8 x 512 tokens and of one decode step of 8) under
-       ``RTOL_GG_BF16``, with kernel, plain, library and bound times.
+       ``RTOL_GG_BF16``, with kernel, plain, library and bound times;
+   (j) the compiler, ``repro_torch.compiler.compile``: (a) the nine IR
+       builders (and a second ragged grouped GEMM with an empty expert) at
+       small integer-valued shapes, M 1 / 2 / 4 x T / R, through the
+       ``hopper`` and ``torch`` backends on CUDA tensors against the port's
+       numpy executor (exact, or ``ATOL_EXP`` where exp enters), each
+       region at its expected tier; (b) the region kernel
+       (``csrc/region_map_reduce.cu``) against its plain version on small
+       ragged descriptors, add and dot, fp32 and bf16, M 1-8 x T / R;
+       (c) vecadd 2^28, matmul 4096^3, the ragged grouped GEMM at the
+       deepseek prefill's routing and mamba2's SSD decode step compiled to
+       the ``hopper`` tier and run once (the launches of that run are
+       counted), held to the direct kernels and the plain versions, with
+       region-kernel, direct, plain, library and bound times;
+       (d) ``autotune='measure'`` on the four, then a fresh-memo compile
+       that replays the measured factor from the cache with zero
+       measurements.
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -57,12 +73,14 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -112,6 +130,18 @@ RTOL_MOE_LAYER = 2.0 ** -6
 # logits the top two lie close, and even the qwen3 and mamba2 routes, with
 # no routing to flip, agree on only 94-97% of the rows
 ATOL_E2E_MOE_LOGITS = 2.0
+# compiled graphs vs the port's numpy executor where exp enters (flash and
+# decode attention, the SSD scan and decode step): numpy's and the card's
+# exp differ by an ulp on some inputs, amplified by the sums after it; the
+# reference's differential harness holds its own backends to the same
+# rtol = atol (tests/differential.py); the rest are exact on integer values
+ATOL_EXP = 5e-6
+# the region kernel vs its plain version on normal bf16 values, relative to
+# the largest |value|: both sum in fp32 in another order and round once, so
+# an output may differ by one bf16 ulp, at most 2^-7 of the largest value
+RTOL_REGION_BF16 = 2.0 ** -7
+# where chip_smoke keeps the compile cache of its autotune phase
+BUILD_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -160,11 +190,13 @@ def warm_ttft_ms(eng, prompts, reps: int = 3) -> float:
     return statistics.median(times) * 1e3
 
 
-def phase_env():
+def phase_env() -> str:
+    """Prints, and returns, the card's name and power limit."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    card = smi.splitlines()[0]
+    print(card)
     from repro_torch.kernels import _build
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()
@@ -175,6 +207,7 @@ def phase_env():
           f"{torch.cuda.device_count()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    return card
 
 
 def phase_build():
@@ -183,10 +216,13 @@ def phase_build():
     report = _build.build_all()
     wall = time.perf_counter() - t0
     for name, rep in report.items():
-        print(f"[build] {name}.cu: {rep['seconds']:.2f}s")
-        for line in rep["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                           rep["log"])]
+        spills = sum(int(b) for b in re.findall(r"(\d+) bytes spill stores",
+                                                rep["log"]))
+        print(f"[build] {name}.cu: {rep['seconds']:.2f}s, {len(regs)} "
+              f"kernels, registers at most {max(regs, default=0)}, "
+              f"{spills} bytes of spill stores")
     print(f"[build] all kernels built in {wall:.2f}s (parallel nvcc)")
 
 
@@ -753,6 +789,367 @@ def phase_grouped_gemm(timer):
              "shapes": shapes}]
 
 
+# ------------------------------------------------------------ the compiler --
+def compiler_cases():
+    """The nine builders at ``tests/differential.py``'s first shapes, and a
+    second ragged grouped GEMM with an empty expert: (label, builder,
+    args, kwargs, input shapes, outputs, exact, transform, expected tier).
+    Inputs are integer-valued fp32 made from a seed."""
+    def ssd(d):   # dt > 0, a < 0, on a coarse grid (exact sums)
+        d["dt"] = np.abs(d["dt"]) * 0.25 + 0.25
+        d["a"] = -(np.abs(d["a"]) * 0.25 + 0.25)
+        return d
+
+    def pos(d):
+        d["pos"] = np.asarray([17, 31], np.int32)
+        return d
+
+    ssd_in = {"x": (1, 32, 2, 4), "dt": (1, 32, 2), "a": (2,),
+              "bmat": (1, 32, 2, 4), "cmat": (1, 32, 2, 4)}
+    return [
+        ("vecadd", "vecadd", (64,), dict(vector_width=8),
+         {"x": (64,), "y": (64,)}, ("z",), True, None, "hopper"),
+        ("matmul", "matmul", (32, 32, 32),
+         dict(bm=16, bn=16, bk=16, vector_width=8),
+         {"a": (32, 32), "b": (32, 32)}, ("c",), True, None, "hopper"),
+        ("stencil", "stencil", (10, 8, 8), {}, {"x": (10, 8, 8)}, ("y",),
+         True, None, "blockloop"),
+        ("floyd_warshall", "floyd_warshall", (16,), {},
+         {"dist": (16, 16)}, ("out",), True, None, "gather"),
+        ("flash_attention", "flash_attention", (1, 2, 32, 32, 8),
+         dict(bq=16, bkv=8, causal=True, vector_width=8),
+         {"q": (1, 2, 32, 8), "k": (1, 2, 32, 8), "v": (1, 2, 32, 8)},
+         ("o", "m", "l"), False, None, "carryloop"),
+        ("ssd_scan", "ssd_scan", (1, 32, 2, 4, 4),
+         dict(chunk=8, vector_width=8), ssd_in, ("y",), False, ssd,
+         "carryloop"),
+        ("grouped_gemm", "grouped_gemm", (2, 32, 16, 8),
+         dict(bc=8, bf=8, bd=8, vector_width=8),
+         {"x": (2, 32, 16), "w": (2, 16, 8)}, ("o",), True, None, "hopper"),
+        ("grouped_gemm ragged", "grouped_gemm", (2, 32, 16, 8),
+         dict(bc=8, bf=8, bd=8, group_sizes=(16, 24), vector_width=8),
+         {"x": (40, 16), "w": (2, 16, 8)}, ("o",), True, None, "hopper"),
+        ("grouped_gemm ragged, empty expert", "grouped_gemm", (3, 16, 8, 8),
+         dict(bc=8, bf=8, bd=8, group_sizes=(8, 0, 24), vector_width=8),
+         {"x": (32, 8), "w": (3, 8, 8)}, ("o",), True, None, "hopper"),
+        ("decode_attention", "decode_attention", (2, 4, 32, 8),
+         dict(bkv=8, hkv=2, vector_width=4),
+         {"q": (2, 4, 8), "k": (2, 2, 32, 8), "v": (2, 2, 32, 8),
+          "pos": (2,)}, ("o",), False, pos, "carryloop"),
+        ("ssd_scan final state", "ssd_scan", (1, 32, 2, 4, 4),
+         dict(chunk=8, vector_width=8, final_state=True), ssd_in,
+         ("y", "state"), False, ssd, "carryloop"),
+        ("ssd_decode", "ssd_decode", (2, 4, 8, 4),
+         dict(n_groups=2, vector_width=4),
+         {"state": (2, 4, 4, 8), "x": (2, 4, 8), "dt": (2, 4), "a": (4,),
+          "bmat": (2, 2, 4), "cmat": (2, 2, 4)}, ("y", "state_out"), False,
+         ssd, "hopper"),
+    ]
+
+
+def first_plan(kern):
+    """The plan of a compiled graph's first region."""
+    from repro_torch.compiler import hopper_backend as hb
+    g = kern.graph
+    return hb.plan_region(g, hb.partition_regions(g)[0], lambda _m: None)
+
+
+def first_desc(kern):
+    """The region kernel's descriptor of a hopper compile's first region."""
+    return kern.fn.regions[0][2].desc
+
+
+def phase_compiler(timer):
+    """(j) the compiler, ``compile(backend='hopper')`` and its region
+    kernel: (a) the builders at small shapes against the port's executor,
+    with each region's tier; (b) the region kernel against its plain
+    version on small ragged descriptors; (c) card sizes, the launches of
+    that run counted, against the direct kernels and the plain versions;
+    (d) ``autotune='measure'`` and its replay.  Returns (kernels entries,
+    launches of the card-size run)."""
+    from repro_torch import compiler
+    from repro_torch.compiler import hopper_backend as hb
+    from repro_torch.core import executor
+    from repro_torch.core.autopump import BUILDERS
+    from repro_torch.core.pump_plan import (PEAK_FLOPS_BF16, PEAK_FLOPS_FP32,
+                                            PEAK_OPS_FP32, bound_ms)
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import matmul as mm
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import region_map_reduce as rmr
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import vecadd as va
+    from repro_torch.launch import paper
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    t0 = time.perf_counter()
+
+    # (a) every builder through both executable backends on CUDA tensors
+    worst = {}
+    for label, kern_name, args, kw, shapes, outs, exact, tf, tier in \
+            compiler_cases():
+        rng = np.random.default_rng(0)
+        data = {k: rng.integers(-3, 4, s).astype(np.float32)
+                for k, s in shapes.items()}
+        if tf is not None:
+            data = tf(data)
+        cuda_in = {k: torch.from_numpy(v).cuda() for k, v in data.items()}
+        for backend in ("hopper", "torch"):
+            for m in (1, 2, 4):
+                for mode in ("T", "R"):
+                    g, _ = BUILDERS[kern_name](*args, **kw)
+                    k = compiler.compile(g, factor=m, mode=mode,
+                                         backend=backend, cache=False,
+                                         memoize=False)
+                    got = k(cuda_in)
+                    gold = executor.run(k.graph, dict(data))
+                    for o in outs:
+                        a = got[o].float().cpu().numpy()
+                        e = float(np.abs(a - gold[o]).max())
+                        worst[label] = max(worst.get(label, 0.0), e)
+                        ok = e == 0 if exact else np.allclose(
+                            a, gold[o], rtol=ATOL_EXP, atol=ATOL_EXP)
+                        check(ok, f"compile {label} {backend} M{m} {mode} "
+                                  f"{o}: max abs err {e}")
+                    if backend == "hopper":
+                        em = list(k.report.emission.values())
+                        check(len(em) == 1 and em[0]["tier"] == tier,
+                              f"compile {label} M{m} {mode}: tier "
+                              f"{[x['tier'] for x in em]} != {tier} "
+                              f"({[x['why'] for x in em]})")
+    print(f"[compiler] (a) {len(worst)} builder cases x M 1/2/4 x T/R x "
+          f"hopper/torch on CUDA tensors vs the executor, tiers as "
+          f"expected: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + f" (exact, or rtol=atol {ATOL_EXP} where exp enters)")
+
+    # (b) the region kernel against its plain version on small ragged
+    # descriptors: add and dot, fp32 and bf16, M 1/2/4/8 x T/R, an empty
+    # group; integer values exact, normal bf16 values under RTOL_REGION_BF16
+    desc_cases = [
+        ("vecadd V8", "vecadd", (8 * 1000,), dict(vector_width=8)),
+        ("vecadd V4", "vecadd", (4 * 1000,), dict(vector_width=4)),
+        ("matmul", "matmul", (48, 80, 128),
+         dict(bm=16, bn=16, bk=16, vector_width=8)),
+        ("dense grouped", "grouped_gemm", (3, 32, 128, 24),
+         dict(bc=16, bf=8, bd=16, vector_width=8)),
+        ("ragged grouped", "grouped_gemm", (4, 16, 64, 16),
+         dict(bc=8, bf=16, bd=8, group_sizes=(16, 0, 40, 8),
+              vector_width=8)),
+    ]
+    n_desc, worst_bf16 = 0, 0.0
+    for label, kern_name, args, kw in desc_cases:
+        for m in (1, 2, 4, 8):
+            for mode in ("T", "R"):
+                g, _ = BUILDERS[kern_name](*args, **kw)
+                k = compiler.compile(g, factor=m, mode=mode, backend="none",
+                                     cache=False, memoize=False)
+                plan = first_plan(k)
+                check(plan.pallas_ok, f"{label} M{m} {mode}: not block-unit")
+                for dtype in ("float32", "bfloat16"):
+                    desc, why = hb.region_descriptor(k.graph, plan, dtype)
+                    check(desc is not None, f"{label} M{m} {mode}: {why}")
+                    tdt = getattr(torch, dtype)
+                    for kind in ("ints", "normal"):
+                        ins = [(torch.randint(-4, 5, o.shape, generator=gen,
+                                              device="cuda")
+                                if kind == "ints" else
+                                torch.randn(o.shape, generator=gen,
+                                            device="cuda")).to(tdt)
+                               for o in desc.ins]
+                        got = rmr.region_map_reduce_cuda(desc, ins)
+                        want = ref.region_map_reduce(desc, ins)
+                        if kind == "ints":
+                            e = err(got, want)
+                            check(e == 0, f"region {label} M{m} {mode} "
+                                          f"{dtype} ints: err {e}")
+                        else:
+                            e = rel_err(got, want)
+                            tol = RTOL_REGION_BF16 if dtype == "bfloat16" \
+                                else ATOL_FP32
+                            worst_bf16 = max(worst_bf16, e)
+                            check(e <= tol, f"region {label} M{m} {mode} "
+                                            f"{dtype} normal: rel err {e}")
+                        n_desc += 1
+    print(f"[compiler] (b) region kernel vs plain: {n_desc} runs (vecadd V8 "
+          f"/ V4, matmul 48x80x128, dense and ragged grouped GEMM with an "
+          f"empty group; M 1/2/4/8 x T/R; fp32 and bf16): exact on integer "
+          f"values, normal values rel err {worst_bf16:.3g} (rtol "
+          f"{ATOL_FP32} fp32, {RTOL_REGION_BF16:.3g} bf16)")
+
+    # (c) card sizes through compile(backend='hopper'): the main path of
+    # this phase, its launches counted around the four runs
+    n = paper.CARD["vecadd_n"]
+    size = paper.CARD["mm"]
+    rows, padded, _tiles, _n_rows = routed_layout(gen, 8 * 512)
+    sizes = [int(s_) for s_ in padded.tolist()]
+    used = sum(sizes)
+    e_, d_, f_ = 64, 2048, 1408
+    card = [
+        ("vecadd", (n,), dict(vector_width=8)),
+        ("matmul", (size, size, size), dict(bm=128, bn=128, bk=128)),
+        ("grouped_gemm", (e_, 512, d_, f_),
+         dict(bc=16, bf=128, bd=32, itemsize=2, dtype="bfloat16",
+              group_sizes=sizes)),
+        ("ssd_decode", (8, 64, 64, 128), dict(n_groups=1)),
+    ]
+    x_va, y_va = randn(gen, n), randn(gen, n)
+    a_mm, b_mm = randn(gen, size, size), randn(gen, size, size)
+    x_gg = randn(gen, used, d_, dtype=torch.bfloat16)
+    w_gg = (randn(gen, e_, d_, f_) / d_ ** 0.5).to(torch.bfloat16)
+    sx, sdt, sa, sbm, scm = ssd_inputs(gen, 8, 1, 64, 1, 128, 64)
+    sx, sdt, sbm, scm = (t[:, 0].contiguous() for t in (sx, sdt, sbm, scm))
+    sst = randn(gen, 8, 64, 128, 64)
+    card_in = [{"x": x_va, "y": y_va}, {"a": a_mm, "b": b_mm},
+               {"x": x_gg, "w": w_gg},
+               {"state": sst, "x": sx, "dt": sdt, "a": sa, "bmat": sbm,
+                "cmat": scm}]
+    kerns = []
+    for name, args, kw in card:
+        g, est = BUILDERS[name](*args, **kw)
+        kerns.append(compiler.compile(g, factor=1, estimate=est,
+                                      backend="hopper", cache=False,
+                                      memoize=False))
+        em = list(kerns[-1].report.emission.values())[0]
+        check(em["tier"] == "hopper", f"{name} card size: tier {em}")
+    torch.cuda.synchronize()
+    rmr.launches = sd.launches = 0
+    outs = [k(inp) for k, inp in zip(kerns, card_in)]
+    torch.cuda.synchronize()
+    launches = {"region_map_reduce": rmr.launches}
+    check(rmr.launches == 3 and sd.launches == 1,
+          f"card-size compiles launched region_map_reduce {rmr.launches} "
+          f"and ssd_decode {sd.launches} times (want 3 and 1)")
+    print(f"[compiler] (c) card sizes through compile(backend='hopper'): "
+          f"launches region_map_reduce {rmr.launches}, ssd_decode "
+          f"{sd.launches}")
+
+    shapes = []
+    # vecadd
+    desc = first_desc(kerns[0])
+    z = outs[0]["z"]
+    e_z = max(err(z, va.vecadd_cuda(x_va, y_va, vector_width=8)),
+              err(z, ref.vecadd(x_va, y_va)))
+    check(e_z == 0, f"vecadd card size: max abs err {e_z}")
+    bound, by = bound_ms(3 * n * 4, n, PEAK_OPS_FP32)
+    shapes.append(("vecadd 2^28 fp32 V8", desc, [x_va, y_va], e_z,
+                   lambda: va.vecadd_cuda(x_va, y_va, vector_width=8),
+                   lambda: torch.add(x_va, y_va), bound, by))
+    # matmul
+    desc = first_desc(kerns[1])
+    c = outs[1]["c"]
+    want = ref.matmul(a_mm, b_mm)
+    e_c = rel_err(c, want)
+    e_d = rel_err(c, mm.matmul_cuda(a_mm, b_mm))
+    check(max(e_c, e_d) <= paper.RTOL_MATMUL,
+          f"matmul card size: rel err {e_c} (plain), {e_d} (direct)")
+    bound, by = bound_ms(3 * size * size * 4, 2.0 * size ** 3,
+                         PEAK_FLOPS_FP32)
+    shapes.append((f"matmul {size}^3 fp32, 128^3 blocks", desc, [a_mm, b_mm],
+                   err(c, want), lambda: mm.matmul_cuda(a_mm, b_mm),
+                   lambda: torch.matmul(a_mm, b_mm), bound, by))
+    # the ragged grouped GEMM at the deepseek prefill's routing
+    desc = first_desc(kerns[2])
+    o = outs[2]["o"]
+    want = ops.grouped_gemm(x_gg, w_gg, group_sizes=sizes, bc=16, bf=128,
+                            bd=32)
+    plain = ref.ragged_grouped_gemm(
+        x_gg, w_gg, gg.tile_table(padded, 16, used // 16))
+    e_o = max(rel_err(o, want), rel_err(o, plain))
+    check(e_o <= RTOL_GG_BF16, f"grouped GEMM card size: rel err {e_o}")
+    active = sum(1 for s_ in sizes if s_)
+    bound, by = bound_ms(2 * (used * d_ + active * d_ * f_ + used * f_),
+                         2.0 * used * d_ * f_, PEAK_FLOPS_BF16)
+    offs = torch.cumsum(padded, 0).to(torch.int32)
+    lib = (lambda: torch._grouped_mm(x_gg, w_gg, offs=offs)) \
+        if hasattr(torch, "_grouped_mm") else None
+    shapes.append((f"ragged grouped GEMM {used} rows (8 x 512 tokens, top-6 "
+                   f"of 64) x {d_} -> {f_} bf16", desc, [x_gg, w_gg],
+                   err(o, plain),
+                   lambda: ops.grouped_gemm(x_gg, w_gg, group_sizes=sizes,
+                                            bc=16, bf=128, bd=32),
+                   lib, bound, by))
+    # ssd_decode through its binding
+    y_c, s_c = outs[3]["y"], outs[3]["state_out"]
+    y_d, s_d = sd.ssd_decode_cuda(sst, sx, sdt, sa, sbm, scm)
+    y_p, s_p = ref.ssd_decode(sst, sx, sdt, sa, sbm, scm)
+    e_sd = max(rel_err(y_c, y_p), rel_err(s_c, s_p))
+    check(e_sd <= RTOL_SSD_FP32 and err(y_c, y_d) == 0
+          and err(s_c, s_d) == 0,
+          f"ssd_decode card size: rel err {e_sd}, vs direct "
+          f"{err(y_c, y_d)} / {err(s_c, s_d)}")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (sst, sx, sdt, sa, sbm, scm, y_d, s_d))
+    sd_bound, sd_by = bound_ms(nbytes, 5.0 * 8 * 64 * 128 * 64,
+                               PEAK_FLOPS_FP32)
+    k_sd, in_sd = kerns[3], card_in[3]
+    sd_ms = timer.ms(lambda: k_sd(in_sd))
+    sd_direct = timer.ms(lambda: sd.ssd_decode_cuda(sst, sx, sdt, sa, sbm,
+                                                    scm))
+    sd_plain = timer.ms(lambda: ref.ssd_decode(sst, sx, sdt, sa, sbm, scm))
+    print(f"[compiler] ssd_decode B8 H64 P64 N128 through its binding: "
+          f"compiled {sd_ms:.4f} ms, direct kernel {sd_direct:.4f} ms, plain "
+          f"{sd_plain:.4f} ms, bound {sd_bound:.4f} ms ({sd_by}); rel err "
+          f"{e_sd:.3g}, identical to the direct kernel")
+
+    entries = []
+    for label, desc, ins, e_abs, direct, lib, bound, by in shapes:
+        ms = timer.ms(lambda: rmr.region_map_reduce_cuda(desc, ins))
+        d_ms = timer.ms(direct)
+        p_ms = timer.ms(lambda: ref.region_map_reduce(desc, ins), iters=3)
+        l_ms = None
+        if lib is not None:
+            try:
+                l_ms = timer.ms(lib)
+            except RuntimeError as exc:
+                print(f"[compiler] library call refused: "
+                      f"{str(exc).splitlines()[0]}")
+        print(f"[compiler] {label}: region kernel {ms:.4f} ms, direct kernel "
+              f"{d_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+              f"{'none' if l_ms is None else f'{l_ms:.4f} ms'}, bound "
+              f"{bound:.4f} ms ({by}); max abs err {e_abs:.3g}")
+        entries.append({"shape": label, "max_abs_err": e_abs, "ms": ms,
+                        "direct_ms": d_ms, "plain_ms": p_ms,
+                        "bound_ms": bound, "bound_by": by,
+                        "library_ms": l_ms})
+
+    # (d) autotune='measure' at card size, then its replay from the cache
+    path = BUILD_CACHE / "compile_cache.json"
+    path.unlink(missing_ok=True)
+    for (name, args, kw), inp in zip(card, card_in):
+        g, est = BUILDERS[name](*args, **kw)
+        k1 = compiler.compile(g, factor="auto", estimate=est,
+                              backend="hopper", autotune="measure",
+                              cache=compiler.CompileCache(path))
+        at = k1.report.autotune
+        check(k1.report.measurements > 0 and not at["replayed"],
+              f"{name}: measure did not measure")
+        compiler.clear_memo()
+        g2, _ = BUILDERS[name](*args, **kw)
+        k2 = compiler.compile(g2, factor="auto", estimate=est,
+                              backend="hopper", autotune="measure",
+                              cache=compiler.CompileCache(path))
+        check(k2.report.served_from == "disk"
+              and k2.report.measurements == 0
+              and k2.report.autotune["replayed"]
+              and k2.spec.factor == k1.spec.factor,
+              f"{name}: the replay measured again or changed the factor")
+        out = k2(inp)
+        check(all(bool(torch.isfinite(v.float()).all())
+                  for v in out.values()), f"{name}: replay not finite")
+        print(f"[compiler] (d) {name}: measured factor {at['winner']} "
+              f"(µs per candidate {at['timings_us']}); replayed from the "
+              f"cache with 0 measurements, factor {k2.spec.factor}")
+    print(f"[compiler] phase done in {time.perf_counter() - t0:.1f}s")
+
+    main = entries[1]
+    return [{"name": "region_map_reduce", "route": "cuda",
+             "source": "src/repro_torch/csrc/region_map_reduce.cu",
+             "replaces": "src/repro/compiler/pallas_backend.py:847",
+             "max_abs_err": max(s_["max_abs_err"] for s_ in entries),
+             **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+             "shapes": entries}], launches
+
+
 def phase_paper():
     """The paper-table path: ``launch.paper --mode all`` at the card sizes,
     in this process; every row is held to its plain version inside the
@@ -952,11 +1349,13 @@ def main() -> int:
     from repro_torch.launch.serve import moe_ragged
     from repro_torch.launch.timing import Timer
     t_start = time.perf_counter()
-    phase_env()
+    card = phase_env()
     phase_build()
     timer = Timer()
     kernels = (phase_kernels(timer) + phase_ssd_kernels(timer)
                + phase_paper_kernels(timer) + phase_grouped_gemm(timer))
+    compiled, compiler_launches = phase_compiler(timer)
+    kernels += compiled
     del timer
     launches = phase_e2e(
         "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
@@ -971,9 +1370,10 @@ def main() -> int:
         ("dense dropless", plain_moe),
         {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS))
     launches.update(phase_paper())
+    launches.update(compiler_launches)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
-    print(f"[done] {time.perf_counter() - t_start:.1f}s")
+    print(f"[done] {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -144,6 +144,9 @@ class Node:
     meta: Dict = dataclasses.field(default_factory=dict)
 
     def bytes_per_elem(self) -> int:
+        # numpy has no bfloat16 (the reference gets it from jax's ml_dtypes)
+        if self.dtype == "bfloat16":
+            return 2
         return np.dtype(self.dtype).itemsize
 
     def footprint_bytes(self) -> int:

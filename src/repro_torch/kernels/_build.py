@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "ssd_decode",
-           "vecadd", "matmul", "stencil", "floyd_warshall", "grouped_gemm")
+           "vecadd", "matmul", "stencil", "floyd_warshall", "grouped_gemm",
+           "region_map_reduce")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -6,30 +6,41 @@ card to the plain version.  The launch counts live on the kernel modules
 (``flash_attention.launches``, ``decode_attention.launches``,
 ``ssd_scan.launches``, ``ssd_decode.launches``, ``vecadd.launches``,
 ``matmul.launches``, ``stencil.launches``, ``floyd_warshall.launches``,
-``grouped_gemm.launches``).
+``grouped_gemm.launches``, ``region_map_reduce.launches``).
 
 The paper's four kernels take ``pump`` as a factor or a ``PumpSpec`` and
 raise the reference's ``ValueError`` for shapes the pump cannot divide, on
-either device; ``'auto'`` and ``'measure'`` need the compiler, which is not
-ported yet.
+either device.  ``vecadd``, ``matmul`` and ``grouped_gemm`` also take
+``pump='auto'`` (the capacity model's factor, cached by
+``compiler.plan_pump``) and ``pump='measure'`` (the factor measured on the
+kernel's IR graph through ``compile(backend='hopper',
+autotune='measure')``, cached likewise), as the reference's ``_as_spec``
+does; the chosen spec then drives the direct kernel.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+import warnings
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
 from ..core.ir import PumpSpec
+from ..core.pump_plan import dot_panel_bytes
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import floyd_warshall as _fw
 from . import grouped_gemm as _gg
 from . import matmul as _mm
 from . import ref
+from . import region_map_reduce as _rmr
 from . import ssd_decode as _sd
 from . import ssd_scan as _ss
 from . import stencil as _st
 from . import vecadd as _va
+
+
+def _pow2_floor(n: int) -> int:
+    return 1 << (max(n, 1).bit_length() - 1)
 
 
 def _route(x: torch.Tensor, name: str) -> bool:
@@ -74,28 +85,95 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
-               A: torch.Tensor, B: torch.Tensor, C: torch.Tensor):
+               A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
+               pump: Union[PumpSpec, int, Tuple[int, str]] = 1):
     """One-token SSD step: state (B, H, N, P) fp32, x (B, H, P), dt (B, H),
-    A (H,), B / C (B, G, N).  Returns (y fp32 (B, H, P), new state)."""
+    A (H,), B / C (B, G, N).  Returns (y fp32 (B, H, P), new state).
+    ``pump`` (a factor, a ``PumpSpec`` or ``(factor, mode)``) only changes
+    how the kernel walks the step (mode R: P in M sub-tiles; mode T: M
+    heads per block), never the values."""
     if _route(x, "ssd_decode"):
-        return _sd.ssd_decode_cuda(state, x, dt, A, B, C)
+        return _sd.ssd_decode_cuda(state, x, dt, A, B, C, pump=pump)
     return ref.ssd_decode(state, x, dt, A, B, C)
 
 
+def region_map_reduce(desc, operands: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The fused-region map/reduce kernel on a ``RegionDesc`` (see
+    ``kernels.region_map_reduce``): CUDA operands launch it, CPU operands
+    take its plain version."""
+    if _route(operands[0], "region_map_reduce"):
+        return _rmr.region_map_reduce_cuda(desc, operands)
+    return ref.region_map_reduce(desc, operands)
+
+
 # ------------------------------------------------ the paper's four kernels --
-def _as_spec(pump: Union[PumpSpec, int, str]) -> PumpSpec:
-    if pump in ("auto", "measure"):
-        raise NotImplementedError(
-            f"pump={pump!r} plans the factor through the compiler, which the "
-            f"port does not have yet; pass a factor or a PumpSpec")
+def _as_spec(pump: Union[PumpSpec, int, str], x: Optional[torch.Tensor] = None,
+             kernel: Optional[str] = None, builder_args=(),
+             builder_kwargs=None, max_factor: int = 16,
+             **plan_kwargs) -> PumpSpec:
+    """A factor, a ``PumpSpec``, or ``'auto'`` / ``'measure'`` planned for
+    ``kernel`` (the reference's ``_as_spec``).  ``max_factor`` is the
+    largest M the direct kernel is built for."""
+    if pump == "auto":
+        # capacity-model planning, memoized in the persistent compile cache
+        from ..compiler import plan_pump
+        return plan_pump(max_factor=max_factor, **plan_kwargs)
+    if pump == "measure":
+        # measured-runtime planning: compile the kernel's IR graph through
+        # the fused-region backend with autotune='measure' on x's device and
+        # reuse the winning factor here; the measured plan persists in the
+        # same compile cache, so only the first process pays the timing runs
+        spec = _measured_spec(kernel, builder_args, builder_kwargs or {},
+                              x.device, max_factor)
+        if spec is not None:
+            return spec
+        from ..compiler import plan_pump
+        return plan_pump(max_factor=max_factor, **plan_kwargs)
     return PumpSpec(factor=pump) if isinstance(pump, int) else pump
+
+
+def _fixed_spec(pump: Union[PumpSpec, int, str], name: str) -> PumpSpec:
+    if isinstance(pump, str):
+        raise TypeError(f"{name}: pump={pump!r} is planned by the compiler "
+                        f"only for vecadd, matmul and grouped_gemm, as in "
+                        f"the reference; pass a factor or a PumpSpec")
+    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
+
+
+def _measured_spec(kernel, builder_args, builder_kwargs, device,
+                   max_factor: int) -> Optional[PumpSpec]:
+    if kernel is None:
+        return None
+    from .. import compiler
+    from ..core.autopump import BUILDERS
+    try:
+        g, est = BUILDERS[kernel](*builder_args, **builder_kwargs)
+        kern = compiler.compile(g, factor="auto", estimate=est,
+                                backend="hopper", autotune="measure",
+                                max_factor=max_factor, device=device)
+    except (compiler.LoweringError, compiler.AutotuneError) as e:
+        # expected for non-executable builder shapes (non-divisible blocks
+        # leave fn=None, so every candidate fails to lower): fall back to
+        # the capacity model, visibly
+        warnings.warn(f"pump='measure' for {kernel}: graph not executable "
+                      f"({e}); falling back to capacity-model planning",
+                      stacklevel=3)
+        return None
+    return kern.spec
 
 
 def vecadd(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
            pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
     """z = x + y, 1-D, with spatial width V and temporal pump M (paper
     Table 2); any length (the kernel masks the ragged tail)."""
-    spec = _as_spec(pump)
+    isz = x.element_size()
+    spec = _as_spec(pump, x, kernel="vecadd", builder_args=(x.shape[0],),
+                    builder_kwargs=dict(vector_width=vector_width),
+                    max_factor=_pow2_floor(_va.MAX_TX_BYTES
+                                           // (vector_width * isz)),
+                    block_bytes_in=2 * vector_width * isz,
+                    block_bytes_out=vector_width * isz,
+                    flops_per_block=vector_width)
     if spec.mode == "R" and vector_width % spec.factor:
         raise ValueError(f"V={vector_width} not divisible by M={spec.factor} "
                          f"in mode R")
@@ -111,13 +189,22 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64, bn: int = 64,
     accumulation over the whole K, rounded once to ``out_dtype`` (default
     a's).  The default tile is one the kernel is built for (the reference's
     default is 128 x 128 x 128)."""
-    spec = _as_spec(pump)
-    if spec.mode == "R" and bn % spec.factor:
-        raise ValueError(f"bn={bn} not divisible by M={spec.factor} for "
-                         f"mode R")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} and "
                          f"{tuple(b.shape)} do not chain")
+    isz = a.element_size()
+    spec = _as_spec(
+        pump, a, kernel="matmul",
+        builder_args=(a.shape[0], b.shape[1], a.shape[1]),
+        builder_kwargs=dict(bm=bm, bn=bn, bk=bk),
+        max_factor=max(f for f, _m in _mm.PUMPS),
+        block_bytes_in=(bm * bk + bk * bn) * isz,
+        block_bytes_out=0,  # accumulated in registers, written once per tile
+        flops_per_block=2.0 * bm * bn * bk,
+        panel_bytes=dot_panel_bytes(bm, bn, bk, isz))
+    if spec.mode == "R" and bn % spec.factor:
+        raise ValueError(f"bn={bn} not divisible by M={spec.factor} for "
+                         f"mode R")
     if _route(a, "matmul"):
         return _mm.matmul_cuda(a, b, bm=bm, bn=bn, bk=bk, pump=spec,
                                out_dtype=out_dtype)
@@ -126,10 +213,10 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64, bn: int = 64,
 
 def stencil_chain(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
                   coef: float = 0.1,
-                  pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
+                  pump: Union[PumpSpec, int] = 1) -> torch.Tensor:
     """``stages`` 7-point stages (jacobi or diffusion) over a (d0, d1, d2)
     volume, M interior planes per program (paper Tables 4-5)."""
-    f = _as_spec(pump).factor
+    f = _fixed_spec(pump, "stencil_chain").factor
     if (x.shape[0] - 2) % f:
         raise ValueError("interior plane count must divide the pump factor")
     if _route(x, "stencil_chain"):
@@ -139,10 +226,10 @@ def stencil_chain(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
 
 
 def floyd_warshall(dist: torch.Tensor, *,
-                   pump: Union[PumpSpec, int, str] = 1) -> torch.Tensor:
+                   pump: Union[PumpSpec, int] = 1) -> torch.Tensor:
     """All-pairs shortest paths, M dependent pivots per slab (paper
     Table 6)."""
-    f = _as_spec(pump).factor
+    f = _fixed_spec(pump, "floyd_warshall").factor
     n = dist.shape[0]
     if n % f:
         raise ValueError(f"n={n} must divide pump factor {f}")
@@ -174,14 +261,35 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 16,
     The kernel masks a ragged C, F, D or group where the reference pads
     it, so every ``bc`` serves every size.  The default tile is one the
     kernel is built for (the reference's is 128 x 128 x 128)."""
-    spec = _as_spec(pump)
-    if spec.mode == "R" and bf % spec.factor:
-        raise ValueError(f"bf={bf} not divisible by M={spec.factor} in "
-                         f"mode R")
     if w.dim() != 3:
         raise ValueError(f"grouped_gemm: w must be (E, D, F), got "
                          f"{tuple(w.shape)}")
     e, d, f = w.shape
+    isz = x.element_size()
+    # 'measure' times the builder's graph: the ragged one at the groups
+    # padded to bc (the reference's ragged_request_args), the dense one at
+    # x's shape; a device tile table has no host graph, so it is planned
+    # by the capacity model
+    gkw = dict(bc=bc, bf=bf, bd=bd, itemsize=isz,
+               dtype=str(x.dtype).replace("torch.", ""))
+    kernel = "grouped_gemm"
+    if group_sizes is not None:
+        padded = tuple(-(-int(s_) // bc) * bc for s_ in group_sizes)
+        gargs = (e, sum(padded), d, f)
+        gkw["group_sizes"] = padded
+    elif tiles is None and x.dim() == 3:
+        gargs = (e, x.shape[1], d, f)
+    else:
+        gargs, kernel = (), None
+    spec = _as_spec(
+        pump, x, kernel=kernel, builder_args=gargs, builder_kwargs=gkw,
+        max_factor=max(f_ for f_, _m in _gg.PUMPS),
+        block_bytes_in=(bc * bd + bd * bf) * isz, block_bytes_out=0,
+        flops_per_block=2.0 * bc * bf * bd,
+        panel_bytes=dot_panel_bytes(bc, bf, bd, isz))
+    if spec.mode == "R" and bf % spec.factor:
+        raise ValueError(f"bf={bf} not divisible by M={spec.factor} in "
+                         f"mode R")
     if group_sizes is not None:
         if tiles is not None:
             raise ValueError("grouped_gemm: pass group_sizes or tiles, not "

@@ -228,3 +228,75 @@ def ragged_grouped_gemm(x: torch.Tensor, w: torch.Tensor,
         if sel.numel():
             out[sel] = x[sel].float() @ w[e].float()
     return out.to(x.dtype)
+
+
+# ------------------------------------------------- the fused-region kernel --
+def _block_offsets(o, mesh) -> torch.Tensor:
+    """Element offset of ``o``'s block at every grid point of ``mesh`` (one
+    coordinate tensor per grid axis)."""
+    off = torch.full_like(mesh[0], o.base) if mesh else \
+        torch.tensor(o.base)
+    for c, g in zip(o.coef, mesh):
+        if c:
+            off = off + c * g
+    for axis, vals in o.tables:
+        off = off + torch.tensor(vals, device=mesh[axis].device)[mesh[axis]]
+    return off
+
+
+def _block_elems(o, device) -> torch.Tensor:
+    r = torch.arange(o.rows, device=device)[:, None] * o.rs
+    return r + torch.arange(o.cols, device=device)[None, :] * o.cs
+
+
+def region_map_reduce(desc, operands, max_elems: int = 1 << 24
+                      ) -> torch.Tensor:
+    """The region kernel's function (``csrc/region_map_reduce.cu``) on the
+    descriptor ``desc`` (``kernels.region_map_reduce.RegionDesc``): gather
+    each operand's block at every grid point by its affine map, apply
+    ``add`` or the block product in fp32, sum over the reduce axes and
+    write each map point's block of the output, rounded once to its dtype.
+    The map points are taken in chunks of at most ``max_elems`` gathered
+    elements, so the card-size plans fit in memory."""
+    in0, in1 = operands
+    dev = in0.device
+    grid, red = list(desc.grid), list(desc.reduce)
+    map_axes = [i for i, r in enumerate(red) if not r]
+    red_axes = [i for i, r in enumerate(red) if r]
+    n_red = 1
+    for i in red_axes:
+        n_red *= grid[i]
+    n_map = 1
+    for i in map_axes:
+        n_map *= grid[i]
+    a, b = desc.ins
+    per_point = n_red * (a.rows * a.cols + b.rows * b.cols)
+    chunk = max(1, max_elems // max(per_point, 1))
+    out = torch.zeros(desc.out.shape, dtype=getattr(torch, desc.dtype),
+                      device=dev)
+    flat_out = out.reshape(-1)
+    ea, eb = _block_elems(a, dev), _block_elems(b, dev)
+    eo = _block_elems(desc.out, dev)
+    red_idx = torch.arange(n_red, device=dev)
+    for m0 in range(0, n_map, chunk):
+        m_idx = torch.arange(m0, min(n_map, m0 + chunk), device=dev)
+        # grid coordinates of every (map point, reduce point) pair, the
+        # reduce points innermost in plan order
+        coords = [None] * len(grid)
+        rem = m_idx[:, None]
+        for i in reversed(map_axes):
+            coords[i] = (rem % grid[i]).expand(-1, n_red)
+            rem = rem // grid[i]
+        rem = red_idx[None, :]
+        for i in reversed(red_axes):
+            coords[i] = (rem % grid[i]).expand(m_idx.numel(), -1)
+            rem = rem // grid[i]
+        ta = in0.reshape(-1)[_block_offsets(a, coords)[..., None, None]
+                             + ea].float()
+        tb = in1.reshape(-1)[_block_offsets(b, coords)[..., None, None]
+                             + eb].float()
+        tile = ta + tb if desc.op == "add" else ta @ tb
+        tile = tile.sum(dim=1)                 # over the reduce points
+        o_off = _block_offsets(desc.out, [c[:, 0] for c in coords])
+        flat_out[o_off[:, None, None] + eo] = tile.to(out.dtype)
+    return out

@@ -182,15 +182,30 @@ def test_indivisible_pumps_raise_as_the_reference():
 
 
 @pytest.mark.parametrize("pump", ["auto", "measure"])
-def test_planned_pumps_need_the_compiler(pump):
-    x = torch.zeros(64)
-    for call in (lambda: port_ops.vecadd(x, x, pump=pump),
-                 lambda: port_ops.matmul(x.view(8, 8), x.view(8, 8),
-                                         pump=pump),
-                 lambda: port_ops.stencil_chain(x.view(4, 4, 4), 1,
+def test_planned_pumps_need_the_compiler(pump, tmp_path, monkeypatch):
+    """vecadd and matmul plan 'auto' / 'measure' through the port's compiler
+    (its cache in a scratch directory) and agree with the plain versions;
+    the stencil and Floyd-Warshall take no planned pump, as in the
+    reference."""
+    monkeypatch.setenv("REPRO_TORCH_CACHE_DIR", str(tmp_path))
+    x = torch.arange(64, dtype=torch.float32)
+    y = torch.ones(64)
+    assert torch.equal(port_ops.vecadd(x, y, pump=pump), x + y)
+    # 64^3 divides the default tile, so 'measure' times the compiled graph;
+    # 8^3 does not, so it falls back to the capacity model with a warning
+    a = (torch.arange(64 * 64) % 7).float().view(64, 64)
+    assert torch.equal(port_ops.matmul(a, a.T, pump=pump), a @ a.T)
+    a, b = x.view(8, 8) % 5, y.view(8, 8)
+    if pump == "measure":
+        with pytest.warns(UserWarning, match="not executable"):
+            assert torch.equal(port_ops.matmul(a, b, pump=pump), a @ b)
+    else:
+        assert torch.equal(port_ops.matmul(a, b, pump=pump), a @ b)
+    assert (tmp_path / "compile_cache.json").exists()
+    for call in (lambda: port_ops.stencil_chain(x.view(4, 4, 4), 1,
                                                 pump=pump),
                  lambda: port_ops.floyd_warshall(x.view(8, 8), pump=pump)):
-        with pytest.raises(NotImplementedError, match="compiler"):
+        with pytest.raises(TypeError, match="compiler"):
             call()
 
 
