@@ -11,13 +11,18 @@ Phases, in order; any failure exits non-zero:
 2. build: nvcc builds every kernel of ``src/repro_torch/csrc`` in parallel.
 3. each kernel against its plain PyTorch version on the same inputs:
    (a) flash and (b) decode attention: fp32 at small ragged GQA shapes,
-       atol 1e-5, then the serving shapes and dtypes of the qwen3 path,
-       atol 2e-2 on the bf16 outputs, with kernel, plain and SDPA times
-       beside the bound;
+       every pump case each kernel is built for (T1 / T2 / T4 / R2 / R4,
+       ``built``) within atol 1e-5 of the plain version (flash's final m
+       and l too) and with T1's bits, then the serving shapes and dtypes
+       of the qwen3 path in every built case, atol 2e-2 on the bf16
+       outputs, with kernel (per pump case), plain and SDPA times beside
+       the bound;
    (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
-       shapes through strided views, then the mamba2-1.3b path's shapes
-       and dtypes, each under the relative tolerance stated at its
-       constant, with kernel and plain times beside the bound;
+       shapes through strided views (the scan in every built pump case,
+       with T1's bits), then the mamba2-1.3b path's shapes and dtypes,
+       each under the relative tolerance stated at its constant, with
+       kernel (the scan's per pump case) and plain times beside the
+       bound;
    (e) vecadd, (f) matmul, (g) the stencil stage and (h) Floyd-Warshall:
        small ragged shapes in every pump case (vecadd, integer-valued
        matmul and Floyd-Warshall exact; stencil under
@@ -26,19 +31,23 @@ Phases, in order; any failure exits non-zero:
        library and bound times;
    (i) the grouped GEMM: small ragged groups (empty experts, one-row
        groups), the dense form with ragged C, F and D, and a worst-case
-       device table, in every pump case (exact on integer values, 1e-5 of
-       the largest value on normal ones); then deepseek-v2-lite's MoE
-       shapes in bf16 (the padded groups of a seeded top-6 routing of a
-       prefill of 8 x 512 tokens and of one decode step of 8) under
-       ``RTOL_GG_BF16``, with kernel, plain, library and bound times;
+       device table, in every built tile (bf16 on the tensor cores) and
+       pump case (exact on integer values, 1e-5 of the largest value on
+       normal ones); then deepseek-v2-lite's MoE shapes in bf16 (the
+       padded groups of a seeded top-6 routing of a prefill of 8 x 512
+       tokens in 128-row tiles and of one decode step of 8 in 16-row
+       tiles) under ``RTOL_GG_BF16``, with kernel, plain, library and
+       bound times;
    (j) the compiler, ``repro_torch.compiler.compile``: (a) the nine IR
        builders (and a second ragged grouped GEMM with an empty expert) at
        small integer-valued shapes, M 1 / 2 / 4 x T / R, through the
        ``hopper`` and ``torch`` backends on CUDA tensors against the port's
        numpy executor (exact, or ``ATOL_EXP`` where exp enters), each
-       region at its expected tier; (b) the region kernel
+       region at its expected tier (the carry builders' at ``hopper``
+       wherever their kernel is built for the case); (b) the region kernel
        (``csrc/region_map_reduce.cu``) against its plain version on small
-       ragged descriptors, add and dot, fp32 and bf16, M 1-8 x T / R;
+       ragged descriptors, add and dot, fp32 and bf16 (the bf16 dots of
+       whole 16-row tiles on the tensor cores), M 1-8 x T / R;
        (c) vecadd 2^28, matmul 4096^3, the ragged grouped GEMM at the
        deepseek prefill's routing and mamba2's SSD decode step compiled to
        the ``hopper`` tier and run once (the launches of that run are
@@ -46,7 +55,8 @@ Phases, in order; any failure exits non-zero:
        region-kernel, direct, plain, library and bound times;
        (d) ``autotune='measure'`` on the four, then a fresh-memo compile
        that replays the measured factor from the cache with zero
-       measurements.
+       measurements; ``pump='measure'`` on flash, decode attention and
+       the SSD scan, whose kernels' launch counts must move.
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -73,6 +83,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -140,6 +151,8 @@ ATOL_EXP = 5e-6
 # the largest |value|: both sum in fp32 in another order and round once, so
 # an output may differ by one bf16 ulp, at most 2^-7 of the largest value
 RTOL_REGION_BF16 = 2.0 ** -7
+# the pump cases the kernels of rows 1, 2, 8 and 10 are swept over
+PUMP_CASES = ((1, "T"), (2, "T"), (4, "T"), (2, "R"), (4, "R"))
 # where chip_smoke keeps the compile cache of its autotune phase
 BUILD_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
@@ -226,6 +239,38 @@ def phase_build():
     print(f"[build] all kernels built in {wall:.2f}s (parallel nvcc)")
 
 
+def pump_sweep(label, run, check_one, built):
+    """Every built pump case of one kernel on one input: ``run((factor,
+    mode))`` returns its outputs (a tuple), ``check_one(outputs)`` their
+    error against the plain version (checked by the caller's tolerance
+    inside it); every case must give T1's bits.  Returns (cases run, worst
+    error)."""
+    base, worst, names = None, 0.0, []
+    for f, m in PUMP_CASES:
+        if not built(f, m):
+            continue
+        outs = run((f, m))
+        worst = max(worst, check_one(outs, f"{label} {f}{m}"))
+        if base is None:
+            base = outs
+        else:
+            check(all(torch.equal(a, b_) for a, b_ in zip(outs, base)),
+                  f"{label}: pump {f}{m} changed the bits of T1's result")
+        names.append(f"{'T' if m == 'T' or f == 1 else 'R'}{f}")
+    return names, worst
+
+
+def pump_times(timer, label, run, built):
+    """Kernel time (ms) of every built pump case at one shape."""
+    times = {}
+    for f, m in PUMP_CASES:
+        if built(f, m):
+            times[f"{m}{f}"] = timer.ms(lambda: run((f, m)))
+    print(f"[{label}] per pump case: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in times.items()))
+    return times
+
+
 def phase_kernels(timer):
     """Each kernel against its plain version; returns the kernels entries."""
     from repro_torch.core.pump_plan import (PEAK_FLOPS_BF16, PEAK_FLOPS_FP32,
@@ -235,40 +280,73 @@ def phase_kernels(timer):
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
-    # (a) fp32, small ragged shapes: GQA, S / T not tile multiples, S != T
+    # (a) fp32, small ragged shapes: GQA, S / T not tile multiples, S != T,
+    # head dims that are not a power of two; every built pump case within
+    # ATOL_FP32 of the plain version (o; m and l relative), all with T1's
+    # bits
     for b, h, hkv, s, t, d, causal in [
             (2, 4, 2, 37, 37, 64, True), (2, 4, 2, 37, 37, 64, False),
             (1, 4, 4, 100, 130, 32, False), (1, 6, 2, 130, 130, 128, True),
-            (2, 4, 1, 70, 37, 32, True), (1, 2, 2, 5, 200, 128, False)]:
+            (2, 4, 1, 70, 37, 32, True), (1, 2, 2, 5, 200, 128, False),
+            (2, 4, 2, 300, 300, 8, True), (1, 2, 1, 65, 129, 36, False)]:
         q, k, v = (randn(gen, b, h, s, d), randn(gen, b, hkv, t, d),
                    randn(gen, b, hkv, t, d))
-        e = err(fa.flash_attention_cuda(q, k, v, causal=causal),
-                ref.flash_attention(q, k, v, causal=causal))
+        want = ref.flash_attention(q, k, v, causal=causal, stats=True)
+
+        def check_flash(outs, label, want=want):
+            e = err(outs[0], want[0])
+            e_ml = max(rel_err(outs[1], want[1]), rel_err(outs[2], want[2]))
+            check(e <= ATOL_FP32 and e_ml <= ATOL_FP32,
+                  f"{label}: o err {e}, m / l rel err {e_ml} > {ATOL_FP32}")
+            return e
+        cases, e = pump_sweep(
+            f"flash fp32 D{d}",
+            lambda pump: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                                 pump=pump, stats=True),
+            check_flash, lambda f, m: fa.built(f, m, d, q.dtype))
         print(f"[flash fp32] B{b} H{h}/{hkv} S{s} T{t} D{d} causal={causal}: "
-              f"max abs err {e:.3g}")
-        check(e <= ATOL_FP32, f"flash fp32 err {e} > {ATOL_FP32}")
+              f"{'/'.join(cases)}: max abs err {e:.3g}, m and l within "
+              f"{ATOL_FP32} relative, identical bits")
     for b, h, hkv, t, d, pos in [(4, 8, 2, 37, 64, [0, 36, 17, 5]),
                                  (3, 4, 4, 200, 128, [199, 0, 64]),
-                                 (2, 16, 8, 577, 128, [576, 511])]:
+                                 (2, 16, 8, 577, 128, [576, 511]),
+                                 (2, 4, 2, 300, 32, [299, 130])]:
         q, k, v = (randn(gen, b, h, d), randn(gen, b, hkv, t, d),
                    randn(gen, b, hkv, t, d))
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
-        e = err(da.decode_attention_cuda(q, k, v, p),
-                ref.decode_attention(q, k, v, p))
+        want = ref.decode_attention(q, k, v, p)
+
+        def check_decode(outs, label, want=want):
+            e = err(outs[0], want)
+            check(e <= ATOL_FP32, f"{label}: err {e} > {ATOL_FP32}")
+            return e
+        cases, e = pump_sweep(
+            f"decode fp32 D{d}",
+            lambda pump: (da.decode_attention_cuda(q, k, v, p, pump=pump),),
+            check_decode, lambda f, m: da.built(f, m, h // hkv, d, k.dtype))
         print(f"[decode fp32] B{b} H{h}/{hkv} T{t} D{d} pos={pos}: "
-              f"max abs err {e:.3g}")
-        check(e <= ATOL_FP32, f"decode fp32 err {e} > {ATOL_FP32}")
+              f"{'/'.join(cases)}: max abs err {e:.3g}, identical bits")
 
     # (b) main-path shapes and dtypes
     b, h, hkv, s, d = 8, 16, 8, 512, 128
     q = randn(gen, b, h, s, d, dtype=torch.bfloat16)
     k = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
     v = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
-    e_fa = err(fa.flash_attention_cuda(q, k, v, causal=True),
-               ref.flash_attention(q, k, v, causal=True))
-    print(f"[flash bf16] B{b} H{h}/{hkv} S=T={s} D{d} causal: max abs err "
-          f"{e_fa:.3g} (atol {ATOL_BF16})")
-    check(e_fa <= ATOL_BF16, f"flash bf16 err {e_fa} > {ATOL_BF16}")
+    want = ref.flash_attention(q, k, v, causal=True)
+
+    def check_fa(outs, label):
+        e = err(outs[0], want)
+        check(e <= ATOL_BF16, f"{label}: err {e} > {ATOL_BF16}")
+        return e
+
+    def run_fa(pump):
+        return (fa.flash_attention_cuda(q, k, v, causal=True, pump=pump),)
+    fa_built = lambda f, m: fa.built(f, m, d, q.dtype)  # noqa: E731
+    cases, e_fa = pump_sweep("flash bf16", run_fa, check_fa, fa_built)
+    print(f"[flash bf16] B{b} H{h}/{hkv} S=T={s} D{d} causal, "
+          f"{'/'.join(cases)}: max abs err {e_fa:.3g} (atol {ATOL_BF16}), "
+          f"identical bits")
+    fa_pumps = pump_times(timer, "flash bf16", run_fa, fa_built)
     pairs = sum(min(i + 1, s) for i in range(s))
     fa_bound, fa_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
                                4.0 * b * h * d * pairs, PEAK_FLOPS_BF16)
@@ -283,11 +361,21 @@ def phase_kernels(timer):
     qd = randn(gen, b, h, d, dtype=torch.bfloat16)
     kc, vc = randn(gen, b, hkv, t, d), randn(gen, b, hkv, t, d)
     pd = torch.full((b,), pos_main, dtype=torch.int32, device="cuda")
-    e_da = err(da.decode_attention_cuda(qd, kc, vc, pd),
-               ref.decode_attention(qd, kc, vc, pd))
+    want = ref.decode_attention(qd, kc, vc, pd)
+
+    def check_da(outs, label):
+        e = err(outs[0], want)
+        check(e <= ATOL_BF16, f"{label}: err {e} > {ATOL_BF16}")
+        return e
+
+    def run_da(pump):
+        return (da.decode_attention_cuda(qd, kc, vc, pd, pump=pump),)
+    da_built = lambda f, m: da.built(f, m, h // hkv, d, kc.dtype)  # noqa: E731
+    cases, e_da = pump_sweep("decode", run_da, check_da, da_built)
     print(f"[decode bf16] B{b} H{h}/{hkv} T{t} D{d} q bf16, cache fp32, "
-          f"pos {pos_main}: max abs err {e_da:.3g} (atol {ATOL_BF16})")
-    check(e_da <= ATOL_BF16, f"decode err {e_da} > {ATOL_BF16}")
+          f"pos {pos_main}, {'/'.join(cases)}: max abs err {e_da:.3g} (atol "
+          f"{ATOL_BF16}), identical bits")
+    da_pumps = pump_times(timer, "decode", run_da, da_built)
     n_keys = b * (pos_main + 1)
     da_bound, da_by = bound_ms(
         2 * qd.numel() * 2 + pd.numel() * 4 + 2 * n_keys * hkv * d * 4,
@@ -311,12 +399,14 @@ def phase_kernels(timer):
          "source": "src/repro_torch/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:103",
          "max_abs_err": e_fa, "ms": fa_ms, "plain_ms": fa_plain,
-         "bound_ms": fa_bound, "bound_by": fa_by, "library_ms": fa_lib},
+         "bound_ms": fa_bound, "bound_by": fa_by, "library_ms": fa_lib,
+         "pump_ms": fa_pumps},
         {"name": "decode_attention", "route": "cuda",
          "source": "src/repro_torch/csrc/decode_attention.cu",
          "replaces": "src/repro/compiler/pallas_backend.py:784",
          "max_abs_err": e_da, "ms": da_ms, "plain_ms": da_plain,
-         "bound_ms": da_bound, "bound_by": da_by, "library_ms": da_lib},
+         "bound_ms": da_bound, "bound_by": da_by, "library_ms": da_lib,
+         "pump_ms": da_pumps},
     ]
 
 
@@ -343,37 +433,56 @@ def phase_ssd_kernels(timer):
     from repro_torch.kernels import ssd_scan as ss
     gen = torch.Generator(device="cuda").manual_seed(4321)
 
-    # (c) the SSD scan, fp32, ragged L, grouped B / C
+    # (c) the SSD scan, fp32, ragged L, grouped B / C, every built pump
+    # case under RTOL_SSD_FP32, all with T1's bits
     for b, l, h, g, n, p, chunk in [
             (2, 37, 4, 1, 16, 32, 16), (1, 100, 8, 2, 64, 64, 64),
             (2, 130, 4, 2, 128, 64, 64), (1, 130, 6, 1, 32, 16, 16),
-            (2, 100, 8, 1, 128, 64, 16), (1, 37, 4, 2, 128, 64, 64)]:
+            (2, 100, 8, 1, 128, 64, 16), (1, 37, 4, 2, 128, 64, 64),
+            (1, 200, 4, 2, 24, 40, 32)]:
         x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p)
-        y, st = ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
-                                 final_state=True)
         y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
                                      final_state=True)
-        e_y, e_s = rel_err(y, y_ref), rel_err(st, st_ref)
+
+        def check_scan(outs, label, y_ref=y_ref, st_ref=st_ref):
+            e = max(rel_err(outs[0], y_ref), rel_err(outs[1], st_ref))
+            check(e <= RTOL_SSD_FP32,
+                  f"{label}: rel err {e} > {RTOL_SSD_FP32}")
+            return e
+        cases, e = pump_sweep(
+            "ssd_scan fp32",
+            lambda pump: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                          final_state=True, pump=pump),
+            check_scan, ss.built)
         print(f"[ssd_scan fp32] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}: "
-              f"rel err y {e_y:.3g}, state {e_s:.3g}")
-        check(max(e_y, e_s) <= RTOL_SSD_FP32,
-              f"ssd_scan fp32 rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
+              f"{'/'.join(cases)}: rel err {e:.3g}, identical bits")
     e_y = rel_err(ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=64), y_ref)
     check(e_y <= RTOL_SSD_FP32, f"ssd_scan without state: rel err {e_y}")
 
     # the mamba2-1.3b path: B 8, L 512, 64 heads x 64, N 128, G 1, chunk 64
     b, l, h, g, n, p, chunk = 8, 512, 64, 1, 128, 64, 64
     x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
-    y, st = ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk, final_state=True)
     y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
                                  final_state=True)
+
+    def check_scan(outs, label):
+        e_y, e_s = rel_err(outs[0], y_ref), rel_err(outs[1], st_ref)
+        check(e_y <= RTOL_SSD_BF16, f"{label}: y rel err {e_y}")
+        check(e_s <= RTOL_SSD_FP32, f"{label}: state rel err {e_s}")
+        return max(err(outs[0], y_ref), err(outs[1], st_ref))
+
+    def run_scan(pump):
+        return ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                final_state=True, pump=pump)
+    cases, e_scan = pump_sweep("ssd_scan bf16", run_scan, check_scan,
+                               ss.built)
+    y, st = run_scan(1)
     e_y, e_s = rel_err(y, y_ref), rel_err(st, st_ref)
-    e_scan = max(err(y, y_ref), err(st, st_ref))
-    print(f"[ssd_scan bf16] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}: rel "
-          f"err y {e_y:.3g} (rtol {RTOL_SSD_BF16:.3g}), state {e_s:.3g} "
-          f"(rtol {RTOL_SSD_FP32}); max abs err {e_scan:.3g}")
-    check(e_y <= RTOL_SSD_BF16, f"ssd_scan bf16 y rel err {e_y}")
-    check(e_s <= RTOL_SSD_FP32, f"ssd_scan bf16 state rel err {e_s}")
+    print(f"[ssd_scan bf16] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}, "
+          f"{'/'.join(cases)}: rel err y {e_y:.3g} (rtol "
+          f"{RTOL_SSD_BF16:.3g}), state {e_s:.3g} (rtol {RTOL_SSD_FP32}); "
+          f"max abs err {e_scan:.3g}, identical bits")
+    ss_pumps = pump_times(timer, "ssd_scan", run_scan, ss.built)
     # bytes: each input read once, y and the state written once; operations:
     # the causal half of C·Bᵀ once per (b, group, chunk), since the heads of
     # a group share it, and per (b, h, chunk) the causal half of G·x, C·S and
@@ -438,7 +547,8 @@ def phase_ssd_kernels(timer):
          "source": "src/repro_torch/csrc/ssd_scan.cu",
          "replaces": "src/repro/kernels/ssd_scan.py:97",
          "max_abs_err": e_scan, "ms": ss_ms, "plain_ms": ss_plain,
-         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None},
+         "bound_ms": ss_bound, "bound_by": ss_by, "library_ms": None,
+         "pump_ms": ss_pumps},
         {"name": "ssd_decode", "route": "cuda",
          "source": "src/repro_torch/csrc/ssd_decode.cu",
          "replaces": "src/repro/compiler/pallas_backend.py:814",
@@ -674,9 +784,9 @@ def phase_grouped_gemm(timer):
         return torch.randint(-4, 5, shape, generator=gen,
                              device="cuda").to(dtype)
 
-    def sweep(run, want, label, exact):
+    def sweep(run, want, label, exact, dtype=torch.float32):
         worst = 0.0
-        for bc, bf, bd in gg.TILES:
+        for bc, bf, bd in gg.TILES[dtype]:
             for spec in pumps:
                 got = run(bc=bc, bf=bf, bd=bd, pump=spec)
                 e = err(got, want) if exact else rel_err(got, want)
@@ -703,7 +813,7 @@ def phase_grouped_gemm(timer):
                 worst = max(worst, sweep(
                     lambda **kw: ops.grouped_gemm(x, w, group_sizes=sizes,
                                                   **kw).cpu(),
-                    want, f"sizes {sizes} D{d} F{f} {dtype}", exact))
+                    want, f"sizes {sizes} D{d} F{f} {dtype}", exact, dtype))
     # the dense form: ragged C, F and D
     for e, c, d, f in ((3, 37, 70, 50), (2, 16, 64, 128), (5, 1, 300, 7),
                        (4, 130, 33, 200)):
@@ -712,7 +822,7 @@ def phase_grouped_gemm(timer):
             want = ref.grouped_gemm(x, w)
             worst = max(worst, sweep(
                 lambda **kw: ops.grouped_gemm(x, w, **kw), want,
-                f"dense E{e} C{c} D{d} F{f} {dtype}", True))
+                f"dense E{e} C{c} D{d} F{f} {dtype}", True, dtype))
     # a worst-case table built on the card: surplus tiles zero their rows
     rows, padded, tiles, n_rows = routed_layout(gen, 40, e=8, k=2, d=64)
     x, w = randn(gen, n_rows, 64), randn(gen, 8, 64, 96)
@@ -724,26 +834,32 @@ def phase_grouped_gemm(timer):
     print(f"[grouped_gemm fp32/bf16] group sizes [5,0,12,3], [1,1,0,33], "
           f"[0,0,0,17], [40,16,1,0,7], [0,0]; dense E3 C37 D70 F50, E2 C16 "
           f"D64 F128, E5 C1 D300 F7, E4 C130 D33 F200; a worst-case device "
-          f"table; tiles {gg.TILES}, T1 / T2 / T4 / R2 / R4: exact on "
+          f"table; tiles {gg.TILES[torch.bfloat16]} (the 128-row one in "
+          f"bf16 only), T1 / T2 / T4 / R2 / R4: exact on "
           f"integer values, rel err {worst:.3g} on normal values (rtol "
           f"{ATOL_FP32})")
 
     # the deepseek-v2-lite path: top-6 of 64 experts for a prefill of
     # 8 x 512 tokens and for one decode step of 8; gate / up (D 2048 ->
-    # F 1408) and down (1408 -> 2048), bf16
+    # F 1408) and down (1408 -> 2048), bf16, in the row tile the MoE layer
+    # picks (128 rows for the prefill, 16 for the decode step)
+    from repro_torch.models import moe
     e, d, f = 64, 2048, 1408
     w_up = (randn(gen, e, d, f) / d ** 0.5).to(torch.bfloat16)
     w_down = (randn(gen, e, f, d) / f ** 0.5).to(torch.bfloat16)
     shapes = []
     for phase, tokens in (("prefill", 8 * 512), ("decode", 8)):
         rows, padded, tiles, n_rows = routed_layout(gen, tokens)
+        bc = moe.row_tile(tokens * 6, e, torch.bfloat16)
+        if bc != moe.ROW_TILE:
+            tiles = gg.tile_table(padded, bc, -(-n_rows // bc) + e)
         used = int(padded.sum())
         active = int((padded > 0).sum())
         for name, w in (("gate/up", w_up), ("down", w_down)):
             din, dout = w.shape[1], w.shape[2]
             x = torch.zeros(n_rows, din, device="cuda", dtype=torch.bfloat16)
             x[rows] = randn(gen, rows.numel(), din, dtype=torch.bfloat16)
-            got = ops.grouped_gemm(x, w, bc=16, tiles=tiles)
+            got = ops.grouped_gemm(x, w, bc=bc, tiles=tiles)
             want = ref.ragged_grouped_gemm(x, w, tiles)
             e_rel, e_abs = rel_err(got, want), err(got, want)
             check(e_rel <= RTOL_GG_BF16,
@@ -751,7 +867,7 @@ def phase_grouped_gemm(timer):
             nbytes = 2 * (used * din + active * din * dout + used * dout)
             bound, by = bound_ms(nbytes, 2.0 * used * din * dout,
                                  PEAK_FLOPS_BF16)
-            ms = timer.ms(lambda: ops.grouped_gemm(x, w, bc=16, tiles=tiles))
+            ms = timer.ms(lambda: ops.grouped_gemm(x, w, bc=bc, tiles=tiles))
             plain = timer.ms(lambda: ref.ragged_grouped_gemm(x, w, tiles),
                              iters=5)
             lib = None
@@ -764,13 +880,15 @@ def phase_grouped_gemm(timer):
                     print(f"[grouped_gemm] torch._grouped_mm refused these "
                           f"inputs: {str(exc).splitlines()[0]}")
             print(f"[grouped_gemm {phase} {name}] {tokens} tokens x top-6: "
-                  f"{used} padded rows in {active} experts, D{din} F{dout} "
+                  f"{used} padded rows in {active} experts, {bc}-row "
+                  f"tiles, D{din} F{dout} "
                   f"bf16: rel err {e_rel:.3g} (rtol {RTOL_GG_BF16:.3g}), "
                   f"max abs err {e_abs:.3g}; kernel {ms:.4f} ms, plain "
                   f"{plain:.4f} ms, torch._grouped_mm "
                   f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
                   f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
             shapes.append({"shape": f"{phase} {name}", "rows": used,
+                           "row_tile": bc,
                            "experts": active, "max_abs_err": e_abs, "ms": ms,
                            "plain_ms": plain, "bound_ms": bound,
                            "bound_by": by, "library_ms": lib})
@@ -793,8 +911,17 @@ def phase_grouped_gemm(timer):
 def compiler_cases():
     """The nine builders at ``tests/differential.py``'s first shapes, and a
     second ragged grouped GEMM with an empty expert: (label, builder,
-    args, kwargs, input shapes, outputs, exact, transform, expected tier).
-    Inputs are integer-valued fp32 made from a seed."""
+    args, kwargs, input shapes, outputs, exact, transform, expected tier:
+    a name, or for the carry builders a function of (M, mode) that says
+    ``hopper`` where the kernel is built for the case).  Inputs are
+    integer-valued fp32 made from a seed."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    def tier(built):
+        return lambda m, mode: "hopper" if built(m, mode) else "carryloop"
+
     def ssd(d):   # dt > 0, a < 0, on a coarse grid (exact sums)
         d["dt"] = np.abs(d["dt"]) * 0.25 + 0.25
         d["a"] = -(np.abs(d["a"]) * 0.25 + 0.25)
@@ -819,10 +946,11 @@ def compiler_cases():
         ("flash_attention", "flash_attention", (1, 2, 32, 32, 8),
          dict(bq=16, bkv=8, causal=True, vector_width=8),
          {"q": (1, 2, 32, 8), "k": (1, 2, 32, 8), "v": (1, 2, 32, 8)},
-         ("o", "m", "l"), False, None, "carryloop"),
+         ("o", "m", "l"), False, None,
+         tier(lambda m, mode: fa.built(m, mode, 8, torch.float32))),
         ("ssd_scan", "ssd_scan", (1, 32, 2, 4, 4),
          dict(chunk=8, vector_width=8), ssd_in, ("y",), False, ssd,
-         "carryloop"),
+         tier(ss.built)),
         ("grouped_gemm", "grouped_gemm", (2, 32, 16, 8),
          dict(bc=8, bf=8, bd=8, vector_width=8),
          {"x": (2, 32, 16), "w": (2, 16, 8)}, ("o",), True, None, "hopper"),
@@ -835,10 +963,11 @@ def compiler_cases():
         ("decode_attention", "decode_attention", (2, 4, 32, 8),
          dict(bkv=8, hkv=2, vector_width=4),
          {"q": (2, 4, 8), "k": (2, 2, 32, 8), "v": (2, 2, 32, 8),
-          "pos": (2,)}, ("o",), False, pos, "carryloop"),
+          "pos": (2,)}, ("o",), False, pos,
+         tier(lambda m, mode: da.built(m, mode, 2, 8, torch.float32))),
         ("ssd_scan final state", "ssd_scan", (1, 32, 2, 4, 4),
          dict(chunk=8, vector_width=8, final_state=True), ssd_in,
-         ("y", "state"), False, ssd, "carryloop"),
+         ("y", "state"), False, ssd, tier(ss.built)),
         ("ssd_decode", "ssd_decode", (2, 4, 8, 4),
          dict(n_groups=2, vector_width=4),
          {"state": (2, 4, 4, 8), "x": (2, 4, 8), "dt": (2, 4), "a": (4,),
@@ -884,7 +1013,7 @@ def phase_compiler(timer):
     t0 = time.perf_counter()
 
     # (a) every builder through both executable backends on CUDA tensors
-    worst = {}
+    worst, tiers = {}, {}
     for label, kern_name, args, kw, shapes, outs, exact, tf, tier in \
             compiler_cases():
         rng = np.random.default_rng(0)
@@ -912,14 +1041,21 @@ def phase_compiler(timer):
                                   f"{o}: max abs err {e}")
                     if backend == "hopper":
                         em = list(k.report.emission.values())
-                        check(len(em) == 1 and em[0]["tier"] == tier,
+                        want = tier(m, mode) if callable(tier) else tier
+                        check(len(em) == 1 and em[0]["tier"] == want,
                               f"compile {label} M{m} {mode}: tier "
-                              f"{[x['tier'] for x in em]} != {tier} "
+                              f"{[x['tier'] for x in em]} != {want} "
                               f"({[x['why'] for x in em]})")
+                        tiers.setdefault(label, set()).add(
+                            f"{m}{mode}:{em[0]['tier']}")
     print(f"[compiler] (a) {len(worst)} builder cases x M 1/2/4 x T/R x "
           f"hopper/torch on CUDA tensors vs the executor, tiers as "
           f"expected: " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + f" (exact, or rtol=atol {ATOL_EXP} where exp enters)")
+    for label in ("flash_attention", "decode_attention", "ssd_scan",
+                  "ssd_scan final state"):
+        print(f"[compiler] (a) {label} tiers: "
+              + " ".join(sorted(tiers[label])))
 
     # (b) the region kernel against its plain version on small ragged
     # descriptors: add and dot, fp32 and bf16, M 1/2/4/8 x T/R, an empty
@@ -935,7 +1071,7 @@ def phase_compiler(timer):
          dict(bc=8, bf=16, bd=8, group_sizes=(16, 0, 40, 8),
               vector_width=8)),
     ]
-    n_desc, worst_bf16 = 0, 0.0
+    n_desc, n_mma, worst_bf16 = 0, 0, 0.0
     for label, kern_name, args, kw in desc_cases:
         for m in (1, 2, 4, 8):
             for mode in ("T", "R"):
@@ -947,6 +1083,7 @@ def phase_compiler(timer):
                 for dtype in ("float32", "bfloat16"):
                     desc, why = hb.region_descriptor(k.graph, plan, dtype)
                     check(desc is not None, f"{label} M{m} {mode}: {why}")
+                    n_mma += 2 * rmr.mma_path(desc)
                     tdt = getattr(torch, dtype)
                     for kind in ("ints", "normal"):
                         ins = [(torch.randint(-4, 5, o.shape, generator=gen,
@@ -969,11 +1106,13 @@ def phase_compiler(timer):
                             check(e <= tol, f"region {label} M{m} {mode} "
                                             f"{dtype} normal: rel err {e}")
                         n_desc += 1
+    check(n_mma > 0, "no bf16 dot took the tensor-core path")
     print(f"[compiler] (b) region kernel vs plain: {n_desc} runs (vecadd V8 "
           f"/ V4, matmul 48x80x128, dense and ragged grouped GEMM with an "
-          f"empty group; M 1/2/4/8 x T/R; fp32 and bf16): exact on integer "
-          f"values, normal values rel err {worst_bf16:.3g} (rtol "
-          f"{ATOL_FP32} fp32, {RTOL_REGION_BF16:.3g} bf16)")
+          f"empty group; M 1/2/4/8 x T/R; fp32 and bf16; {n_mma} of them "
+          f"bf16 dots on the tensor cores): exact on integer values, normal "
+          f"values rel err {worst_bf16:.3g} (rtol {ATOL_FP32} fp32, "
+          f"{RTOL_REGION_BF16:.3g} bf16)")
 
     # (c) card sizes through compile(backend='hopper'): the main path of
     # this phase, its launches counted around the four runs
@@ -1046,8 +1185,11 @@ def phase_compiler(timer):
     shapes.append((f"matmul {size}^3 fp32, 128^3 blocks", desc, [a_mm, b_mm],
                    err(c, want), lambda: mm.matmul_cuda(a_mm, b_mm),
                    lambda: torch.matmul(a_mm, b_mm), bound, by))
-    # the ragged grouped GEMM at the deepseek prefill's routing
+    # the ragged grouped GEMM at the deepseek prefill's routing, a bf16 dot
+    # on the tensor cores
     desc = first_desc(kerns[2])
+    check(rmr.mma_path(desc), "the card-size ragged GEMM is not on the "
+                              "tensor-core path")
     o = outs[2]["o"]
     want = ops.grouped_gemm(x_gg, w_gg, group_sizes=sizes, bc=16, bf=128,
                             bd=32)
@@ -1138,6 +1280,40 @@ def phase_compiler(timer):
         print(f"[compiler] (d) {name}: measured factor {at['winner']} "
               f"(µs per candidate {at['timings_us']}); replayed from the "
               f"cache with 0 measurements, factor {k2.spec.factor}")
+    # pump='measure' on the three carry ops: the compiled carry graph times
+    # the CUDA kernels (their launch counts move), and the winner drives the
+    # direct kernel, against the plain version
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    q = randn(gen, 2, 8, 256, 64)
+    k, v = randn(gen, 2, 4, 256, 64), randn(gen, 2, 4, 256, 64)
+    qd, kc, vc = randn(gen, 4, 8, 128), randn(gen, 4, 4, 512, 128), \
+        randn(gen, 4, 4, 512, 128)
+    pos = torch.tensor([511, 300, 0, 128], dtype=torch.int32, device="cuda")
+    sx, sdt, sa, sbm, scm = ssd_inputs(gen, 2, 256, 8, 1, 128, 64)
+    for name, mod, run, plain in (
+            ("flash_attention", fa,
+             lambda pump: ops.flash_attention(q, k, v, causal=True,
+                                              pump=pump),
+             lambda: ref.flash_attention(q, k, v, causal=True)),
+            ("decode_attention", da,
+             lambda pump: ops.decode_attention(qd, kc, vc, pos, pump=pump),
+             lambda: ref.decode_attention(qd, kc, vc, pos)),
+            ("ssd_scan", ss,
+             lambda pump: ops.ssd_scan(sx, sdt, sa, sbm, scm, chunk=64,
+                                       pump=pump),
+             lambda: ref.ssd_scan(sx, sdt, sa, sbm, scm, chunk=64))):
+        mod.launches = 0
+        got = run("measure")
+        torch.cuda.synchronize()
+        n = mod.launches
+        e = rel_err(got, plain())
+        check(n > 1 and e <= ATOL_FP32,
+              f"{name} pump='measure': {n} launches, rel err {e}")
+        print(f"[compiler] (d) {name} pump='measure': {n} kernel launches "
+              f"(the measured carry graph and the direct call), rel err "
+              f"{e:.3g}")
     print(f"[compiler] phase done in {time.perf_counter() - t0:.1f}s")
 
     main = entries[1]
@@ -1346,6 +1522,9 @@ def main() -> int:
               f"checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(src))
+    # every compile-cache entry of this run (pump='auto' / 'measure'
+    # included) stays in the checkout
+    os.environ.setdefault("REPRO_TORCH_CACHE_DIR", str(BUILD_CACHE))
     from repro_torch.launch.serve import moe_ragged
     from repro_torch.launch.timing import Timer
     t_start = time.perf_counter()

@@ -29,17 +29,28 @@ its own.  Each region is emitted at the highest tier its structure admits:
                  (``'add'``, ``'dot'``): ``csrc/region_map_reduce.cu``,
                  driven by a descriptor of the plan; or
                * the multi-output map form (``pallas_backend.py:814``) of a
-                 ``'ssd_state_step'`` compute: ``csrc/ssd_decode.cu``.
-               A region the kernels cannot take drops a tier with the
-               reason in its ``why``; a region at this tier launches its
-               kernel or raises.
+                 ``'ssd_state_step'`` compute: ``csrc/ssd_decode.cu``; or
+               * the carry form (``pallas_backend.py:784``) of the three
+                 carry builders, chosen by the compute's ``tile_op``:
+                 ``'flash_attention'`` (``_flash_graph``: o and the final
+                 m and l) -> ``ops.flash_attention``,
+                 ``'decode_attention'`` (``_decode_attention_graph``, its
+                 int32 ``pos``) -> ``ops.decode_attention``, and
+                 ``'ssd_scan'`` (``_ssd_graph``, with its final state) ->
+                 ``ops.ssd_scan``, each at the plan's (pump, mode): mode T
+                 widens the kernel's key / chunk transaction, mode R walks
+                 the builder's narrow axis (q rows, d, p) in sub-tiles.
+               A region the kernels cannot take (a shape, dtype or pump
+               case they are not built for) drops a tier with the reason
+               in its ``why``; a region at this tier launches its kernel
+               or raises.
 ``blockloop``  the same grid walked in PyTorch with element-unit slices,
                one grid point at a time.  Handles overlapping halo windows
                block indexing cannot.
 ``carryloop``  the blockloop schedule of a sequential-carry region, the
-               loop-carried state threaded through the walk.  Every carry
-               region lands here in this port for now, with the reason
-               recorded.
+               loop-carried state threaded through the walk: a carry
+               region whose compute has no kernel, or whose plan its
+               kernel cannot take.
 ``gather``     region-level fallback: one gather → compute-chain → scatter
                per region.  Used when computes lack a tile form (e.g. the
                dependency-carrying Floyd-Warshall pivot loop).
@@ -764,7 +775,143 @@ def _region_kernel_form(g: Graph, plan: RegionPlan
     return region_fn, ""
 
 
-SSD_OPERANDS = ("state", "x", "dt", "a", "bmat", "cmat")
+def _operand_mems(plan: RegionPlan, n_in: int, n_out: int,
+                  what: str) -> Tuple[Optional[List[str]], str]:
+    """The memory operands of a one-compute region with ``n_in`` memory
+    operands and ``n_out`` outputs, or ``(None, reason)``."""
+    keys = _mem_operands(plan)
+    if len(plan.region.computes) != 1 or keys is None or len(keys) != n_in \
+            or len(plan.outputs) != n_out:
+        return None, (f"region {plan.region.name}: a {what} region has one "
+                      f"compute, {n_in} memory operands and {n_out} outputs")
+    return [plan.region.bindings[c][k][1] for c, k in keys], ""
+
+
+def _carry_dtype(g: Graph, plan: RegionPlan, mems: List[str]
+                 ) -> Tuple[Optional[torch.dtype], str]:
+    """The one fp32 / bf16 dtype of a carry kernel's float operands."""
+    dts = {g.nodes[m].dtype for m in mems if g.nodes[m].dtype != "int32"}
+    if len(dts) != 1 or not dts <= {"float32", "bfloat16"}:
+        return None, (f"region {plan.region.name}: operand dtypes "
+                      f"{sorted(dts)}; the kernel takes one of float32, "
+                      f"bfloat16")
+    return torch_dtype(dts.pop()), ""
+
+
+def _out_dtypes(g: Graph, plan: RegionPlan) -> List[Tuple[str, torch.dtype]]:
+    return [(mem, torch_dtype(g.nodes[mem].dtype))
+            for _c, mem, _ba in plan.outputs]
+
+
+def _flash_form(g: Graph, plan: RegionPlan
+                ) -> Tuple[Optional[Callable], str]:
+    """``_flash_graph``'s carry region bound to ``ops.flash_attention``:
+    operands (q, k, v), outputs (o, m, l)."""
+    from ..kernels import flash_attention as fa
+    name = plan.region.name
+    mems, why = _operand_mems(plan, 3, 3, "flash_attention")
+    if mems is None:
+        return None, why
+    qs, ks, vs = (g.nodes[m].shape for m in mems)
+    if len(qs) != 4 or len(ks) != 4 or ks != vs or ks[0] != qs[0] \
+            or ks[3] != qs[3] or qs[1] % ks[1]:
+        return None, f"region {name}: flash operand shapes {qs}, {ks}, {vs}"
+    dt, why = _carry_dtype(g, plan, mems)
+    if dt is None:
+        return None, why
+    if not fa.built(plan.pump, plan.mode, qs[3], dt):
+        return None, (f"region {name}: flash_attention is not built for "
+                      f"M={plan.pump} mode {plan.mode} at D {qs[3]} in "
+                      f"{dt}")
+    args = g.nodes[plan.out_compute].meta["tile_args"]
+    spec = (plan.pump, plan.mode)
+    outs = _out_dtypes(g, plan)
+
+    def region_fn(m: Dict[str, Any]) -> Dict[str, Any]:
+        q, k, v = (m[x].to(dt) for x in mems)
+        r = ops.flash_attention(q, k, v, causal=args["causal"],
+                                scale=args["scale"], pump=spec, stats=True)
+        return {mem: t.to(odt) for (mem, odt), t in zip(outs, r)}
+
+    return region_fn, ""
+
+
+def _decode_form(g: Graph, plan: RegionPlan
+                 ) -> Tuple[Optional[Callable], str]:
+    """``_decode_attention_graph``'s carry region bound to
+    ``ops.decode_attention``: operands (q, k, v, pos), output o."""
+    from ..kernels import decode_attention as da
+    name = plan.region.name
+    mems, why = _operand_mems(plan, 4, 1, "decode_attention")
+    if mems is None:
+        return None, why
+    qs, ks, vs, ps = (g.nodes[m].shape for m in mems)
+    if len(qs) != 3 or len(ks) != 4 or ks != vs or ks[0] != qs[0] \
+            or ks[3] != qs[2] or qs[1] % ks[1] or ps != (qs[0],) \
+            or g.nodes[mems[3]].dtype != "int32":
+        return None, (f"region {name}: decode operand shapes {qs}, {ks}, "
+                      f"{vs}, pos {ps}")
+    dt, why = _carry_dtype(g, plan, mems)
+    if dt is None:
+        return None, why
+    group = qs[1] // ks[1]
+    if not da.built(plan.pump, plan.mode, group, qs[2], dt):
+        return None, (f"region {name}: decode_attention is not built for "
+                      f"M={plan.pump} mode {plan.mode} at D {qs[2]}, group "
+                      f"{group} in {dt}")
+    args = g.nodes[plan.out_compute].meta["tile_args"]
+    spec = (plan.pump, plan.mode)
+    (o_mem, o_dt), = _out_dtypes(g, plan)
+
+    def region_fn(m: Dict[str, Any]) -> Dict[str, Any]:
+        q, k, v = (m[x].to(dt) for x in mems[:3])
+        o = ops.decode_attention(q, k, v, m[mems[3]], scale=args["scale"],
+                                 pump=spec)
+        return {o_mem: o.to(o_dt)}
+
+    return region_fn, ""
+
+
+def _ssd_scan_form(g: Graph, plan: RegionPlan
+                   ) -> Tuple[Optional[Callable], str]:
+    """``_ssd_graph``'s carry region bound to ``ops.ssd_scan``: operands
+    (x, dt, A, B, C), outputs y and, with ``final_state``, the state."""
+    from ..kernels import ssd_scan as ss
+    name = plan.region.name
+    n_out = len(plan.outputs)
+    mems, why = _operand_mems(plan, 5, n_out, "ssd_scan")
+    if mems is None:
+        return None, why
+    xs, ds, as_, bs, cs = (g.nodes[m].shape for m in mems)
+    if len(xs) != 4 or ds != xs[:3] or as_ != (xs[2],) or len(bs) != 4 \
+            or bs != cs or bs[:2] != xs[:2] or xs[2] % bs[2] \
+            or n_out not in (1, 2):
+        return None, (f"region {name}: ssd_scan operand shapes {xs}, {ds}, "
+                      f"{as_}, {bs}, {cs} with {n_out} outputs")
+    chunk = g.nodes[plan.out_compute].meta["tile_args"]["chunk"]
+    if chunk > ss.MAX_CHUNK or bs[3] > ss.MAX_STATE \
+            or xs[3] > ss.MAX_HEAD_DIM:
+        return None, (f"region {name}: ssd_scan chunk {chunk}, N {bs[3]}, "
+                      f"P {xs[3]} over the kernel's {ss.MAX_CHUNK}, "
+                      f"{ss.MAX_STATE}, {ss.MAX_HEAD_DIM}")
+    dt, why = _carry_dtype(g, plan, mems)
+    if dt is None:
+        return None, why
+    if not ss.built(plan.pump, plan.mode):
+        return None, (f"region {name}: ssd_scan is not built for "
+                      f"M={plan.pump} mode {plan.mode}")
+    spec = (plan.pump, plan.mode)
+    outs = _out_dtypes(g, plan)
+
+    def region_fn(m: Dict[str, Any]) -> Dict[str, Any]:
+        x, dtv, a, bm, cm = (m[k] for k in mems)
+        r = ops.ssd_scan(x.to(dt), dtv.to(dt), a.float().contiguous(),
+                         bm.to(dt), cm.to(dt), chunk=chunk,
+                         final_state=n_out == 2, pump=spec)
+        r = r if n_out == 2 else (r,)
+        return {mem: t.to(odt) for (mem, odt), t in zip(outs, r)}
+
+    return region_fn, ""
 
 
 def _ssd_decode_form(g: Graph, plan: RegionPlan
@@ -774,12 +921,9 @@ def _ssd_decode_form(g: Graph, plan: RegionPlan
     state').  Mode R at M > 1 walks P in M sub-tiles; mode T at M > 1 walks
     M heads per block."""
     name = plan.region.name
-    keys = _mem_operands(plan)
-    if len(plan.region.computes) != 1 or keys is None \
-            or len(keys) != len(SSD_OPERANDS) or len(plan.outputs) != 2:
-        return None, (f"region {name}: an ssd_state_step region has one "
-                      "compute, six memory operands and two outputs")
-    mems = [plan.region.bindings[c][k][1] for c, k in keys]
+    mems, why = _operand_mems(plan, 6, 2, "ssd_state_step")
+    if mems is None:
+        return None, why
     shapes = [g.nodes[m].shape for m in mems]
     (b, h, n, p), xs = shapes[0], shapes[1]
     if xs != (b, h, p) or shapes[2] != (b, h) or shapes[3] != (h,) \
@@ -791,9 +935,7 @@ def _ssd_decode_form(g: Graph, plan: RegionPlan
             return None, (f"region {name}: memory {m} dtype "
                           f"{g.nodes[m].dtype} is not fp32 or bf16")
     spec = (plan.pump, plan.mode)
-    (y_mem, y_dt), (s_mem, s_dt) = [
-        (mem, torch_dtype(g.nodes[mem].dtype)) for _c, mem, _ba in
-        plan.outputs]
+    (y_mem, y_dt), (s_mem, s_dt) = _out_dtypes(g, plan)
 
     def region_fn(m: Dict[str, Any]) -> Dict[str, Any]:
         st, x, dt, a, bm, cm = (m[k] for k in mems)
@@ -802,6 +944,24 @@ def _ssd_decode_form(g: Graph, plan: RegionPlan
         return {y_mem: y.to(y_dt), s_mem: st2.to(s_dt)}
 
     return region_fn, ""
+
+
+CARRY_FORMS = {"flash_attention": _flash_form,
+               "decode_attention": _decode_form, "ssd_scan": _ssd_scan_form}
+
+
+def emit_hopper_carry(g: Graph, plan: RegionPlan
+                      ) -> Tuple[Optional[Callable], str]:
+    """Tier ``hopper`` for a block-unit, covering carry plan: the carry form
+    its compute's ``tile_op`` names, or ``(None, reason)`` to drop to
+    ``carryloop``."""
+    op = g.nodes[plan.out_compute].meta.get("tile_op")
+    form = CARRY_FORMS.get(op)
+    if form is None:
+        return None, (f"region {plan.region.name}: no hand-written kernel "
+                      f"for a carry compute with tile op {op!r} (bound: "
+                      f"{', '.join(CARRY_FORMS)})")
+    return form(g, plan)
 
 
 def emit_hopper(g: Graph, plan: RegionPlan) -> Tuple[Optional[Callable], str]:
@@ -842,19 +1002,16 @@ def lower_hopper(g: Graph, warn: Optional[Callable[[str], None]] = None,
         fn = None
         if plan is None:
             tier = "gather"
-        elif plan.carry is not None:
-            tier = "carryloop"
-            notes.append(f"region {region.name}: carry regions stay at "
-                         "carryloop until they are bound to their "
-                         "hand-written kernels")
         elif not plan.pallas_ok:
-            tier = "blockloop"
+            tier = "carryloop" if plan.carry is not None else "blockloop"
             notes.append(f"region {region.name}: plan is not block-unit or "
                          "does not cover its output; the hopper tier needs "
                          "both")
         else:
-            fn, why = emit_hopper(g, plan)
-            tier = "hopper" if fn is not None else "blockloop"
+            fn, why = (emit_hopper_carry if plan.carry is not None
+                       else emit_hopper)(g, plan)
+            tier = "hopper" if fn is not None else \
+                "carryloop" if plan.carry is not None else "blockloop"
             if fn is None:
                 notes.append(why)
         if fn is None:

@@ -336,8 +336,12 @@ def _flash_graph(b: int, h: int, s: int, t: int, d: int, bq: int = 128,
                 "out1": m_run[None, None, :, 0],      # (1, 1, bq')
                 "out2": l_run[None, None, :, 0]}
 
+    # tile_op / tile_args: the hopper tier binds this carry region to
+    # ops.flash_attention (compiler/hopper_backend.py::_flash_form)
     g.compute(
         "online_softmax", dom, vector_width=vector_width,
+        tile_op="flash_attention",
+        tile_args=dict(causal=bool(causal), scale=float(scale)),
         carry=CarrySpec(
             axis="ji",
             state=(((bq, 1), "float32", NEG_INF), ((bq, 1), "float32"),
@@ -445,8 +449,11 @@ def _ssd_graph(b: int, l: int, h: int, p: int, n: int, chunk: int = 64,
         # (out1 — absolute edge position, after the per-step y)
         final_fn = lambda carry: {"out1": carry[0][None, None]}  # noqa: E731
         out_axes = ({3: "p"}, {3: "p"})
+    # tile_op / tile_args: the hopper tier binds this carry region to
+    # ops.ssd_scan (compiler/hopper_backend.py::_ssd_scan_form)
     g.compute(
         "chunk_update", dom, vector_width=vector_width,
+        tile_op="ssd_scan", tile_args=dict(chunk=chunk),
         carry=CarrySpec(axis="ci", state=(((n, p), "float32"),),
                         step_fn=step_fn, final_fn=final_fn,
                         step_outs=1 if final_state else 0),
@@ -554,8 +561,11 @@ def _decode_attention_graph(b: int, h: int, t: int, d: int, bkv: int = 128,
         l_safe = xp.where(l_run == 0.0, 1.0, l_run)
         return {"out0": (acc / l_safe)[None]}              # (1, 1, d')
 
+    # tile_op / tile_args: the hopper tier binds this carry region to
+    # ops.decode_attention (compiler/hopper_backend.py::_decode_form)
     g.compute(
         "decode_softmax", dom, vector_width=vector_width,
+        tile_op="decode_attention", tile_args=dict(scale=float(scale)),
         carry=CarrySpec(
             axis="ji",
             state=(((1, 1), "float32", NEG_INF), ((1, 1), "float32"),

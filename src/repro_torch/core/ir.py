@@ -301,6 +301,16 @@ class PumpSpec:
     def is_pumped(self) -> bool:
         return self.factor > 1
 
+    @staticmethod
+    def of(pump) -> "PumpSpec":
+        """A ``PumpSpec`` from a factor (mode T), a ``(factor, mode)`` pair
+        or a ``PumpSpec``: the forms the kernel wrappers take."""
+        if isinstance(pump, PumpSpec):
+            return pump
+        if isinstance(pump, tuple):
+            return PumpSpec(factor=int(pump[0]), mode=str(pump[1]))
+        return PumpSpec(factor=int(pump))
+
 
 def effective_rate(clk0: float, clk1: float, pump: int) -> float:
     """Paper §2.1: rate_eff = min(clk0, clk1 / M).

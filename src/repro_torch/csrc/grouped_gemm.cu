@@ -20,26 +20,38 @@
 // count): scalar prefetch becomes three loads.  A surplus entry (expert -1)
 // writes zeros over its rows and exits, so a table sized on the device for
 // the worst case never needs the host.  The block then walks D in stages of
-// KW = BD * M (mode T: M passes of BD over the wide panel) or KW = BD (mode
-// R: the threads cover BF / M columns and issue them M times, each thread
-// keeping M sub-tiles), as csrc/matmul.cu walks K: cp.async double-buffered
-// panels kept in the input dtype, 16-byte copies, an out-of-range chunk
-// zero-filled by cp.async itself and a chunk cut by a ragged D or F copied
-// element by element with zeros beyond.  Rows past the tile's count are
-// zero and never stored.  Every output sums its products in k order with
-// fp32 FMAs, so T1, T2, T4, R2 and R4 give the same bits; the whole-D sum
-// is rounded once to the output dtype at the store.
+// KW = BD * M (mode T: M beats of BD over the wide panel) or KW = BD (mode
+// R: the BF columns issued as M sub-tiles of BF / M, each thread keeping M
+// sub-tiles), with cp.async panels kept in the input dtype, 16-byte copies,
+// an out-of-range chunk zero-filled by cp.async itself and a chunk cut by a
+// ragged D or F copied element by element with zeros beyond.  Rows past the
+// tile's count are zero and never stored.  Every output sums its products
+// in k order, so T1, T2, T4, R2 and R4 give the same bits; the whole-D sum
+// is fp32, rounded once to the output dtype at the store.
+//
+// bf16 operands run on the tensor cores: mma.sync.m16n8k16 with fp32
+// accumulation through the warp tile product of csrc/mma_bf16.cuh, one
+// kernel (gg_mma) for every tile.  Warps tile the block's rows and columns:
+// bc 128 -> 2 x 4 warps of 64 x 32, bc 64 -> 2 x 2 of 32 x 64, bc 16 (a
+// decode step) -> 1 x 4 of 16 x 32.  The panels go through a ring of
+// cp.async stages (3 to 8, as many as fit: a 16-row decode tile keeps 8
+// stages of weight rows in flight) in rows padded by 16 bytes, so ldmatrix
+// reads them without bank conflicts.  wgmma, which needs 64-row tiles and
+// the swizzled layouts TMA writes, is later work.  fp32 operands keep the
+// CUDA-core kernel (gg_fma: fp32 FMAs, a 4 x 4 register tile a thread, a
+// double-buffered panel); TF32 would lose the fp32 result.
 //
 // What bounds it on this card, at deepseek-v2-lite's shapes (D 2048, F 1408
 // and back, 64 experts): in a decode step (48 routed rows, about 34 active
 // experts) the bytes of the active experts' weights, about 0.06 ms a GEMM
-// at 3.35 TB/s; in a prefill of 8 x 512 tokens (about 25,000 padded rows)
-// the multiply-adds, here on the fp32 CUDA cores (67 TFLOP/s; tensor cores
-// are a later step), with each of an expert's ~24 row tiles reading its
-// weight panel again, mostly from L2.
+// at 3.35 TB/s; in a prefill of 8 x 512 tokens (about 25,000 padded rows,
+// tiles of 128 rows) the multiply-adds, 145 GFLOP a GEMM, 0.15 ms at the
+// tensor cores' 989 TFLOP/s.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -62,11 +74,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
@@ -76,28 +83,14 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-// Four consecutive panel elements (4-element aligned) as floats.
+// Four consecutive fp32 panel elements (4-element aligned).
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
 
-// Four consecutive outputs (4-element aligned), rounded once.
+// Four consecutive fp32 outputs (4-element aligned).
 __device__ __forceinline__ void store4(float* p, const float* v) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 u;
-  u.x = *reinterpret_cast<uint32_t*>(&a);
-  u.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = u;
 }
 
 // Copies rows [r0, r0 + ROWS) x cols [c0, c0 + COLS) of a row-major matrix
@@ -126,29 +119,28 @@ __device__ __forceinline__ void load_panel(T* dst, const T* src, int nr,
   }
 }
 
-template <typename T, int BC, int BF, int BD, int PUMP, bool MODE_R>
-struct Cfg {
-  static constexpr int VEC = 16 / (int)sizeof(T);
-  static constexpr int BNS = MODE_R ? BF / PUMP : BF;   // threads' columns
-  static constexpr int SUB = MODE_R ? PUMP : 1;         // sub-tiles a thread holds
-  static constexpr int KW = MODE_R ? BD : BD * PUMP;    // D panel of a stage
+template <int BC, int BF, int BD, int PUMP, bool MODE_R>
+struct FmaCfg {
+  static constexpr int VEC = 4;                        // fp32: 16 bytes
+  static constexpr int BNS = MODE_R ? BF / PUMP : BF;  // threads' columns
+  static constexpr int SUB = MODE_R ? PUMP : 1;        // sub-tiles a thread holds
+  static constexpr int KW = MODE_R ? BD : BD * PUMP;   // D panel of a stage
   static constexpr int TX = BNS / TN, TY = BC / TM;
   static constexpr int NT = TX * TY;
-  static constexpr int X_LD = KW + VEC;                 // skews rows across banks
+  static constexpr int X_LD = KW + VEC;                // skews rows across banks
   static constexpr int X_SIZE = BC * X_LD, W_SIZE = KW * BF;
-  static constexpr int SMEM = 2 * (X_SIZE + W_SIZE) * (int)sizeof(T);
+  static constexpr int SMEM = 2 * (X_SIZE + W_SIZE) * (int)sizeof(float);
 };
 
-template <typename T, int BC, int BF, int BD, int PUMP, bool MODE_R>
-__global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
-    grouped_gemm_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                        T* __restrict__ O, const int* __restrict__ tiles,
-                        int rows, int D, int F, bool vec_x, bool vec_w,
-                        bool vec_o) {
-  using G = Cfg<T, BC, BF, BD, PUMP, MODE_R>;
+template <int BC, int BF, int BD, int PUMP, bool MODE_R>
+__global__ void __launch_bounds__((FmaCfg<BC, BF, BD, PUMP, MODE_R>::NT))
+    gg_fma(const float* __restrict__ X, const float* __restrict__ W,
+           float* __restrict__ O, const int* __restrict__ tiles, int rows,
+           int D, int F, bool vec_x, bool vec_w, bool vec_o) {
+  using G = FmaCfg<BC, BF, BD, PUMP, MODE_R>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* Xs = reinterpret_cast<T*>(smem_raw);   // [2][BC][X_LD]
-  T* Ws = Xs + 2 * G::X_SIZE;               // [2][KW][BF]
+  float* Xs = reinterpret_cast<float*>(smem_raw);   // [2][BC][X_LD]
+  float* Ws = Xs + 2 * G::X_SIZE;                   // [2][KW][BF]
 
   const int tid = threadIdx.x, tx = tid % G::TX, ty = tid / G::TX;
   const int expert = tiles[3 * blockIdx.x];
@@ -159,11 +151,11 @@ __global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
   if (expert < 0) {   // surplus tile: its rows are zero
     for (int i = tid; i < BC * BF; i += G::NT) {
       const int row = r0 + i / BF, col = f0 + i % BF;
-      if (row < r_end && col < F) O[(long long)row * F + col] = from_f<T>(0.f);
+      if (row < r_end && col < F) O[(long long)row * F + col] = 0.f;
     }
     return;
   }
-  const T* We = W + (long long)expert * D * F;
+  const float* We = W + (long long)expert * D * F;
   const int stages = (D + G::KW - 1) / G::KW;
 
   float acc[G::SUB][TM][TN];
@@ -176,10 +168,11 @@ __global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
 
   auto load_stage = [&](int st, int buf) {
     const int k0 = st * G::KW;
-    load_panel<T, BC, G::KW, G::X_LD, G::NT>(Xs + buf * G::X_SIZE, X, r_end,
-                                             D, D, r0, k0, vec_x, tid);
-    load_panel<T, G::KW, BF, BF, G::NT>(Ws + buf * G::W_SIZE, We, D, F, F,
-                                        k0, f0, vec_w, tid);
+    load_panel<float, BC, G::KW, G::X_LD, G::NT>(Xs + buf * G::X_SIZE, X,
+                                                 r_end, D, D, r0, k0, vec_x,
+                                                 tid);
+    load_panel<float, G::KW, BF, BF, G::NT>(Ws + buf * G::W_SIZE, We, D, F,
+                                            F, k0, f0, vec_w, tid);
   };
 
   if (stages > 0) load_stage(0, 0);
@@ -194,9 +187,9 @@ __global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* xp = Xs + buf * G::X_SIZE;
-    const T* wp = Ws + buf * G::W_SIZE;
-    // mode T: PUMP passes of BD over the wide panel; mode R: one pass of BD
+    const float* xp = Xs + buf * G::X_SIZE;
+    const float* wp = Ws + buf * G::W_SIZE;
+    // mode T: PUMP beats of BD over the wide panel; mode R: one pass of BD
     // issued PUMP times over the column sub-tiles
 #pragma unroll
     for (int pass = 0; pass < (MODE_R ? 1 : PUMP); ++pass) {
@@ -204,8 +197,7 @@ __global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
       for (int kk = pass * BD; kk < (pass + 1) * BD; ++kk) {
         float av[TM];
 #pragma unroll
-        for (int r = 0; r < TM; ++r)
-          av[r] = to_f(xp[(ty + r * G::TY) * G::X_LD + kk]);
+        for (int r = 0; r < TM; ++r) av[r] = xp[(ty + r * G::TY) * G::X_LD + kk];
 #pragma unroll
         for (int s = 0; s < G::SUB; ++s) {
           const float4 bv = load4(wp + kk * BF + s * G::BNS + tx * TN);
@@ -229,16 +221,143 @@ __global__ void __launch_bounds__((Cfg<T, BC, BF, BD, PUMP, MODE_R>::NT))
       const int row = r0 + ty + r * G::TY;
       const int col = f0 + s * G::BNS + tx * TN;
       if (row >= r_end) continue;
-      T* out = O + (long long)row * F + col;
+      float* out = O + (long long)row * F + col;
       if (vec_o && col + TN <= F) {
         store4(out, acc[s][r]);
       } else {
 #pragma unroll
         for (int c = 0; c < TN; ++c)
-          if (col + c < F) out[c] = from_f<T>(acc[s][r][c]);
+          if (col + c < F) out[c] = acc[s][r][c];
       }
     }
   }
+}
+
+// ------------------------------------------------ bf16: the tensor cores --
+constexpr int RING_BYTES = 200 * 1024;  // the ring's share of shared memory
+
+template <int BC, int BF, int BD, int PUMP, bool MODE_R>
+struct MmaCfg {
+  static constexpr int SUB = MODE_R ? PUMP : 1;        // sub-tiles issued
+  static constexpr int BNS = BF / SUB;                 // columns of one
+  static constexpr int KW = MODE_R ? BD : BD * PUMP;   // D panel of a stage
+  static constexpr int WM = BC >= 64 ? 2 : 1;          // warps along rows
+  static constexpr int WN = BC == 64 ? 2 : 4;          // warps along columns
+  static constexpr int NT = 32 * WM * WN;
+  static constexpr int MI = BC / WM / 16;              // m16 tiles a warp
+  static constexpr int NI = BNS / WN / 8;              // n8 tiles a warp
+  static constexpr int X_LD = KW + 8, W_LD = BF + 8;   // rows padded 16 bytes
+  static constexpr int X_SIZE = BC * X_LD, W_SIZE = KW * W_LD;
+  static constexpr int STAGE = (X_SIZE + W_SIZE) * 2;
+  static constexpr int FIT = RING_BYTES / STAGE;
+  static constexpr int MAX_STAGES = BC <= 16 ? 8 : 4;
+  static constexpr int STAGES = FIT < 3 ? 3 : (FIT > MAX_STAGES ? MAX_STAGES : FIT);
+  static constexpr int SMEM = STAGES * STAGE;
+  static_assert(MI >= 1 && NI >= 1 && BC % (16 * WM) == 0 &&
+                    BNS % (8 * WN) == 0 && BD % 16 == 0,
+                "tile does not split into m16n8k16 warp tiles");
+  static_assert(SMEM <= 227 * 1024, "ring over shared memory");
+};
+
+template <int BC, int BF, int BD, int PUMP, bool MODE_R>
+__global__ void __launch_bounds__((MmaCfg<BC, BF, BD, PUMP, MODE_R>::NT))
+    gg_mma(const __nv_bfloat16* __restrict__ X, const __nv_bfloat16* __restrict__ W,
+           __nv_bfloat16* __restrict__ O, const int* __restrict__ tiles, int rows,
+           int D, int F, bool vec_x, bool vec_w, bool vec_o) {
+  using G = MmaCfg<BC, BF, BD, PUMP, MODE_R>;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Xs = reinterpret_cast<bf16*>(smem_raw);   // [STAGES][BC][X_LD]
+  bf16* Ws = Xs + G::STAGES * G::X_SIZE;          // [STAGES][KW][W_LD]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / G::WN, wn = warp % G::WN;
+  const int expert = tiles[3 * blockIdx.x];
+  const int r0 = tiles[3 * blockIdx.x + 1];
+  const int r_end = min(rows, r0 + min(tiles[3 * blockIdx.x + 2], BC));
+  const int f0 = blockIdx.y * BF;
+  if (r0 < 0 || r0 >= r_end) return;
+  if (expert < 0) {   // surplus tile: its rows are zero
+    for (int i = tid; i < BC * BF; i += G::NT) {
+      const int row = r0 + i / BF, col = f0 + i % BF;
+      if (row < r_end && col < F) O[(long long)row * F + col] = __float2bfloat16_rn(0.f);
+    }
+    return;
+  }
+  const bf16* We = W + (long long)expert * D * F;
+  const int stages = (D + G::KW - 1) / G::KW;
+
+  float acc[G::SUB][G::MI][G::NI][4];
+#pragma unroll
+  for (int s = 0; s < G::SUB; ++s)
+#pragma unroll
+    for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[s][i][j][c] = 0.f;
+
+  // one commit per stage, empty past the last, so wait_group counts stay
+  // uniform across the ring
+  auto load_stage = [&](int st) {
+    if (st < stages) {
+      const int slot = st % G::STAGES, k0 = st * G::KW;
+      load_panel<bf16, BC, G::KW, G::X_LD, G::NT>(Xs + slot * G::X_SIZE, X,
+                                                  r_end, D, D, r0, k0, vec_x,
+                                                  tid);
+      load_panel<bf16, G::KW, BF, G::W_LD, G::NT>(Ws + slot * G::W_SIZE, We, D,
+                                                  F, F, k0, f0, vec_w, tid);
+    }
+    cp_async_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < G::STAGES - 1; ++s) load_stage(s);
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<G::STAGES - 2>();
+    __syncthreads();   // stage st landed; stage st - 1's slot is free
+    load_stage(st + G::STAGES - 1);
+    const bf16* xp = Xs + (st % G::STAGES) * G::X_SIZE + wm * G::MI * 16 * G::X_LD;
+    const bf16* wp = Ws + (st % G::STAGES) * G::W_SIZE + wn * G::NI * 8;
+    if (MODE_R) {
+      // the BF columns as SUB narrowed sub-tiles, issued in turn
+#pragma unroll
+      for (int s = 0; s < G::SUB; ++s)
+        mma_bf16::warp_product<G::MI, G::NI>(acc[s], xp, G::X_LD,
+                                             wp + s * G::BNS, G::W_LD, BD / 16,
+                                             lane);
+    } else {
+      // PUMP dependent beats of BD over the wide panel
+#pragma unroll
+      for (int beat = 0; beat < PUMP; ++beat)
+        mma_bf16::warp_product<G::MI, G::NI>(acc[0], xp + beat * BD, G::X_LD,
+                                             wp + beat * BD * G::W_LD, G::W_LD,
+                                             BD / 16, lane);
+    }
+  }
+  cp_async_wait<0>();
+
+  const int g = lane >> 2, c2 = (lane & 3) * 2;
+#pragma unroll
+  for (int s = 0; s < G::SUB; ++s)
+#pragma unroll
+    for (int i = 0; i < G::MI; ++i)
+#pragma unroll
+      for (int j = 0; j < G::NI; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = r0 + (wm * G::MI + i) * 16 + g + 8 * h;
+          const int col = f0 + s * G::BNS + (wn * G::NI + j) * 8 + c2;
+          if (row >= r_end) continue;
+          bf16* out = O + (long long)row * F + col;
+          const float v0 = acc[s][i][j][2 * h], v1 = acc[s][i][j][2 * h + 1];
+          if (vec_o && col + 1 < F) {
+            *reinterpret_cast<__nv_bfloat162*>(out) = __floats2bfloat162_rn(v0, v1);
+          } else {
+            if (col < F) out[0] = __float2bfloat16_rn(v0);
+            if (col + 1 < F) out[1] = __float2bfloat16_rn(v1);
+          }
+        }
 }
 
 struct Args {
@@ -253,15 +372,27 @@ struct Args {
 
 template <typename T, int BC, int BF, int BD, int PUMP, bool MODE_R>
 int launch(const Args& a) {
-  using G = Cfg<T, BC, BF, BD, PUMP, MODE_R>;
-  auto kern = grouped_gemm_kernel<T, BC, BF, BD, PUMP, MODE_R>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(a.n_tiles, (a.F + BF - 1) / BF);
-  kern<<<grid, G::NT, G::SMEM, a.stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.w),
-      static_cast<T*>(a.o), a.tiles, a.rows, a.D, a.F, a.vx, a.vw, a.vo);
+  const dim3 grid(a.n_tiles, (a.F + BF - 1) / BF);
+  cudaError_t e;
+  if constexpr (sizeof(T) == 2) {
+    using G = MmaCfg<BC, BF, BD, PUMP, MODE_R>;
+    auto kern = gg_mma<BC, BF, BD, PUMP, MODE_R>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, G::NT, G::SMEM, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.x), static_cast<const __nv_bfloat16*>(a.w),
+        static_cast<__nv_bfloat16*>(a.o), a.tiles, a.rows, a.D, a.F, a.vx, a.vw, a.vo);
+  } else {
+    using G = FmaCfg<BC, BF, BD, PUMP, MODE_R>;
+    auto kern = gg_fma<BC, BF, BD, PUMP, MODE_R>;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             G::SMEM);
+    if (e != cudaSuccess) return (int)e;
+    kern<<<grid, G::NT, G::SMEM, a.stream>>>(
+        static_cast<const float*>(a.x), static_cast<const float*>(a.w),
+        static_cast<float*>(a.o), a.tiles, a.rows, a.D, a.F, a.vx, a.vw, a.vo);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -288,6 +419,10 @@ int by_tile(int bc, int bf, int bd, int pump, int mode_r, const Args& a) {
     return by_pump<T, 16, 128, 32>(pump, mode_r, a);
   if (bc == 64 && bf == 128 && bd == 32)
     return by_pump<T, 64, 128, 32>(pump, mode_r, a);
+  if constexpr (sizeof(T) == 2) {  // bf16 only: fp32 panels would not fit
+    if (bc == 128 && bf == 128 && bd == 32)
+      return by_pump<T, 128, 128, 32>(pump, mode_r, a);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -297,9 +432,9 @@ int by_tile(int bc, int bf, int bd, int pump, int mode_r, const Args& a) {
 // both bf16 (dtype 1); out (rows, F) in the same dtype.  tiles: n_tiles x 3
 // int32 on the device, (expert, first row, row count <= bc) per row tile;
 // expert -1 zero-fills the tile's rows.  Tiles (bc, bf, bd) in {(16, 128,
-// 32), (64, 128, 32)}; pump 1, 2 or 4, mode_r 0 (T) or 1 (R).  vec_x /
-// vec_w: the matrix is 16-byte aligned with rows of whole 16-byte chunks;
-// vec_o: out is 16-byte aligned and F % 4 == 0.  Returns the launch's
+// 32), (64, 128, 32)}, and (128, 128, 32) for bf16; pump 1, 2 or 4, mode_r
+// 0 (T) or 1 (R).  vec_x / vec_w: the matrix is 16-byte aligned with rows
+// of whole 16-byte chunks; vec_o: out is 16-byte aligned and F % 4 == 0.  Returns the launch's
 // cudaError_t.
 extern "C" int grouped_gemm_fwd(const void* x, const void* w, void* out,
                                 const void* tiles, int n_tiles, int rows,

@@ -2,8 +2,8 @@
 
 Each source becomes its own shared library with a plain C interface
 (``build/repro_torch/<name>-<hash>.so`` under the repository root), keyed
-on a hash of the source and the flags, so an edit rebuilds and an
-unchanged source loads at once.  The sources include no PyTorch header,
+on a hash of the source, the ``csrc/*.cuh`` headers it includes and the
+flags, so an edit rebuilds and an unchanged source loads at once.  The sources include no PyTorch header,
 so a build takes seconds.  Builds run at first use; ``build_all`` starts
 one nvcc per missing source, all in parallel.  A failed build raises.
 """
@@ -12,11 +12,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -40,10 +41,21 @@ def _nvcc() -> str:
                        "the port's kernels")
 
 
+def _headers(src: bytes) -> List[str]:
+    """The ``csrc/`` headers a source includes (``#include "x.cuh"``)."""
+    return sorted(set(re.findall(rb'^\s*#\s*include\s+"([^"]+)"', src,
+                                 re.MULTILINE)))
+
+
 def lib_path(name: str) -> Path:
+    """The library of ``csrc/<name>.cu``, keyed on its source, the headers
+    it includes and the flags, so a header edit rebuilds every source that
+    includes it."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    for inc in _headers(src):
+        h.update(inc + b"\0" + (CSRC / inc.decode()).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

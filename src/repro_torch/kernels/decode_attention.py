@@ -2,21 +2,26 @@
 
 Replaces the carry-form kernel ``repro.compiler.pallas_backend.emit_pallas``
 writes for ``repro.core.autopump._decode_attention_graph``.  q is bf16 or
-fp32; the cache is fp32 or bf16 and is read in its own dtype.  ``launches``
-counts the kernel's launches; nothing else adds to it.
+fp32; the cache is fp32 or bf16 and is read in its own dtype.  ``built``
+says which pump cases exist for a head dim, group and cache dtype.
+``launches`` counts the kernel's launches; nothing else adds to it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
+from ..core.ir import PumpSpec
 from . import _build
 from .ref import pos_vector
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GROUP_DIMS = 1024         # (H / Hkv) * D a block holds in registers
+PUMPS = ((1, "T"), (2, "T"), (4, "T"), (2, "R"), (4, "R"))
+BKV = 64                      # keys of a staged tile
+SMEM_BYTES = 227 * 1024
 
 launches = 0
 _fn = None
@@ -27,18 +32,49 @@ def _kernel():
     if _fn is None:
         fn = _build.load("decode_attention").decode_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, ctypes.c_float,
+                       i, i, p]
         fn.restype = i
         _fn = fn
     return _fn
 
 
+def smem_bytes(factor: int, mode: str, group: int, d: int,
+               kv_dtype: torch.dtype) -> int:
+    """Shared memory of a pump case (``csrc/decode_attention.cu::
+    smem_bytes``): the K panel (rows padded by 16 bytes) and the V panel
+    (the sub-tile's columns) in the cache dtype, ``factor`` tiles in mode T
+    and one in mode R, then q, the scores and the softmax state in fp32."""
+    isz = kv_dtype.itemsize
+    tiles, dv = (factor, d) if mode == "T" else (1, d // factor)
+    return tiles * BKV * (d + 16 // isz + dv) * isz \
+        + 4 * (group * d + group * BKV + 3 * group)
+
+
+def built(factor: int, mode: str, group: int, d: int,
+          kv_dtype: torch.dtype) -> bool:
+    """True where the kernel is built for pump (``factor``, ``mode``) at
+    head dim ``d`` with ``group`` q heads per kv head and a ``kv_dtype``
+    cache: a listed pump, mode R's sub-tiles whole 4-element chunks, and a
+    panel that fits 227 KB (T4 at D 128 only for a bf16 cache)."""
+    if factor == 1:
+        mode = "T"
+    return (factor, mode) in PUMPS and kv_dtype in DTYPES \
+        and d % 4 == 0 and 0 < group * d <= MAX_GROUP_DIMS \
+        and (mode == "T" or d % (4 * factor) == 0) \
+        and smem_bytes(factor, mode, group, d, kv_dtype) <= SMEM_BYTES
+
+
 def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor,
                           pos: Union[int, torch.Tensor], *,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          pump: Union[PumpSpec, int, Tuple[int, str]] = 1
+                          ) -> torch.Tensor:
     """q (B, H, D); caches (B, Hkv, T, D); ``pos`` a scalar or (B,) int:
-    keys t <= pos[b] count.  Returns (B, H, D) in q's dtype."""
+    keys t <= pos[b] count.  Returns (B, H, D) in q's dtype.  ``pump`` (a
+    factor, a ``PumpSpec`` or ``(factor, mode)``) changes how the kernel
+    walks the keys, never the values; a case outside ``built`` raises."""
     global launches
     if q.dim() != 3 or k_cache.dim() != 4:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} must be 3-D "
@@ -66,6 +102,12 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             or t == 0:
         raise ValueError(f"decode_attention: unsupported shape H={h} "
                          f"Hkv={hkv} T={t} D={d}")
+    spec = PumpSpec.of(pump)
+    if not built(spec.factor, spec.mode, h // hkv, d, k_cache.dtype):
+        raise ValueError(f"decode_attention: no kernel for M={spec.factor} "
+                         f"mode {spec.mode} at D {d}, group {h // hkv}, "
+                         f"cache {k_cache.dtype}; built for {PUMPS} where "
+                         f"the panel fits {SMEM_BYTES} B")
     posv = pos_vector(pos, b, q.device)
     if posv.shape != (b,) or posv.dtype != torch.int32:
         raise ValueError(f"decode_attention: pos must be a scalar or ({b},) "
@@ -79,7 +121,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
         err = _kernel()(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                         posv.data_ptr(), out.data_ptr(), DTYPES[q.dtype],
                         DTYPES[k_cache.dtype], b, h, hkv, t, d, float(scale),
-                        stream)
+                        spec.factor, int(spec.mode == "R"), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -8,8 +8,9 @@ count) of a row tile of x (rows, D), and the blocks of tile i compute those
 rows of ``x · w[expert]``; expert -1 marks a surplus tile, whose rows come
 out zero.  ``tile_table`` builds the table with tensor ops on the sizes'
 device, so a table for a routing made on the card never waits on the host.
-fp32 FMA math over the whole D, rounded once to x's dtype; ragged rows, D
-and F are masked.  ``launches`` counts the kernel's launches; nothing else
+bf16 products run on the tensor cores (mma.sync, fp32 accumulation), fp32
+ones as fp32 FMAs; either way the whole-D sum is fp32, rounded once to x's
+dtype, and ragged rows, D and F are masked.  ``launches`` counts the kernel's launches; nothing else
 adds to it.
 """
 from __future__ import annotations
@@ -23,7 +24,10 @@ from ..core.ir import PumpSpec
 from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-TILES = ((16, 128, 32), (64, 128, 32))      # (bc, bf, bd) instantiated
+# (bc, bf, bd) instantiated per dtype: the 128-row tile only in bf16 (its
+# fp32 panels would not fit shared memory at M 4)
+TILES = {torch.float32: ((16, 128, 32), (64, 128, 32)),
+         torch.bfloat16: ((16, 128, 32), (64, 128, 32), (128, 128, 32))}
 PUMPS = ((1, "T"), (2, "T"), (4, "T"), (1, "R"), (2, "R"), (4, "R"))
 
 launches = 0
@@ -39,10 +43,6 @@ def _kernel():
         fn.restype = i
         _fn = fn
     return _fn
-
-
-def _spec(pump: Union[PumpSpec, int]) -> PumpSpec:
-    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
 
 
 def _vec(t: torch.Tensor) -> bool:
@@ -83,7 +83,7 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor,
     whose row counts are at most ``bc``; contiguous CUDA tensors, x and w of
     one dtype (fp32 or bf16).  Returns (rows, F) in x's dtype."""
     global launches
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     for name, t, dim in (("x", x, 2), ("w", w, 3), ("tiles", tiles, 2)):
         if t.dim() != dim:
             raise ValueError(f"grouped_gemm: {name} must be {dim}-D, got "
@@ -101,10 +101,12 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor,
                          f"{tuple(tiles.shape)} {tiles.dtype}")
     if x.dtype not in DTYPES:
         raise TypeError(f"grouped_gemm: dtype {x.dtype} not supported")
-    if (bc, bf, bd) not in TILES or (pump.factor, pump.mode) not in PUMPS:
+    if (bc, bf, bd) not in TILES[x.dtype] \
+            or (pump.factor, pump.mode) not in PUMPS:
         raise ValueError(f"grouped_gemm: no kernel for tile {(bc, bf, bd)} "
-                         f"with M={pump.factor} mode {pump.mode}; built for "
-                         f"tiles {TILES} and pumps {PUMPS}")
+                         f"with M={pump.factor} mode {pump.mode} in "
+                         f"{x.dtype}; built for tiles {TILES[x.dtype]} and "
+                         f"pumps {PUMPS}")
     rows, d = x.shape
     f = w.shape[2]
     out = torch.empty((rows, f), dtype=x.dtype, device=x.device)
@@ -129,6 +131,6 @@ def transactions(e: int, c: int, d: int, f: int, bc: int = 128,
                  pump: Union[PumpSpec, int] = 1) -> int:
     """Wide contraction-panel transactions of the dense form:
     ``repro/kernels/grouped_gemm.py:83``."""
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     dw = bd * pump.factor if pump.mode == "T" else bd
     return e * (c // bc) * (f // bf) * (d // dw)

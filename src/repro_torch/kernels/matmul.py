@@ -37,10 +37,6 @@ def _kernel():
     return _fn
 
 
-def _spec(pump: Union[PumpSpec, int]) -> PumpSpec:
-    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
-
-
 def _vec(t: torch.Tensor) -> bool:
     """Every 4-element chunk of a row is 16-byte aligned."""
     return t.data_ptr() % 16 == 0 and (t.shape[1] * t.element_size()) % 16 == 0
@@ -52,7 +48,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64,
     """a (M, K) · b (K, N), contiguous CUDA tensors of one dtype (fp32 or
     bf16); the result in ``out_dtype`` (default a's)."""
     global launches
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     for name, t in (("a", a), ("b", b)):
         if t.dim() != 2 or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"matmul: {name} must be a contiguous 2-D CUDA "
@@ -87,7 +83,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64,
 def transactions(m: int, n: int, k: int, bm: int = 128, bn: int = 128,
                  bk: int = 128, pump: Union[PumpSpec, int] = 1) -> int:
     """Wide K-panel transactions: ``repro/kernels/matmul.py:110``."""
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     kw = bk * pump.factor if pump.mode == "T" else bk
     return (m // bm) * (n // bn) * (k // kw)
 
@@ -96,6 +92,6 @@ def compute_tile_bytes(bm: int = 128, bn: int = 128,
                        pump: Union[PumpSpec, int] = 1) -> int:
     """Active compute tile per issue, the paper's DSP count:
     ``repro/kernels/matmul.py:119``."""
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     bn_eff = bn // pump.factor if pump.mode == "R" else bn
     return bm * bn_eff * 4

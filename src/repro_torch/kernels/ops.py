@@ -10,12 +10,16 @@ card to the plain version.  The launch counts live on the kernel modules
 
 The paper's four kernels take ``pump`` as a factor or a ``PumpSpec`` and
 raise the reference's ``ValueError`` for shapes the pump cannot divide, on
-either device.  ``vecadd``, ``matmul`` and ``grouped_gemm`` also take
-``pump='auto'`` (the capacity model's factor, cached by
+either device.  ``vecadd``, ``matmul``, ``grouped_gemm``,
+``flash_attention``, ``decode_attention``, ``ssd_scan`` and ``ssd_decode``
+also take ``pump='auto'`` (the capacity model's factor, cached by
 ``compiler.plan_pump``) and ``pump='measure'`` (the factor measured on the
 kernel's IR graph through ``compile(backend='hopper',
 autotune='measure')``, cached likewise), as the reference's ``_as_spec``
-does; the chosen spec then drives the direct kernel.
+does; the chosen spec then drives the direct kernel.  The attention and
+SSD ops also take ``(factor, mode)``.  The pump never changes a value: a
+CPU tensor takes the plain version at any pump, a CUDA tensor the kernel
+at that pump, which raises where the case is not built.
 """
 from __future__ import annotations
 
@@ -52,48 +56,129 @@ def _route(x: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {x.device}")
 
 
+Pump = Union[PumpSpec, int, Tuple[int, str], str]
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _max_built(built) -> int:
+    """The largest mode-T factor a kernel is built for (``built(f)``)."""
+    return max(f for f in (1, 2, 4, 8, 16) if built(f))
+
+
+def _estimate_spec(pump: str, x: torch.Tensor, kernel: str, builder_args,
+                   builder_kwargs, max_factor: int) -> PumpSpec:
+    """``_as_spec`` planned from the builder's own estimate (the
+    reference's compile(factor='auto', estimate=est) of the kernel)."""
+    from ..core.autopump import BUILDERS
+    _g, est = BUILDERS[kernel](*builder_args, **builder_kwargs)
+    return _as_spec(pump, x, kernel=kernel, builder_args=builder_args,
+                    builder_kwargs=builder_kwargs, max_factor=max_factor,
+                    block_bytes_in=est.block_bytes_in,
+                    block_bytes_out=est.block_bytes_out,
+                    flops_per_block=est.flops_per_block,
+                    panel_bytes=est.panel_bytes)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = False, scale: Optional[float] = None,
+                    bq: int = 128, bkv: int = 128, pump: Pump = 1,
+                    stats: bool = False):
     """Multi-head attention, q (B, H, S, D), k / v (B, Hkv, T, D); GQA maps
-    q head h to kv head h // (H / Hkv).  Causal is top-left aligned."""
+    q head h to kv head h // (H / Hkv).  Causal is top-left aligned.
+    ``pump='auto'`` plans with the reference's (bq, bkv) blocks
+    (``repro/kernels/ops.py:282-285``), ``'measure'`` times the
+    ``_flash_graph`` carry kernel at those blocks; either is capped at the
+    largest factor the kernel is built for at this head dim and dtype.
+    ``stats=True`` also returns the fp32 (B, H, S) final running max m and
+    denominator l, the carry graph's second and third outputs."""
+    b, h, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    isz = q.element_size()
+    spec = PumpSpec.of(pump) if not isinstance(pump, str) else _as_spec(
+        pump, q, kernel="flash_attention", builder_args=(b, h, s, t, d),
+        builder_kwargs=dict(bq=bq, bkv=bkv, itemsize=isz, hkv=hkv,
+                            causal=causal, scale=scale,
+                            dtype=_dtype_name(q)),
+        max_factor=_max_built(lambda f: _fa.built(f, "T", d, q.dtype)),
+        block_bytes_in=2 * bkv * d * isz, block_bytes_out=0,
+        flops_per_block=4.0 * bq * bkv * d)
     if _route(q, "flash_attention"):
-        return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale)
-    return ref.flash_attention(q, k, v, causal=causal, scale=scale)
+        return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                        pump=spec, stats=stats)
+    return ref.flash_attention(q, k, v, causal=causal, scale=scale,
+                               stats=stats)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: Union[int, torch.Tensor], *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None, bkv: int = 128,
+                     pump: Pump = 1) -> torch.Tensor:
     """Single-position attention against a preallocated cache: q (B, H, D),
-    caches (B, Hkv, T, D), valid slots 0..pos[b] (scalar or (B,) pos)."""
+    caches (B, Hkv, T, D), valid slots 0..pos[b] (scalar or (B,) pos).
+    ``pump='auto'`` plans from ``_decode_attention_graph``'s estimate at
+    ``bkv``, ``'measure'`` times that graph's carry kernel."""
+    b, h, d = q.shape
+    hkv, t = k_cache.shape[1], k_cache.shape[2]
+    spec = PumpSpec.of(pump) if not isinstance(pump, str) else \
+        _estimate_spec(
+            pump, q, "decode_attention", (b, h, t, d),
+            dict(bkv=min(bkv, t), itemsize=q.element_size(), hkv=hkv,
+                 scale=scale, dtype=_dtype_name(q)),
+            _max_built(lambda f: _da.built(f, "T", h // max(hkv, 1), d,
+                                           k_cache.dtype)))
     if _route(q, "decode_attention"):
         return _da.decode_attention_cuda(q, k_cache, v_cache, pos,
-                                         scale=scale)
+                                         scale=scale, pump=spec)
     return ref.decode_attention(q, k_cache, v_cache, pos, scale=scale)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
              B: torch.Tensor, C: torch.Tensor, *, chunk: int,
-             final_state: bool = False):
+             final_state: bool = False, pump: Pump = 1):
     """Mamba-2 chunked SSD scan: x (B, L, H, P), dt (B, L, H), A (H,), B / C
-    (B, L, G, N).  Returns y, or (y, fp32 (B, H, N, P) final state)."""
+    (B, L, G, N).  Returns y, or (y, fp32 (B, H, N, P) final state).
+    ``pump='auto'`` plans with the reference's block bytes
+    (``repro/kernels/ops.py:337-340``), ``'measure'`` times the
+    ``_ssd_graph`` carry kernel; either is capped at the largest factor the
+    kernel is built for."""
+    b, l, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    spec = PumpSpec.of(pump) if not isinstance(pump, str) else _as_spec(
+        pump, x, kernel="ssd_scan", builder_args=(b, l, h, p, n),
+        builder_kwargs=dict(chunk=chunk, itemsize=x.element_size(),
+                            n_groups=g, dtype=_dtype_name(x),
+                            final_state=final_state),
+        max_factor=_max_built(lambda f: _ss.built(f, "T")),
+        block_bytes_in=chunk * (p + 1 + 2 * n) * 4,
+        block_bytes_out=chunk * p * 4,
+        flops_per_block=2.0 * chunk * chunk * (n + p))
     if _route(x, "ssd_scan"):
         return _ss.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
-                                 final_state=final_state)
+                                 final_state=final_state, pump=spec)
     return ref.ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=final_state)
 
 
 def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
-               pump: Union[PumpSpec, int, Tuple[int, str]] = 1):
+               pump: Pump = 1):
     """One-token SSD step: state (B, H, N, P) fp32, x (B, H, P), dt (B, H),
     A (H,), B / C (B, G, N).  Returns (y fp32 (B, H, P), new state).
-    ``pump`` (a factor, a ``PumpSpec`` or ``(factor, mode)``) only changes
-    how the kernel walks the step (mode R: P in M sub-tiles; mode T: M
-    heads per block), never the values."""
+    ``pump`` (a factor, a ``PumpSpec``, ``(factor, mode)``, ``'auto'`` from
+    ``_ssd_decode_graph``'s estimate or ``'measure'``) only changes how the
+    kernel walks the step (mode R: P in M sub-tiles; mode T: M heads per
+    block), never the values."""
+    b, h, n, p = state.shape
+    spec = PumpSpec.of(pump) if not isinstance(pump, str) else \
+        _estimate_spec(
+            pump, x, "ssd_decode", (b, h, p, n),
+            dict(itemsize=x.element_size(), n_groups=B.shape[1],
+                 dtype=_dtype_name(x)),
+            _max_built(lambda f: h % f == 0))
     if _route(x, "ssd_decode"):
-        return _sd.ssd_decode_cuda(state, x, dt, A, B, C, pump=pump)
+        return _sd.ssd_decode_cuda(state, x, dt, A, B, C, pump=spec)
     return ref.ssd_decode(state, x, dt, A, B, C)
 
 
@@ -107,13 +192,13 @@ def region_map_reduce(desc, operands: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 # ------------------------------------------------ the paper's four kernels --
-def _as_spec(pump: Union[PumpSpec, int, str], x: Optional[torch.Tensor] = None,
+def _as_spec(pump: Pump, x: Optional[torch.Tensor] = None,
              kernel: Optional[str] = None, builder_args=(),
              builder_kwargs=None, max_factor: int = 16,
              **plan_kwargs) -> PumpSpec:
-    """A factor, a ``PumpSpec``, or ``'auto'`` / ``'measure'`` planned for
-    ``kernel`` (the reference's ``_as_spec``).  ``max_factor`` is the
-    largest M the direct kernel is built for."""
+    """A factor, a ``PumpSpec``, ``(factor, mode)``, or ``'auto'`` /
+    ``'measure'`` planned for ``kernel`` (the reference's ``_as_spec``).
+    ``max_factor`` is the largest M the direct kernel is built for."""
     if pump == "auto":
         # capacity-model planning, memoized in the persistent compile cache
         from ..compiler import plan_pump
@@ -129,15 +214,16 @@ def _as_spec(pump: Union[PumpSpec, int, str], x: Optional[torch.Tensor] = None,
             return spec
         from ..compiler import plan_pump
         return plan_pump(max_factor=max_factor, **plan_kwargs)
-    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
+    return PumpSpec.of(pump)
 
 
 def _fixed_spec(pump: Union[PumpSpec, int, str], name: str) -> PumpSpec:
     if isinstance(pump, str):
-        raise TypeError(f"{name}: pump={pump!r} is planned by the compiler "
-                        f"only for vecadd, matmul and grouped_gemm, as in "
-                        f"the reference; pass a factor or a PumpSpec")
-    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
+        raise TypeError(f"{name}: pump={pump!r} is not planned by the "
+                        f"compiler for the stencil and Floyd-Warshall "
+                        f"kernels, as in the reference; pass a factor or a "
+                        f"PumpSpec")
+    return PumpSpec.of(pump)
 
 
 def _measured_spec(kernel, builder_args, builder_kwargs, device,

@@ -15,14 +15,17 @@ NEG_INF = -1e30
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = False, scale: Optional[float] = None,
+                    stats: bool = False):
     """softmax(q kᵀ · scale) v, q (B, H, S, D), k / v (B, Hkv, T, D).
 
     The causal mask is top-left aligned, q_pos >= k_pos, as in the Pallas
     kernel (``repro/kernels/flash_attention.py:52-56``); it equals the
     bottom-right ``repro.kernels.ref.attention`` only when S == T.  GQA maps
-    q head h to kv head h // (H / Hkv)."""
+    q head h to kv head h // (H / Hkv).  ``stats=True`` also returns the
+    fp32 (B, H, S) row max m of the masked scaled logits and the
+    denominator l = Σ exp(logit - m), what ``_flash_graph``'s carry ends
+    with."""
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     g = h // hkv
@@ -35,7 +38,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = torch.where(keep, logits, NEG_INF)
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
-    return out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
+    out = out.reshape(b, h, s, v.shape[-1]).to(q.dtype)
+    if not stats:
+        return out
+    m = logits.amax(dim=-1)
+    l_ = torch.exp(logits - m[..., None]).sum(dim=-1)
+    return out, m.reshape(b, h, s), l_.reshape(b, h, s)
 
 
 def pos_vector(pos: Union[int, torch.Tensor], b: int,

@@ -19,8 +19,10 @@ once per descriptor and device.
 
 Tile ops: ``add`` (elementwise ``in0 + in1``) and ``dot`` (``in0 @ in1``
 over the last two block dims, leading unit dims squeezed).  Reads are fp32
-or bf16 in the operands' dtype, the math is fp32, the output is rounded
-once.  ``launches`` counts the kernel's launches; nothing else adds to it.
+or bf16 in the operands' dtype, the sums are fp32, the output is rounded
+once.  A bf16 ``dot`` whose rows and K-slice are multiples of 16 and whose
+columns are a multiple of 8 runs on the tensor cores (``mma_path``);
+every other one as fp32 FMAs.  ``launches`` counts the kernel's launches; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -153,11 +155,13 @@ class RegionDesc:
         """Dynamic shared memory of the dot op at K-slice ``kc``: two stages,
         each the left slices of the beats (shared by the sub-tiles, rows
         padded by 16 bytes) and the right slices of every (beat,
-        sub-tile)."""
+        sub-tile) (rows padded by 16 bytes in bf16, where ldmatrix reads
+        them)."""
         a, b = self.ins
-        lda = kc + 16 // self.itemsize          # rows padded by 16 bytes
+        lda = kc + 16 // self.itemsize
+        ldb = b.cols + (8 if self.itemsize == 2 else 0)
         a_bytes = -(-self.beats * a.rows * lda * self.itemsize // 16) * 16
-        b_bytes = -(-self.beats * self.subtiles * kc * b.cols
+        b_bytes = -(-self.beats * self.subtiles * kc * ldb
                     * self.itemsize // 16) * 16
         return 2 * (a_bytes + b_bytes)
 
@@ -200,6 +204,21 @@ class RegionDesc:
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return (f"RegionDesc({self.op}, grid={self.grid}, "
                 f"reduce={self.reduce}, pump={self.pump}, kc={self.kc})")
+
+
+def mma_path(desc: RegionDesc) -> bool:
+    """True where the kernel runs ``desc``'s dot on the tensor cores: the
+    dispatch of ``csrc/region_map_reduce.cu::launch`` (bf16; rows and the
+    K-slice multiples of 16, columns of 8; 16-row warps of NI n8 tiles,
+    NI * 8 dividing the columns, at most 4 warps across and 8 in all)."""
+    if desc.op != "dot" or desc.itemsize != 2:
+        return False
+    bm, bn = desc.ins[0].rows, desc.ins[1].cols
+    if bm % 16 or desc.kc % 16 or bn % 8:
+        return False
+    nn = desc.subtiles * bn // 8
+    return any((bn // 8) % ni == 0 and nn // ni <= 4
+               and (bm // 16) * (nn // ni) <= 8 for ni in (1, 2, 4, 8, 16))
 
 
 def _span(o: Operand, grid: Sequence[int]) -> Tuple[int, int]:

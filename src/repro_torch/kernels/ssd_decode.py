@@ -38,14 +38,6 @@ def _kernel():
     return _fn
 
 
-def _pump(pump: Union[PumpSpec, int, Tuple[int, str]]) -> Tuple[int, str]:
-    if isinstance(pump, PumpSpec):
-        return pump.factor, pump.mode
-    if isinstance(pump, int):
-        return pump, "T"
-    return int(pump[0]), str(pump[1])
-
-
 def ssd_decode_cuda(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                     A: torch.Tensor, B: torch.Tensor, C: torch.Tensor, *,
                     pump: Union[PumpSpec, int, Tuple[int, str]] = 1):
@@ -54,7 +46,8 @@ def ssd_decode_cuda(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     (B, H, P), state' fp32 (B, H, N, P)).  ``pump``: a factor (mode T), a
     ``PumpSpec`` or ``(factor, mode)``."""
     global launches
-    factor, mode = _pump(pump)
+    spec = PumpSpec.of(pump)
+    factor, mode = spec.factor, spec.mode
     for name, t, dim in (("state", state, 4), ("x", x, 3), ("dt", dt, 2),
                          ("A", A, 1), ("B", B, 3), ("C", C, 3)):
         if t.dim() != dim:

@@ -37,14 +37,10 @@ def _kernel():
     return _fn
 
 
-def _spec(pump: Union[PumpSpec, int]) -> PumpSpec:
-    return PumpSpec(factor=pump) if isinstance(pump, int) else pump
-
-
 def transaction(vector_width: int,
                 pump: Union[PumpSpec, int] = 1) -> Tuple[int, int]:
     """(W, L): elements per transaction and lanes per beat."""
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     if pump.mode == "T":
         return vector_width * pump.factor, vector_width
     return vector_width, vector_width // pump.factor
@@ -55,7 +51,7 @@ def vecadd_cuda(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
     """z = x + y over 1-D contiguous CUDA tensors of one dtype (fp32 or
     bf16), V = ``vector_width`` and M = ``pump.factor`` powers of two."""
     global launches
-    pump = _spec(pump)
+    pump = PumpSpec.of(pump)
     for name, t in (("x", x), ("y", y)):
         if t.dim() != 1 or not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"vecadd: {name} must be a contiguous 1-D CUDA "

@@ -14,9 +14,10 @@ the port of ``repro.models.moe``.
     tokens sort by expert into row groups padded to 16 rows, and the three
     expert products run as ragged grouped GEMMs (``kernels.ops.
     grouped_gemm``, ``csrc/grouped_gemm.cu`` on the card) over a tile table
-    built on the device.  The reference builds its group tables on the host
-    from concrete routing, so it takes this route only outside a jit trace;
-    the port runs eagerly and always has concrete routing.
+    built on the device, in row tiles of 16, 64 or 128 rows as the routed
+    row count asks (``row_tile``).  The reference builds its group tables
+    on the host from concrete routing, so it takes this route only outside
+    a jit trace; the port runs eagerly and always has concrete routing.
 
 Routing is fp32 softmax, top-k, renormalised gates; the Switch aux loss
 comes back beside the output.  The routed experts are stacked (E, d, de)
@@ -36,9 +37,20 @@ from repro_torch.kernels import ops
 
 from .layers import Dense, SwiGLU, dense, swiglu
 
-# the ragged route's row tile and group bucket (the reference's 'direct'
-# plan: group sizes rounded up to 16, bc=16)
+# the ragged route's group bucket (the reference's 'direct' plan: group
+# sizes rounded up to 16)
 ROW_TILE = 16
+
+
+def row_tile(tk: int, e: int, dtype: torch.dtype) -> int:
+    """The grouped GEMM's row tile for ``tk`` routed rows over ``e``
+    experts, chosen on the host: 16 for a decode step, whose groups hold a
+    row or two, and up to 128 once the groups average that many rows (a
+    prefill), so an expert's weight panel is read by few row tiles.  The
+    layout stays padded to 16 rows; ``tile_table`` cuts each group into
+    tiles of at most this many rows."""
+    want = 128 if tk >= 128 * e else 64 if tk >= 32 * e else ROW_TILE
+    return max(bc for bc, _bf, _bd in gg.TILES[dtype] if bc <= want)
 
 
 class MoE(nn.Module):
@@ -90,15 +102,19 @@ def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     """Expert SwiGLU over ragged row groups (the megablocks idiom), the
     reference's ``_ragged_dropless_experts`` on its 'direct' plan: tokens
     scatter once into the padded layout of ``ragged_layout`` and the three
-    products read it through one tile table."""
+    products read it through one tile table of ``row_tile`` rows."""
     t, d = xt.shape
     k = idx.shape[1]
-    rows, _, tiles, n_rows = ragged_layout(idx, p.gate.shape[0])
+    e = p.gate.shape[0]
+    rows, padded, tiles, n_rows = ragged_layout(idx, e)
+    bc = row_tile(t * k, e, xt.dtype)
+    if bc != ROW_TILE:
+        tiles = gg.tile_table(padded, bc, -(-n_rows // bc) + e)
     xs = torch.zeros((n_rows, d), dtype=xt.dtype, device=xt.device)
     xs[rows] = xt.repeat_interleave(k, dim=0)
 
     def gemm(a, w):
-        return ops.grouped_gemm(a, w.to(xt.dtype), bc=ROW_TILE, tiles=tiles)
+        return ops.grouped_gemm(a, w.to(xt.dtype), bc=bc, tiles=tiles)
 
     h = F.silu(gemm(xs, p.gate), inplace=True).mul_(gemm(xs, p.up))
     del xs

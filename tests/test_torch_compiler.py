@@ -12,7 +12,8 @@
   kernels' plain versions), M in {1, 2} x {T, R};
 - planning parity: regions, grids, blocks, reduce and carry symbols, pump
   and notes equal the reference's, and the emission tiers map ``pallas``
-  to ``hopper`` (``carryloop`` for the carry regions of this port);
+  to ``hopper`` (for a carry region where its kernel is built for the
+  plan's pump case and shape, else ``carryloop``);
 - the port's numpy executor against the reference's;
 - the compile cache: measure and replay, corrupted caches, the memo's
   closure identity, quarantine, the toolchain key;
@@ -143,7 +144,7 @@ def test_planning_parity(si, kernel, factor, mode):
     assert kern.spec.factor == ref_kern.spec.factor
     assert _plans(kern, hb) == _plans(ref_kern, jpb)
     # the emission provenance: the same regions, grids and notes; pallas is
-    # hopper here, except for carry regions, which stay at carryloop
+    # hopper here, a carry region's where its kernel is built for the case
     emission, ref_emission = {}, {}
     hb.lower_hopper(kern.graph, emission=emission)
     jpb.lower_pallas(ref_kern.graph, pallas_mode="interpret",
@@ -153,11 +154,28 @@ def test_planning_parity(si, kernel, factor, mode):
         e = emission[name]
         want = ref_e["tier"]
         if want == "pallas":
-            want = "carryloop" if ref_e["carry"] else "hopper"
+            want = "hopper" if not ref_e["carry"] or _carry_built(
+                case, e["pump"], e["mode"]) else "carryloop"
         assert e["tier"] == want, (name, e)
         for key in ("pump", "mode", "grid", "reduce", "carry", "outputs"):
             assert e[key] == ref_e[key], key
         assert e["why"][:len(ref_e["why"])] == ref_e["why"]
+
+
+def _carry_built(case, pump, mode):
+    """Whether the carry builder's kernel is built for a plan's pump case
+    at the case's (fp32) shape: the kernels' own ``built`` sets."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    f32 = torch.float32
+    if case.kernel == "flash_attention":
+        return fa.built(pump, mode, case.args[4], f32)
+    if case.kernel == "decode_attention":
+        h, d = case.args[1], case.args[3]
+        return da.built(pump, mode, h // case.kwargs.get("hkv", h), d, f32)
+    assert case.kernel == "ssd_scan"
+    return ss.built(pump, mode)
 
 
 @pytest.mark.parametrize("si,kernel", PARITY)
