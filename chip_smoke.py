@@ -13,10 +13,14 @@ Phases, in order; any failure exits non-zero:
    (a) flash and (b) decode attention: fp32 at small ragged GQA shapes,
        every pump case each kernel is built for (T1 / T2 / T4 / R2 / R4,
        ``built``) within atol 1e-5 of the plain version (flash's final m
-       and l too) and with T1's bits, then the serving shapes and dtypes
-       of the qwen3 path in every built case, atol 2e-2 on the bf16
-       outputs, with kernel (per pump case), plain and SDPA times beside
-       the bound;
+       and l too) and with T1's bits; flash also in bf16 (its tensor-core
+       body) at small ragged GQA shapes, D 16 to 128, atol 2e-2 on o and
+       ``RTOL_FLASH_STATS_BF16`` on m and l, every case with T1's bits;
+       then the serving shapes and dtypes of the qwen3 path in every
+       built case, atol 2e-2 on the bf16 outputs, with kernel (per pump
+       case), plain and SDPA times beside the bound, flash's TFLOP/s and
+       its factor to SDPA, and flash T1 also timed with no hold before the
+       start event (``Timer.late`` counts the samples that held host time);
    (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
        shapes through strided views (the scan in every built pump case,
        with T1's bits), then the mamba2-1.3b path's shapes and dtypes,
@@ -27,8 +31,9 @@ Phases, in order; any failure exits non-zero:
        small ragged shapes in every pump case (vecadd, integer-valued
        matmul and Floyd-Warshall exact; stencil under
        ``launch.paper.RTOL_STENCIL``), then the paper tables' card sizes
-       (matmul under ``launch.paper.RTOL_MATMUL``) with kernel, plain,
-       library and bound times;
+       (matmul under ``launch.paper.RTOL_MATMUL``, Table 3's three cases
+       with mmm_32PE_O's bits) with kernel, plain, library and bound
+       times;
    (i) the grouped GEMM: small ragged groups (empty experts, one-row
        groups), the dense form with ragged C, F and D, and a worst-case
        device table, in every built tile (bf16 on the tensor cores) and
@@ -97,6 +102,13 @@ import torch.nn.functional as F
 
 ATOL_FP32 = 1e-5              # kernel vs plain, fp32 inputs
 ATOL_BF16 = 2e-2              # kernel vs plain, bf16 outputs (2^-8 rounding)
+# flash's fp32 m and l from bf16 inputs, relative to the largest |value|:
+# the kernel sums q k^T on the tensor cores in fp32 (exact bf16 products,
+# another order) and scales after, the plain version scales q first; l
+# sums exp2 of the fp32 scores where the plain version sums exp.  That is
+# a few fp32 roundings on sums of at most 200 terms (about 1e-6), so 1e-4
+# leaves room, while a wrong mask or a lost key tile moves m or l by O(1)
+RTOL_FLASH_STATS_BF16 = 1e-4
 # kernel route vs plain route logits after 28 bf16 layers: the two differ
 # only in fp32 summation order inside attention, which flips single bf16
 # roundings of attention outputs; logits of these random weights are
@@ -223,6 +235,15 @@ def phase_env() -> str:
     return card
 
 
+def card_state() -> str:
+    """SM clock, its maximum, power draw and temperature, as nvidia-smi
+    reads them: kernel times depend on them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -278,6 +299,7 @@ def phase_kernels(timer):
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
+    from repro_torch.launch.timing import TIMING_ITERS, Timer
     gen = torch.Generator(device="cuda").manual_seed(1234)
 
     # (a) fp32, small ragged shapes: GQA, S / T not tile multiples, S != T,
@@ -327,6 +349,40 @@ def phase_kernels(timer):
         print(f"[decode fp32] B{b} H{h}/{hkv} T{t} D{d} pos={pos}: "
               f"{'/'.join(cases)}: max abs err {e:.3g}, identical bits")
 
+    # bf16 (the tensor-core body) at small ragged GQA shapes: S != T, S and
+    # T not tile multiples, D 16 / 32 / 40 / 72 / 128 in all four padded
+    # widths (16, 32, 64, 128) and D 44, whose odd rows take the 8-byte
+    # copies; o within ATOL_BF16 of the
+    # plain version, m and l within RTOL_FLASH_STATS_BF16, every built pump
+    # case with T1's bits
+    for b, h, hkv, s, t, d, causal in [
+            (2, 4, 2, 37, 100, 40, True), (2, 4, 2, 37, 100, 40, False),
+            (1, 4, 1, 130, 70, 72, True), (1, 4, 1, 130, 70, 72, False),
+            (2, 4, 2, 100, 200, 128, True), (1, 2, 1, 200, 77, 128, False),
+            (1, 4, 2, 65, 129, 44, True), (1, 4, 2, 70, 130, 16, True),
+            (2, 2, 1, 64, 128, 32, False)]:
+        q = randn(gen, b, h, s, d, dtype=torch.bfloat16)
+        k = randn(gen, b, hkv, t, d, dtype=torch.bfloat16)
+        v = randn(gen, b, hkv, t, d, dtype=torch.bfloat16)
+        want = ref.flash_attention(q, k, v, causal=causal, stats=True)
+
+        def check_flash_bf16(outs, label, want=want):
+            e = err(outs[0], want[0])
+            e_ml = max(rel_err(outs[1], want[1]), rel_err(outs[2], want[2]))
+            check(e <= ATOL_BF16 and e_ml <= RTOL_FLASH_STATS_BF16,
+                  f"{label}: o err {e} (atol {ATOL_BF16}), m / l rel err "
+                  f"{e_ml} (rtol {RTOL_FLASH_STATS_BF16})")
+            return e
+        cases, e = pump_sweep(
+            f"flash bf16 D{d}",
+            lambda pump: fa.flash_attention_cuda(q, k, v, causal=causal,
+                                                 pump=pump, stats=True),
+            check_flash_bf16, lambda f, m: fa.built(f, m, d, q.dtype))
+        print(f"[flash bf16] B{b} H{h}/{hkv} S{s} T{t} D{d} causal={causal}: "
+              f"{'/'.join(cases)}: max abs err {e:.3g} (atol {ATOL_BF16}), "
+              f"m and l within {RTOL_FLASH_STATS_BF16} relative, identical "
+              f"bits")
+
     # (b) main-path shapes and dtypes
     b, h, hkv, s, d = 8, 16, 8, 512, 128
     q = randn(gen, b, h, s, d, dtype=torch.bfloat16)
@@ -346,16 +402,37 @@ def phase_kernels(timer):
     print(f"[flash bf16] B{b} H{h}/{hkv} S=T={s} D{d} causal, "
           f"{'/'.join(cases)}: max abs err {e_fa:.3g} (atol {ATOL_BF16}), "
           f"identical bits")
+    # T1 with no spin before the start event, first of the process and
+    # again after the timings below: a late sample (start fired before the
+    # host had queued the call) holds host time in its reading
+    bare = Timer(hold_cycles=0)
+    run_t1 = lambda: fa.flash_attention_cuda(q, k, v, causal=True)  # noqa: E731
+    bare_cold = bare.ms(run_t1)
+    late_cold = bare.late
     fa_pumps = pump_times(timer, "flash bf16", run_fa, fa_built)
     pairs = sum(min(i + 1, s) for i in range(s))
     fa_bound, fa_by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
                                4.0 * b * h * d * pairs, PEAK_FLOPS_BF16)
-    fa_ms = timer.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    print(f"[flash bf16] card before timing: {card_state()}")
+    late0, samples0 = timer.late, timer.samples
+    fa_ms = timer.ms(run_t1)
+    late, samples = timer.late - late0, timer.samples - samples0
+    bare_warm = bare.ms(run_t1)
+    print(f"[flash bf16] timer: T1 {fa_ms:.4f} ms, late in {late}/{samples} "
+          f"samples; with no hold before the start event {bare_cold:.4f} ms "
+          f"first in the process (late in {late_cold}/{TIMING_ITERS}), "
+          f"{bare_warm:.4f} ms here (late in {bare.late - late_cold}/"
+          f"{TIMING_ITERS})")
+    del bare
     fa_plain = timer.ms(lambda: ref.flash_attention(q, k, v, causal=True))
     fa_lib = timer.ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
-    print(f"[flash bf16] kernel {fa_ms:.4f} ms, plain {fa_plain:.4f} ms, "
-          f"SDPA {fa_lib:.4f} ms, bound {fa_bound:.4f} ms ({fa_by})")
+    fa_flops = 4.0 * b * h * d * pairs
+    print(f"[flash bf16] kernel {fa_ms:.4f} ms "
+          f"({fa_flops / fa_ms * 1e-9:.1f} TFLOP/s, {fa_ms / fa_lib:.2f}x "
+          f"SDPA), plain {fa_plain:.4f} ms, SDPA {fa_lib:.4f} ms "
+          f"({fa_flops / fa_lib * 1e-9:.1f} TFLOP/s), bound {fa_bound:.4f} "
+          f"ms ({fa_by})")
 
     t, pos_main = 577, 575   # max_len of the e2e run; its deepest step
     qd = randn(gen, b, h, d, dtype=torch.bfloat16)
@@ -639,25 +716,32 @@ def phase_paper_kernels(timer):
     size = paper.CARD["mm"]
     a, b = randn(gen, size, size), randn(gen, size, size)
     want = ref.matmul(a, b)
-    cases = {}
+    cases, base = {}, None
     for name, bn, spec in paper.TABLE3_CASES:
         out = mm.matmul_cuda(a, b, bm=paper.BM, bn=bn, bk=paper.BK, pump=spec)
         e = rel_err(out, want)
         check(e <= paper.RTOL_MATMUL,
               f"{name} {size}^3: rel err {e} > {paper.RTOL_MATMUL}")
+        # every case sums each output's K products in k order: O's bits
+        base = out if base is None else base
+        check(torch.equal(out, base),
+              f"{name} {size}^3: not the bits of {paper.TABLE3_CASES[0][0]}")
         ms = timer.ms(lambda: mm.matmul_cuda(a, b, bm=paper.BM, bn=bn,
                                              bk=paper.BK, pump=spec))
         cases[name] = (ms, e, err(out, want))
+    print(f"[matmul] card after timing: {card_state()}")
     mm_ms, mm_rel, e_mm = cases["mmm_32PE_DP"]
     mm_bound, mm_by = bound_ms(3 * size * size * 4, 2.0 * size ** 3,
                                PEAK_FLOPS_FP32)
     mm_plain = timer.ms(lambda: ref.matmul(a, b))
     mm_lib = timer.ms(lambda: torch.matmul(a, b))
     print(f"[matmul] {size}^3 fp32: " + ", ".join(
-        f"{k} {v[0]:.4f} ms (rel err {v[1]:.3g})" for k, v in cases.items())
-        + f"; plain {mm_plain:.4f} ms, torch.matmul {mm_lib:.4f} ms, bound "
+        f"{k} {v[0]:.4f} ms ({2.0 * size ** 3 / v[0] * 1e-9:.1f} TFLOP/s, "
+        f"rel err {v[1]:.3g})" for k, v in cases.items())
+        + f", identical bits; plain {mm_plain:.4f} ms, torch.matmul "
+        f"{mm_lib:.4f} ms ({mm_ms / mm_lib:.2f}x for DP), bound "
         f"{mm_bound:.4f} ms ({mm_by}; rtol {paper.RTOL_MATMUL})")
-    del a, b, want
+    del a, b, want, base, out
 
     # (g) stencil: ragged planes, both kinds, M 1 / 2 / 4, 1 and 3 stages,
     # under RTOL_STENCIL

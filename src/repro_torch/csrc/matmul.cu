@@ -8,33 +8,58 @@
 // and issues M dot passes of bk over it; mode R keeps kw = bk and issues an
 // output sub-tile bn / M wide M times.
 //
-// Here one block owns one (BM, BN) output tile and walks K itself, since
-// blocks run in no order.  Each K stage copies the (BM, KW) A panel and the
-// (KW, BN) B panel into shared memory with cp.async (16-byte copies where a
-// 4-element chunk is whole and aligned, 4-byte zero-filling copies at a
-// ragged or unaligned edge), double-buffered so the next stage's copy is in
-// flight while this one computes.  A thread owns a 4 x 4 micro-tile per
-// output sub-tile: rows ty + r * BM / 4, columns tx * 4 .. tx * 4 + 3.
-//   mode T: the threads cover the whole BM x BN tile; a stage is M passes of
-//           BK over the KW = BK * M panel.
+// What bounds it on this card: operations.  2 * M * N * K FLOPs over 67
+// TFLOP/s fp32 (CUDA cores: the k-ordered fp32 sums below rule out TF32 and
+// the tensor cores) against (M K + K N + M N) * 4 bytes over 3.35 TB/s: at
+// 4096^3 the FLOPs take 2.05 ms and the bytes 0.06 ms.  So the limit is
+// how many of a thread's instructions are FMAs: every shared-memory read
+// and address computation takes an issue slot from them.
+//
+// Design: one block owns one (BM, BN) output tile and walks K itself, since
+// blocks run in no order; the blocks take the tiles in groups of 16 tile
+// rows, so those in flight share their A and B panels in L2.  Each K stage
+// copies the (BM, KW) A panel and the (KW, BN) B panel into shared memory
+// with cp.async: a whole, aligned fp32 panel in 16-byte copies at offsets
+// fixed a thread, with no masks (masked copies spend many of a thread's
+// issue slots on index math), else 16-byte copies where a 4-element chunk
+// is whole and aligned and 4-byte zero-filling copies at a ragged or
+// unaligned edge.  The ring has two stages, so the next stage's copy is
+// in flight while this one computes, with one barrier a stage.  A third
+// stage would fit, but its 52 KB (at 64 x 64) leave four blocks an SM where
+// two stages' 35 KB leave six, and this kernel needs the warps more than
+// the deeper prefetch.  A thread keeps a register micro-tile of TM x TN =
+// 8 x 4 outputs for each sub-tile it holds: one in mode T, M in mode R.
+// (8 x 8 would not fit the paper's thread counts: R4 at 64 x 64 would run
+// 16 threads, half a warp.)  A is read as one float4 of four consecutive k
+// of each of its 8 rows, B as one float4 of 4 columns, and the four k are
+// unrolled: per 4 k, 128 FMAs a sub-tile for 8 float4 reads of A (shared
+// by the sub-tiles) and 4 of B.  The columns of a sub-tile are float4 groups, one a thread, so the
+// 8 threads of a quarter warp read 128 contiguous bytes of B, and the row's
+// A float4 is one broadcast.  C goes out through the ring's shared memory,
+// transposed, in float4s, 16 bytes a thread, where N keeps them aligned.
+//   mode T: the threads cover the whole BM x BN tile (128 threads at
+//           64 x 64, 256 at 64 x 128); a stage is M passes of BK over the
+//           KW = BK * M panel.
 //   mode R: the threads cover BM x (BN / M); a stage (KW = BK) issues them M
-//           times, once per column sub-tile, each thread keeping M
-//           micro-tiles of accumulators.  The pump halves the block's
-//           compute threads (the paper's DSP count) at an unchanged
-//           transaction schedule; the A values of a k step are loaded once
+//           times, once per column sub-tile.  The pump divides the block's
+//           compute threads by M (the paper's DSP count,
+//           compute_tile_bytes) at an unchanged transaction schedule: R2
+//           runs half of T1's threads and R4 a quarter, each thread
+//           holding M sub-tiles.  The A values of a k step are read once
 //           and issued against the M sub-tiles.
 // Every output sums its K products in k order with fp32 FMAs, so all pump
-// cases give the same bits.  bf16 inputs are read with plain loads and
-// widened into the same fp32 shared-memory panels.  Ragged M, N and K are
-// masked: out-of-range panel entries are zero and out-of-range outputs are
-// not stored.  C is written fp32 (the wrapper rounds once to a narrower
-// output dtype).
+// cases and both tiles give the same bits, and integer-valued inputs stay
+// exact.  bf16 inputs are read with plain loads and widened into the same
+// fp32 shared-memory panels.  Ragged M, N and K are masked: out-of-range
+// panel entries are zero and out-of-range outputs are not stored.  C is
+// written fp32 (the wrapper rounds once to a narrower output dtype).
 //
-// What bounds it on this card: operations.  2 * M * N * K FLOPs over 67
-// TFLOP/s fp32 (CUDA cores; tensor cores are a later step) against
-// (M K + K N + M N) * 4 bytes over 3.35 TB/s: at 4096^3 the FLOPs take 2.05
-// ms and the bytes 0.06 ms.  The micro-tiles give 16 FMAs for 8 shared-memory
-// reads per k step, which caps the kernel well below the FMA peak.
+// Measured (chip_smoke.py phase 3f, median of 20 launches, L2 flushed, on
+// NVIDIA H100 80GB HBM3, 700.00 W), fp32 4096^3: mmm_32PE_DP 3.0126 ms
+// (45.6 TFLOP/s), mmm_32PE_O 3.1873, mmm_64PE_DP 3.0613, against
+// torch.matmul's 2.6451.  The FMAs issue at about two thirds of the fp32
+// peak; register-bank conflicts between B and the accumulators are one
+// suspect for the rest.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,7 +68,9 @@
 
 namespace {
 
-constexpr int TM = 4, TN = 4, PAD_A = 4;
+constexpr int PAD_A = 4;
+constexpr int MAX_SMEM = 227 * 1024;
+constexpr int GROUP = 16;   // tile rows a group of blocks walks together
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -74,6 +101,22 @@ template <typename T, int ROWS, int COLS, int DST_LD, int NT>
 __device__ __forceinline__ void load_panel(float* dst, const T* src, int nr,
                                            int nc, long long ld, int r0,
                                            int c0, bool vec, int tid) {
+  constexpr int CPR = COLS / 4;   // 16-byte chunks of a row
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec && r0 + ROWS <= nr && c0 + COLS <= nc) {
+      // a whole, aligned panel: each thread copies the chunks at one column
+      // of rows tid / CPR + i * NT / CPR, with no masks and no index math
+      static_assert(NT % CPR == 0 && ROWS % (NT / CPR) == 0, "even split");
+      constexpr int RPI = NT / CPR;
+      const int r = tid / CPR, c = (tid % CPR) * 4;
+      const float* s = src + (long long)(r0 + r) * ld + c0 + c;
+      float* d = dst + r * DST_LD + c;
+#pragma unroll
+      for (int i = 0; i < ROWS / RPI; ++i)
+        cp_async16(d + i * RPI * DST_LD, s + i * RPI * ld);
+      return;
+    }
+  }
   constexpr int CHUNKS = ROWS * COLS / 4;
   for (int c = tid; c < CHUNKS; c += NT) {
     const int row = c / (COLS / 4), col = (c % (COLS / 4)) * 4;
@@ -105,12 +148,22 @@ struct Cfg {
   static constexpr int BNS = MODE_R ? BN / PUMP : BN;   // threads' columns
   static constexpr int SUB = MODE_R ? PUMP : 1;         // sub-tiles a thread holds
   static constexpr int KW = MODE_R ? BK : BK * PUMP;    // K panel of a stage
+  static constexpr int TM = 8, TN = 4;                  // micro-tile of a sub-tile
   static constexpr int TX = BNS / TN, TY = BM / TM;
   static constexpr int NT = TX * TY;
   static constexpr int A_LD = KW + PAD_A;
   static constexpr int A_SIZE = BM * A_LD, B_SIZE = KW * BN;
-  static constexpr int SMEM = 2 * (A_SIZE + B_SIZE) * (int)sizeof(float);
+  static constexpr int STAGE = A_SIZE + B_SIZE;         // floats
+  static constexpr int STAGES = 2;   // three cost a third of the blocks an SM
+  static constexpr int SMEM = STAGES * STAGE * (int)sizeof(float);
+  static_assert(NT >= 32 && NT % 32 == 0, "whole warps");
+  static_assert(SMEM <= MAX_SMEM, "the ring fits");
 };
+
+template <int Q>
+__device__ __forceinline__ float lane4(const float4& v) {
+  return Q == 0 ? v.x : Q == 1 ? v.y : Q == 2 ? v.z : v.w;
+}
 
 template <typename T, int BM, int BN, int BK, int PUMP, bool MODE_R>
 __global__ void __launch_bounds__((Cfg<T, BM, BN, BK, PUMP, MODE_R>::NT))
@@ -118,86 +171,117 @@ __global__ void __launch_bounds__((Cfg<T, BM, BN, BK, PUMP, MODE_R>::NT))
                   float* __restrict__ C, int M, int N, int K, bool vec_a,
                   bool vec_b, bool vec_c) {
   using G = Cfg<T, BM, BN, BK, PUMP, MODE_R>;
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                   // [2][BM][A_LD]
-  float* Bs = smem + 2 * G::A_SIZE;   // [2][KW][BN]
+  constexpr int TM = G::TM, TN = G::TN, SUB = G::SUB;
+  extern __shared__ __align__(16) float smem[];   // [STAGES][A (BM, A_LD), B (KW, BN)]
 
   const int tid = threadIdx.x, tx = tid % G::TX, ty = tid / G::TX;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  // blocks take the tiles in groups of GROUP tile rows, down each column
+  // of the group before the next, so the blocks in flight share their A
+  // and B panels in L2 rather than sweeping all of B for each tile row
+  const int gx = gridDim.x, gy = gridDim.y;
+  const int pid = blockIdx.y * gx + blockIdx.x, per = GROUP * gx;
+  const int first = pid / per * GROUP, rows = min(gy - first, GROUP);
+  const int m0 = (first + pid % per % rows) * BM, n0 = pid % per / rows * BN;
   const int stages = (K + G::KW - 1) / G::KW;
 
-  float acc[G::SUB][TM][TN];
+  float acc[SUB][TM][TN];
 #pragma unroll
-  for (int s = 0; s < G::SUB; ++s)
+  for (int s = 0; s < SUB; ++s)
 #pragma unroll
     for (int r = 0; r < TM; ++r)
 #pragma unroll
       for (int c = 0; c < TN; ++c) acc[s][r][c] = 0.f;
 
-  auto load_stage = [&](int st, int buf) {
+  auto load_stage = [&](int st) {
+    float* buf = smem + (st % G::STAGES) * G::STAGE;
     const int k0 = st * G::KW;
-    load_panel<T, BM, G::KW, G::A_LD, G::NT>(As + buf * G::A_SIZE, A, M, K,
-                                             K, m0, k0, vec_a, tid);
-    load_panel<T, G::KW, BN, BN, G::NT>(Bs + buf * G::B_SIZE, B, K, N, N, k0,
-                                        n0, vec_b, tid);
+    load_panel<T, BM, G::KW, G::A_LD, G::NT>(buf, A, M, K, K, m0, k0, vec_a,
+                                             tid);
+    load_panel<T, G::KW, BN, BN, G::NT>(buf + G::A_SIZE, B, K, N, N, k0, n0,
+                                        vec_b, tid);
   };
 
-  if (stages > 0) load_stage(0, 0);
-  cp_async_commit();
-  for (int st = 0; st < stages; ++st) {
-    const int buf = st & 1;
-    if (st + 1 < stages) {
-      load_stage(st + 1, buf ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* a = As + buf * G::A_SIZE;
-    const float* b = Bs + buf * G::B_SIZE;
-    // mode T: PUMP passes of BK over the wide panel; mode R: one pass of BK
-    // issued PUMP times over the column sub-tiles
+  // the ring: stages st + 1 .. st + STAGES - 1 in flight while st computes
 #pragma unroll
+  for (int st = 0; st < G::STAGES - 1; ++st) {
+    if (st < stages) load_stage(st);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int st = 0; st < stages; ++st) {
+    cp_async_wait<G::STAGES - 2>();   // stage st has landed
+    __syncthreads();                  // ... for every thread; st - 1 is read
+    if (st + G::STAGES - 1 < stages) load_stage(st + G::STAGES - 1);
+    cp_async_commit();
+    const float* a = smem + (st % G::STAGES) * G::STAGE;
+    const float* b = a + G::A_SIZE;
+    // mode T: PUMP passes of BK over the wide panel; mode R: one pass of BK
+    // issued against the PUMP column sub-tiles
+#pragma unroll 1
     for (int pass = 0; pass < (MODE_R ? 1 : PUMP); ++pass) {
 #pragma unroll 4
-      for (int kk = pass * BK; kk < (pass + 1) * BK; ++kk) {
-        float av[TM];
+      for (int kk = pass * BK; kk < (pass + 1) * BK; kk += 4) {
+        float4 av[TM];   // rows ty + r TY, k kk .. kk + 3
 #pragma unroll
-        for (int r = 0; r < TM; ++r) av[r] = a[(ty + r * G::TY) * G::A_LD + kk];
+        for (int r = 0; r < TM; ++r)
+          av[r] = *reinterpret_cast<const float4*>(a + (ty + r * G::TY) * G::A_LD + kk);
+        auto step = [&](auto qc) {   // k = kk + Q
+          constexpr int Q = decltype(qc)::value;
+          float4 bv[SUB];
 #pragma unroll
-        for (int s = 0; s < G::SUB; ++s) {
-          const float4 bv = *reinterpret_cast<const float4*>(
-              b + kk * BN + s * G::BNS + tx * TN);
+          for (int s = 0; s < SUB; ++s)
+            bv[s] = *reinterpret_cast<const float4*>(
+                b + (kk + Q) * BN + s * G::BNS + tx * 4);
 #pragma unroll
-          for (int r = 0; r < TM; ++r) {
-            acc[s][r][0] = fmaf(av[r], bv.x, acc[s][r][0]);
-            acc[s][r][1] = fmaf(av[r], bv.y, acc[s][r][1]);
-            acc[s][r][2] = fmaf(av[r], bv.z, acc[s][r][2]);
-            acc[s][r][3] = fmaf(av[r], bv.w, acc[s][r][3]);
-          }
-        }
+          for (int s = 0; s < SUB; ++s)
+#pragma unroll
+            for (int r = 0; r < TM; ++r) {
+              const float x = lane4<Q>(av[r]);
+              acc[s][r][0] = fmaf(x, bv[s].x, acc[s][r][0]);
+              acc[s][r][1] = fmaf(x, bv[s].y, acc[s][r][1]);
+              acc[s][r][2] = fmaf(x, bv[s].z, acc[s][r][2]);
+              acc[s][r][3] = fmaf(x, bv[s].w, acc[s][r][3]);
+            }
+        };
+        step(std::integral_constant<int, 0>{});
+        step(std::integral_constant<int, 1>{});
+        step(std::integral_constant<int, 2>{});
+        step(std::integral_constant<int, 3>{});
       }
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
 
+  // C through shared memory, transposed (Cs[col][row]), then out in
+  // 16-byte rows: a thread's accumulators need no 16-byte register
+  // alignment, which leaves the register allocator free to keep them off
+  // the register bank of the B quad they meet in each FMA
+  constexpr int LDC = BM + 1;
+  static_assert(BN * LDC <= G::STAGES * G::STAGE, "C fits the ring");
+  __syncthreads();
+  float* Cs = smem;
 #pragma unroll
-  for (int s = 0; s < G::SUB; ++s) {
+  for (int s = 0; s < SUB; ++s)
 #pragma unroll
-    for (int r = 0; r < TM; ++r) {
-      const int row = m0 + ty + r * G::TY;
-      const int col = n0 + s * G::BNS + tx * TN;
-      if (row >= M) continue;
-      float* out = C + (long long)row * N + col;
-      if (vec_c && col + 3 < N) {
-        *reinterpret_cast<float4*>(out) =
-            make_float4(acc[s][r][0], acc[s][r][1], acc[s][r][2], acc[s][r][3]);
-      } else {
+    for (int r = 0; r < TM; ++r)
 #pragma unroll
-        for (int c = 0; c < TN; ++c)
-          if (col + c < N) out[c] = acc[s][r][c];
-      }
+      for (int c = 0; c < TN; ++c)
+        Cs[(s * G::BNS + tx * TN + c) * LDC + ty + r * G::TY] = acc[s][r][c];
+  __syncthreads();
+  for (int u = tid; u < BM * BN / 4; u += G::NT) {
+    const int m = u / (BN / 4), n = (u % (BN / 4)) * 4;
+    const int row = m0 + m, col = n0 + n;
+    if (row >= M) continue;
+    const float4 v = make_float4(Cs[n * LDC + m], Cs[(n + 1) * LDC + m],
+                                 Cs[(n + 2) * LDC + m], Cs[(n + 3) * LDC + m]);
+    float* out = C + (long long)row * N + col;
+    if (vec_c && col + 3 < N) {
+      *reinterpret_cast<float4*>(out) = v;
+    } else {
+      if (col < N) out[0] = v.x;
+      if (col + 1 < N) out[1] = v.y;
+      if (col + 2 < N) out[2] = v.z;
+      if (col + 3 < N) out[3] = v.w;
     }
   }
 }

@@ -1,5 +1,6 @@
 // The warp-level bf16 tile product on Hopper's tensor cores, shared by
-// csrc/grouped_gemm.cu and csrc/region_map_reduce.cu.
+// csrc/grouped_gemm.cu, csrc/region_map_reduce.cu and the bf16 body of
+// csrc/flash_attention.cu.
 //
 // One warp multiplies a (16 MI) x K bf16 tile of A by a K x (8 NI) bf16
 // tile of B, both in shared memory and row-major, into an fp32 register
@@ -13,7 +14,9 @@
 // Register layout of an accumulator acc[i][j][0..3] (PTX ISA, "Matrix
 // Fragments for mma.m16n8k16"): with g = lane / 4 and c = 2 (lane % 4),
 // [0] and [1] are row 16 i + g, columns 8 j + c and + 1; [2] and [3] are
-// row 16 i + g + 8, the same columns.
+// row 16 i + g + 8, the same columns.  That is also the A fragment's
+// layout, so an accumulator pair rounded to bf16 (a_from_acc) is the A
+// operand of the next product without a trip through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -53,6 +56,36 @@ __device__ __forceinline__ void load_b1(uint32_t (&r)[2], const __nv_bfloat16* b
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(smem_u32(p)));
+}
+
+// The B fragments of the two 16 x 8 tiles whose transpose, (n, k), is
+// stored row-major at bt (row stride ldb): rows n 0-15, columns k 0-15, as
+// K (keys, d) holds the B of Q K^T.  Non-transposed ldmatrix: [0], [1] are
+// n 0-7, [2], [3] n 8-15.
+__device__ __forceinline__ void load_bt2(uint32_t (&r)[4], const __nv_bfloat16* bt,
+                                         int ldb, int lane) {
+  const __nv_bfloat16* p = bt + ((lane & 7) + ((lane >> 4) << 3)) * ldb
+                           + ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A fragment of a 16 x 16 tile held in registers as two fp32
+// accumulators (lo: columns 0-7, hi: columns 8-15), each value rounded to
+// the nearest bf16.
+__device__ __forceinline__ void a_from_acc(uint32_t (&a)[4], const float (&lo)[4],
+                                           const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
 }
 
 // d += a (16 x 16) . b (16 x 8), fp32 accumulation.

@@ -2,7 +2,9 @@
 
 Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas`` and
 the carry form the reference emits over ``_flash_graph`` (whose final
-running max and denominator ``stats=True`` returns).  The kernel takes q, k
+running max and denominator ``stats=True`` returns).  bf16 runs on the
+tensor cores (``mma.sync``, fp32 scores and accumulators, P rounded to bf16
+before P·V); fp32 keeps fp32 products on the CUDA cores.  The kernel takes q, k
 and v through their strides (the last dim contiguous), so the model's
 transposed (B, S, H, D) -> (B, H, S, D) views go in without a copy, and it
 masks the ragged edges of S, T and D itself.  ``built`` says which pump
@@ -48,20 +50,25 @@ def padded_dim(d: int) -> int:
 
 
 def smem_bytes(factor: int, mode: str, d: int, dtype: torch.dtype) -> int:
-    """Shared memory of a pump case (``csrc/flash_attention.cu::
-    smem_bytes``): q (64 x (DP + 4) fp32), the scores (64 x 65 fp32) and
-    the K / V panel in the input dtype, ``factor`` tiles in mode T, one in
-    mode R."""
-    dp, isz = padded_dim(d), dtype.itemsize
+    """Shared memory of a pump case (``csrc/flash_attention.cu``), with
+    ``factor`` tiles a transaction in mode T and one in mode R.  bf16
+    (``Ring``): a ring of two transactions (one where two do not fit) of
+    64-key K and V tiles, rows DP + 8 elements; q is staged through it.
+    fp32 (``smem_bytes_fp32``): q (64 x (DP + 4)), the scores (64 x 65)
+    and one transaction of K (rows DP + 4) and V (rows DP)."""
+    dp = padded_dim(d)
     tiles = factor if mode == "T" else 1
+    if dtype == torch.bfloat16:
+        stage = 2 * tiles * 2 * BKV * (dp + 8)
+        return (2 if 2 * stage <= SMEM_BYTES else 1) * stage
     return 4 * (BQ * (dp + 4) + BQ * (BKV + 1)) \
-        + isz * tiles * BKV * (dp + 16 // isz + dp)
+        + 4 * tiles * BKV * ((dp + 4) + dp)
 
 
 def built(factor: int, mode: str, d: int, dtype: torch.dtype) -> bool:
     """True where the kernel is built for pump (``factor``, ``mode``) at
-    head dim ``d`` in ``dtype``: a listed pump whose panel fits 227 KB (T4
-    at D 128 only in bf16)."""
+    head dim ``d`` in ``dtype``: a listed pump whose shared memory fits 227
+    KB (every bf16 case; fp32 T4 up to D 64)."""
     if factor == 1:
         mode = "T"
     return (factor, mode) in PUMPS and dtype in DTYPES \

@@ -8,6 +8,9 @@ from typing import Optional
 import torch
 
 TIMING_ITERS = 20
+# the spin queued before each start event: about 1 ms of the H100's
+# 1.98 GHz SM clock, many times the host's cost of queueing one wrapped call
+HOLD_CYCLES = 2_000_000
 
 
 class Timer:
@@ -15,11 +18,21 @@ class Timer:
     writing a 256 MB buffer, so each timed call finds its inputs in device
     memory as a cold caller would.  ``ms`` runs ``fn`` once to warm up, then
     returns the median of ``iters`` timed calls, or of those timed before
-    ``budget_s`` seconds of wall clock ran out (at least one)."""
+    ``budget_s`` seconds of wall clock ran out (at least one).
 
-    def __init__(self):
+    After the flush the stream spins for ``hold_cycles`` (a device sleep)
+    before the start event, so the host has queued the timed call while the
+    card is still busy: without it, a call whose host side (checks, ctypes,
+    allocation) outlasts the flush leaves the card idle inside the timed
+    window, and the time holds host time.  ``samples`` and ``late`` count
+    the timed calls and those whose start event had fired before the host
+    finished queueing them (their time may hold host time)."""
+
+    def __init__(self, hold_cycles: int = HOLD_CYCLES):
         self._flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
                                   device="cuda")
+        self.hold_cycles = hold_cycles
+        self.samples = self.late = 0
 
     def ms(self, fn, iters: int = TIMING_ITERS,
            budget_s: Optional[float] = None) -> float:
@@ -32,11 +45,15 @@ class Timer:
                     and time.perf_counter() - t0 > budget_s:
                 break
             self._flush.zero_()
+            if self.hold_cycles:
+                torch.cuda._sleep(self.hold_cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             fn()
             end.record()
+            self.late += start.query()
+            self.samples += 1
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
