@@ -33,7 +33,13 @@ Phases, in order; any failure exits non-zero:
        ``launch.paper.RTOL_STENCIL``), then the paper tables' card sizes
        (matmul under ``launch.paper.RTOL_MATMUL``, Table 3's three cases
        with mmm_32PE_O's bits) with kernel, plain, library and bound
-       times;
+       times.  Vecadd's every Table 2 row timed beside ``torch.add``.
+       Floyd-Warshall bit-exact (NaN at
+       the same places) also on ``fw_graph``'s inputs with
+       ``inf``, negative weights on a DAG and NaN at n 100 and 500, at n
+       that its 64-pivot rounds do not divide, and at n 4096 in every
+       pump case, each timed; every call moves ``launches`` by
+       ``launches_per_call``;
    (i) the grouped GEMM: small ragged groups (empty experts, one-row
        groups), the dense form with ragged C, F and D, and a worst-case
        device table, in every built tile (bf16 on the tensor cores) and
@@ -99,6 +105,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import ProfilerActivity, profile
 
 ATOL_FP32 = 1e-5              # kernel vs plain, fp32 inputs
 ATOL_BF16 = 2e-2              # kernel vs plain, bf16 outputs (2^-8 rounding)
@@ -196,6 +203,49 @@ def err(a: torch.Tensor, b: torch.Tensor) -> float:
     if a.numel() == 0:
         return 0.0
     return (a.float() - b.float()).abs().max().item()
+
+
+FW_KINDS = ("uniform", "missing", "negative_dag", "nan")
+
+
+def fw_graph(n: int, kind: str, seed: int) -> torch.Tensor:
+    """A seeded (n, n) fp32 distance matrix on the CPU, with a zero
+    diagonal, on which Floyd-Warshall's exactness is checked: ``uniform``
+    (0.1, 10) weights as Table 6 draws them; ``missing``, the same with 30%
+    of the edges ``inf``; ``negative_dag``, weights in (-5, 10) on the
+    edges of a DAG (each node reaches only those after it in a seeded
+    order, so no cycle is negative) and ``inf`` elsewhere; ``nan``, the
+    uniform weights with a NaN on the diagonal at a seeded node, which the
+    min carries to that node's row and column and nowhere else (a NaN off
+    the diagonal reaches every pair within two steps: inf + NaN is NaN)."""
+    if kind not in FW_KINDS:
+        raise ValueError(f"fw_graph: kind {kind!r} not in {FW_KINDS}")
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.1, 10.0, (n, n)).astype(np.float32)
+    if kind == "missing":
+        d[rng.random((n, n)) < 0.3] = np.inf
+    elif kind == "negative_dag":
+        order = rng.permutation(n)
+        rank = np.empty(n, np.int64)
+        rank[order] = np.arange(n)
+        w = rng.uniform(-5.0, 10.0, (n, n)).astype(np.float32)
+        d = np.where(rank[:, None] < rank[None, :], w, np.float32(np.inf))
+    np.fill_diagonal(d, 0.0)
+    if kind == "nan":
+        p = rng.integers(n)
+        d[p, p] = np.nan
+    return torch.from_numpy(np.ascontiguousarray(d, np.float32))
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN at the same places and the same bits everywhere else (NaN
+    payloads are not compared)."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{tuple(a.shape)} {a.dtype} != {tuple(b.shape)} {b.dtype}")
+    nan = a.isnan()
+    return torch.equal(nan, b.isnan()) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32),
+        b.masked_fill(nan, 0).view(torch.int32))
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -660,34 +710,55 @@ def phase_paper_kernels(timer):
     # (e) vecadd: ragged lengths, V 2 / 4 / 8 in every pump case, fp32 and
     # bf16, exact (both round one add once)
     worst = 0.0
+    dp = PumpSpec(2, "R")
     for n in (1, 37, 100, 4099, 1000003):
         for dtype in (torch.float32, torch.bfloat16):
             x, y = randn(gen, n, dtype=dtype), randn(gen, n, dtype=dtype)
+            want = ref.vecadd(x, y)
             for v in (2, 4, 8):
                 for spec in pumps + [PumpSpec(4, "R")]:
                     if spec.mode == "R" and v % spec.factor:
                         continue
                     e = err(va.vecadd_cuda(x, y, vector_width=v, pump=spec),
-                            ref.vecadd(x, y))
+                            want)
+                    worst = max(worst, e)
+                    check(e == 0, f"vecadd n={n} {dtype} V={v} {spec}: "
+                                  f"max abs err {e}")
+            if dtype == torch.bfloat16:  # 128-byte transactions, W 64
+                for v, spec in ((16, PumpSpec(4)), (64, PumpSpec(4, "R"))):
+                    e = err(va.vecadd_cuda(x, y, vector_width=v, pump=spec),
+                            want)
                     worst = max(worst, e)
                     check(e == 0, f"vecadd n={n} {dtype} V={v} {spec}: "
                                   f"max abs err {e}")
     print(f"[vecadd] n 1 / 37 / 100 / 4099 / 1000003, fp32 and bf16, V 2-8, "
-          f"M 1 / 2 / 4 T and 2 / 4 R: max abs err {worst} (exact)")
+          f"M 1 / 2 / 4 T and 2 / 4 R, and bf16 V 16 M 4 T / V 64 M 4 R: "
+          f"max abs err {worst} (exact)")
     n = paper.CARD["vecadd_n"]
     x, y = randn(gen, n), randn(gen, n)
-    dp = PumpSpec(2, "R")
+    before = va.launches
     e_va = err(va.vecadd_cuda(x, y, vector_width=8, pump=dp), ref.vecadd(x, y))
     check(e_va == 0, f"vecadd card size: max abs err {e_va}")
+    check(va.launches - before == 1, "vecadd: one launch a call")
     va_bound, va_by = bound_ms(3 * n * 4, n, PEAK_OPS_FP32)
-    va_o = timer.ms(lambda: va.vecadd_cuda(x, y, vector_width=8, pump=1))
-    va_ms = timer.ms(lambda: va.vecadd_cuda(x, y, vector_width=8, pump=dp))
+    # every Table 2 row, between two readings of torch.add
+    va_libs = [timer.ms(lambda: torch.add(x, y))]
+    rows = {}
+    for v in (2, 4, 8):
+        for label, spec in (("O", PumpSpec(1)), ("DP", dp)):
+            rows[f"V{v} {label}"] = timer.ms(
+                lambda: va.vecadd_cuda(x, y, vector_width=v, pump=spec))
+    va_libs.append(timer.ms(lambda: torch.add(x, y)))
+    va_lib = statistics.mean(va_libs)
+    va_ms = rows["V8 DP"]
+    print(f"[vecadd] N 2^28 fp32, 1 launch a call: " + ", ".join(
+        f"{k} {t:.4f} ms ({t / va_lib:.3f}x torch.add)"
+        for k, t in rows.items()) + "; DP/O " + ", ".join(
+        f"V{v} {rows[f'V{v} DP'] / rows[f'V{v} O']:.3f}" for v in (2, 4, 8))
+        + f"; torch.add {va_libs[0]:.4f} / {va_libs[1]:.4f} ms")
     va_plain = timer.ms(lambda: ref.vecadd(x, y))
-    va_lib = timer.ms(lambda: torch.add(x, y))
-    print(f"[vecadd] N 2^28 fp32, V 8: kernel O {va_o:.4f} ms, DP (M 2 R) "
-          f"{va_ms:.4f} ms, plain {va_plain:.4f} ms, torch.add "
-          f"{va_lib:.4f} ms, bound {va_bound:.4f} ms ({va_by}); max abs err "
-          f"{e_va}")
+    print(f"[vecadd] V 8 DP: plain {va_plain:.4f} ms, bound "
+          f"{va_bound:.4f} ms ({va_by}); max abs err {e_va}")
     del x, y
 
     # (f) matmul: ragged and unaligned M, N, K; both tiles, every pump
@@ -790,28 +861,78 @@ def phase_paper_kernels(timer):
           f"max abs err {e_st:.3g}")
     del x, x5, want, got
 
-    # (h) Floyd-Warshall: n 37 at M 1, every M dividing n up to 16, exact
+    # (h) Floyd-Warshall: every M dividing n up to 16, bit-exact (NaN at the
+    # same places), n that 64-pivot rounds do not divide, and the launches
+    # of every call counted
+    def fw_run(d, m):
+        before = fw.launches
+        out = fw.floyd_warshall_cuda(d, pump=m)
+        want_l = fw.launches_per_call(d.shape[0], m)
+        check(fw.launches - before == want_l,
+              f"floyd_warshall n={d.shape[0]} M={m}: launches moved by "
+              f"{fw.launches - before}, not {want_l}")
+        return out
+
     for n, ms_ in ((37, (1,)), (8, (1, 2, 4, 8)), (100, (1, 2, 4)),
-                   (128, (1, 2, 4, 8, 16)), (500, (1, 2, 4))):
+                   (128, (1, 2, 4, 8, 16)), (500, (1, 2, 4)),
+                   (1000, (1, 8))):
         d = paper.distances(n, gen, torch.device("cuda"))
         want = ref.floyd_warshall(d)
         for m in ms_:
-            e = err(fw.floyd_warshall_cuda(d, pump=m), want)
-            check(e == 0, f"floyd_warshall n={n} M={m}: max abs err {e}")
-    print("[floyd_warshall] n 37 (M 1), 8 (M 1-8), 100 (M 1-4), 128 "
-          "(M 1-16), 500 (M 1-4): exact")
+            check(same_bits(fw_run(d, m), want),
+                  f"floyd_warshall n={n} M={m}: not the plain version's bits")
+    for n in (100, 500):
+        for kind in FW_KINDS[1:]:
+            d = fw_graph(n, kind, seed=n).cuda()
+            want = ref.floyd_warshall(d)
+            for m in fw.PUMPS:
+                if n % m == 0:
+                    check(same_bits(fw_run(d, m), want),
+                          f"floyd_warshall {kind} n={n} M={m}: not the plain "
+                          f"version's bits")
+    print("[floyd_warshall] n 37 (M 1), 8 (M 1-8), 100 (M 1-4), 128 (M "
+          "1-16), 500 (M 1-4), 1000 (M 1, 8) uniform, and n 100 / 500 with "
+          "30% inf, negative weights on a DAG and a NaN, every M dividing "
+          "n: bit-exact, launches as launches_per_call")
     n = paper.CARD["fw"][-1]
     d = paper.distances(n, gen, torch.device("cuda"))
     want = ref.floyd_warshall(d)
-    e_fw = err(fw.floyd_warshall_cuda(d, pump=2), want)
-    check(e_fw == 0, f"floyd_warshall n={n}: max abs err {e_fw}")
+    for m in fw.PUMPS:
+        out = fw_run(d, m)
+        check(same_bits(out, want),
+              f"floyd_warshall n={n} M={m}: not the plain version's bits")
+        if m == 2:
+            e_fw = err(out, want)
+    del out
     fw_bound, fw_by = bound_ms(2 * n * n * 4, 2.0 * n ** 3, PEAK_OPS_FP32)
-    fw_o = timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=1), iters=3)
-    fw_ms = timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=2), iters=3)
+    fw_times = {m: timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=m),
+                            iters=5) for m in fw.PUMPS}
+    fw_ms = fw_times[2]
     fw_plain = timer.ms(lambda: ref.floyd_warshall(d), iters=2)
-    print(f"[floyd_warshall] n {n} fp32: kernel O {fw_o:.4f} ms, DP (M 2) "
-          f"{fw_ms:.4f} ms, plain {fw_plain:.4f} ms, bound {fw_bound:.4f} ms "
-          f"({fw_by}); max abs err {e_fw}")
+    # where one DP call's device time goes: the panels (phases 1-2) and the
+    # update (phase 3), summed over the call's rounds
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fw.floyd_warshall_cuda(d, pump=2)
+        torch.cuda.synchronize()
+    split = {k: sum(e.device_time_total / 1e3
+                    for e in prof.key_averages() if k in e.key)
+             for k in ("fw_panels", "fw_update")}
+    # a profiler that records no device time gives sums of 0: not a time
+    print(f"[floyd_warshall] n {n} DP, device time of one call by kernel: "
+          + ", ".join(f"{k} {v:.4f} ms" if v > 0 else f"{k} not measured"
+                      for k, v in split.items()))
+    print(f"[floyd_warshall] n {n} fp32, {fw.launches_per_call(n)} launches "
+          f"a call: " + ", ".join(f"M {m} {t:.4f} ms"
+                                  for m, t in fw_times.items())
+          + f"; DP/O {fw_ms / fw_times[1]:.3f}; plain {fw_plain:.4f} ms, "
+          f"bound {fw_bound:.4f} ms ({fw_by}); max abs err {e_fw}")
+    n = paper.CARD["fw"][0]
+    d = paper.distances(n, gen, torch.device("cuda"))
+    small = {m: timer.ms(lambda: fw.floyd_warshall_cuda(d, pump=m))
+             for m in (1, 2)}
+    print(f"[floyd_warshall] n {n} fp32, {fw.launches_per_call(n)} launches "
+          f"a call: O {small[1]:.4f} ms, DP {small[2]:.4f} ms, bound "
+          f"{bound_ms(2 * n * n * 4, 2.0 * n ** 3, PEAK_OPS_FP32)[0]:.4f} ms")
     del d, want
 
     return [

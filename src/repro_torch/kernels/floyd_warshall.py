@@ -2,11 +2,15 @@
 ``csrc/floyd_warshall.cu``.
 
 Replaces ``repro/kernels/floyd_warshall.py::floyd_warshall_pallas`` (paper
-Table 6).  One launch per slab of M pivots, n / M in all, alternating
-between two buffers; each block stages the M x n pivot panel in shared
-memory and applies the M dependent steps to its rows.  Bit-exact against
-the sequential plain version.  fp32.  ``launches`` counts the kernel's
-launches (n / M per call); nothing else adds to it.
+Table 6).  Blocked: the pivots go in rounds of ``ROUND``, two launches a
+round.  The first records, for the round's pivots, each pivot row as it
+stands before its step (R) and each pivot column likewise (C) into two
+small scratch buffers; the second folds min(d, C[i][k] + R[k][j]) over the
+round's pivots, in k order, into every element, TILE x TILE a block, the
+C / R chunks staged M pivots a transaction.  Bit-exact against the
+sequential plain version.  fp32, any n that M divides.  ``launches``
+counts the kernel's launches (``launches_per_call`` per call); nothing
+else adds to it.
 """
 from __future__ import annotations
 
@@ -16,11 +20,11 @@ from typing import Union
 import torch
 
 from ..core.ir import PumpSpec
-from ..core.pump_plan import SMEM_BYTES
 from . import _build
 
 PUMPS = (1, 2, 4, 8, 16)
-ROWS = 8                      # rows per block (the kernel's constant)
+ROUND = 64                    # pivots a round (the kernel's constant)
+TILE = 128                    # scratch rows are padded to a multiple of it
 
 launches = 0
 _fn = None
@@ -31,7 +35,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("floyd_warshall").floyd_warshall_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, p]
+        fn.argtypes = [p, p, p, p, i, i, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -39,6 +43,12 @@ def _kernel():
 
 def _factor(pump: Union[PumpSpec, int]) -> int:
     return pump if isinstance(pump, int) else pump.factor
+
+
+def launches_per_call(n: int, pump: Union[PumpSpec, int] = 1) -> int:
+    """Kernel launches of one call: two a round of ``ROUND`` pivots, whatever
+    the pump."""
+    return 2 * -(-n // ROUND)
 
 
 def floyd_warshall_cuda(dist: torch.Tensor, *,
@@ -59,21 +69,21 @@ def floyd_warshall_cuda(dist: torch.Tensor, *,
     if m not in PUMPS or n % m:
         raise ValueError(f"floyd_warshall: n={n} with M={m}: the kernel takes "
                          f"M in {PUMPS} dividing n")
-    if (m * n + ROWS * m + m) * 4 > SMEM_BYTES:
-        raise ValueError(f"floyd_warshall: an {m} x {n} pivot panel exceeds "
-                         f"{SMEM_BYTES} bytes of shared memory")
     if n == 0:
         return dist.clone()
-    bufs = [torch.empty_like(dist), torch.empty_like(dist)]
+    out = torch.empty_like(dist)
+    ld = -(-n // TILE) * TILE
+    rbuf = torch.empty(ROUND * ld, dtype=torch.float32, device=dist.device)
+    cbuf = torch.empty_like(rbuf)
     with torch.cuda.device(dist.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(dist.data_ptr(), bufs[0].data_ptr(),
-                        bufs[1].data_ptr(), n, m, stream)
+        err = _kernel()(dist.data_ptr(), out.data_ptr(), rbuf.data_ptr(),
+                        cbuf.data_ptr(), n, m, stream)
     if err:
         raise RuntimeError(f"floyd_warshall kernel launch failed: CUDA error "
                            f"{err}")
-    launches += n // m
-    return bufs[(n // m - 1) % 2]
+    launches += launches_per_call(n, m)
+    return out
 
 
 def transactions(n: int, pump: Union[PumpSpec, int] = 1) -> int:

@@ -1,10 +1,12 @@
 """Pumped vector addition on Hopper: the wrapper of ``csrc/vecadd.cu``.
 
 Replaces ``repro/kernels/vecadd.py::vecadd_pallas`` (paper Table 2).  A
-thread's transaction is W = V·M contiguous elements in mode T or W = V in
-mode R, issued to the adds as M beats of L = V (T) or V/M (R) lanes; the
-ragged tail is masked in the kernel.  fp32 or bf16.  ``launches`` counts
-the kernel's launches; nothing else adds to it.
+lane's transaction is W = V·M elements in mode T or W = V in mode R,
+issued to the adds as M beats of L = V (T) or V/M (R) lanes; a warp moves
+its 32 lanes' transactions as one panel of 32·W contiguous elements, each
+access instruction 32 lanes wide, in one pass of the grid.  The ragged
+tail is masked in the kernel.  fp32 or bf16.  ``launches`` counts the
+kernel's launches; nothing else adds to it.
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ from . import _build
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                 # a block
-BLOCKS_PER_SM = 16            # the grid-stride loop's grid, per SM
-MAX_TX_BYTES = 128            # the widest transaction a thread holds
+MAX_TX_BYTES = 128            # the widest transaction a lane holds
 LANE_COUNTS = (1, 2, 4, 8, 16, 32, 64)
 
 launches = 0
@@ -31,7 +32,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("vecadd").vecadd_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, i, p]
+        fn.argtypes = [p, p, p, ctypes.c_longlong, i, i, i, p]
         fn.restype = i
         _fn = fn
     return _fn
@@ -74,13 +75,10 @@ def vecadd_cuda(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
         if t.data_ptr() % min(16, tx_bytes):
             raise ValueError(f"vecadd: {name} is not aligned to the "
                              f"{min(16, tx_bytes)}-byte vector access")
-    n = x.numel()
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = max(1, min(-(-(n // width) // THREADS), sms * BLOCKS_PER_SM))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _kernel()(x.data_ptr(), y.data_ptr(), z.data_ptr(), n,
-                        DTYPES[x.dtype], width, lanes, blocks, stream)
+        err = _kernel()(x.data_ptr(), y.data_ptr(), z.data_ptr(), x.numel(),
+                        DTYPES[x.dtype], width, lanes, stream)
     if err:
         raise RuntimeError(f"vecadd kernel launch failed: CUDA error {err}")
     launches += 1
