@@ -21,6 +21,9 @@ Phases, in order; any failure exits non-zero:
        case), plain and SDPA times beside the bound, flash's TFLOP/s and
        its factor to SDPA, and flash T1 also timed with no hold before the
        start event (``Timer.late`` counts the samples that held host time);
+       decode attention's ``splits`` (the wrapper's and the built
+       kernel's must agree), each pump case over T1, and T1 at pos 63, 319
+       and 575, each within atol 2e-2;
    (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
        shapes through strided views (the scan in every built pump case,
        with T1's bits), then the mamba2-1.3b path's shapes and dtypes,
@@ -29,11 +32,13 @@ Phases, in order; any failure exits non-zero:
        bound;
    (e) vecadd, (f) matmul, (g) the stencil stage and (h) Floyd-Warshall:
        small ragged shapes in every pump case (vecadd, integer-valued
-       matmul and Floyd-Warshall exact; stencil under
-       ``launch.paper.RTOL_STENCIL``), then the paper tables' card sizes
-       (matmul under ``launch.paper.RTOL_MATMUL``, Table 3's three cases
-       with mmm_32PE_O's bits) with kernel, plain, library and bound
-       times.  Vecadd's every Table 2 row timed beside ``torch.add``.
+       matmul, the stencil (M 1 / 2 / 4 / 8) and Floyd-Warshall exact),
+       then the paper tables' card sizes (matmul under
+       ``launch.paper.RTOL_MATMUL``, Table 3's three cases with
+       mmm_32PE_O's bits; a jacobi and a diffusion stencil stage at M 1, 2
+       and 4 with the plain version's bits, each timed, one launch a
+       stage, beside a copy of the volume) with kernel, plain, library and
+       bound times.  Vecadd's every Table 2 row timed beside ``torch.add``.
        Floyd-Warshall bit-exact (NaN at
        the same places) also on ``fw_graph``'s inputs with
        ``inf``, negative weights on a DAG and NaN at n 100 and 500, at n
@@ -73,7 +78,9 @@ Phases, in order; any failure exits non-zero:
    ``attention_impl='pallas'``; launch counts are read around that run.
    The same weights and tokens then go through the plain route
    (``attention_impl='xla_chunked'``) and each step's logits are held to
-   the kernel route's.
+   the kernel route's.  Then ``launch.profile`` over qwen3's decode
+   steps: the decode kernel's device time per call beside the step's
+   busy and wall time.
 5. end to end, mamba2-1.3b at full width the same way, with
    ``ssm_impl='pallas'`` against ``ssm_impl='xla'``; then
    deepseek-v2-lite-16b at full width (27 layers, 64 experts, 31.4 GB of
@@ -379,12 +386,17 @@ def phase_kernels(timer):
         print(f"[flash fp32] B{b} H{h}/{hkv} S{s} T{t} D{d} causal={causal}: "
               f"{'/'.join(cases)}: max abs err {e:.3g}, m and l within "
               f"{ATOL_FP32} relative, identical bits")
-    for b, h, hkv, t, d, pos in [(4, 8, 2, 37, 64, [0, 36, 17, 5]),
-                                 (3, 4, 4, 200, 128, [199, 0, 64]),
-                                 (2, 16, 8, 577, 128, [576, 511]),
-                                 (2, 4, 2, 300, 32, [299, 130])]:
-        q, k, v = (randn(gen, b, h, d), randn(gen, b, hkv, t, d),
-                   randn(gen, b, hkv, t, d))
+    # decode attention also at a group of 8 heads (8 lane slots) and with a
+    # bf16 cache at D 256 (a head spans two slots a lane), pos -1 included
+    for b, h, hkv, t, d, pos, kv_dt in [
+            (4, 8, 2, 37, 64, [0, 36, 17, 5], torch.float32),
+            (3, 4, 4, 200, 128, [199, 0, 64], torch.float32),
+            (2, 16, 8, 577, 128, [576, 511], torch.float32),
+            (2, 4, 2, 300, 32, [299, 130], torch.float32),
+            (2, 16, 2, 150, 128, [149, 40], torch.float32),
+            (2, 4, 2, 130, 256, [129, -1], torch.bfloat16)]:
+        q, k, v = (randn(gen, b, h, d), randn(gen, b, hkv, t, d, dtype=kv_dt),
+                   randn(gen, b, hkv, t, d, dtype=kv_dt))
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
         want = ref.decode_attention(q, k, v, p)
 
@@ -396,8 +408,9 @@ def phase_kernels(timer):
             f"decode fp32 D{d}",
             lambda pump: (da.decode_attention_cuda(q, k, v, p, pump=pump),),
             check_decode, lambda f, m: da.built(f, m, h // hkv, d, k.dtype))
-        print(f"[decode fp32] B{b} H{h}/{hkv} T{t} D{d} pos={pos}: "
-              f"{'/'.join(cases)}: max abs err {e:.3g}, identical bits")
+        print(f"[decode fp32] B{b} H{h}/{hkv} T{t} D{d} pos={pos}, cache "
+              f"{kv_dt}: {'/'.join(cases)}: max abs err {e:.3g}, identical "
+              f"bits")
 
     # bf16 (the tensor-core body) at small ragged GQA shapes: S != T, S and
     # T not tile multiples, D 16 / 32 / 40 / 72 / 128 in all four padded
@@ -502,12 +515,51 @@ def phase_kernels(timer):
     print(f"[decode bf16] B{b} H{h}/{hkv} T{t} D{d} q bf16, cache fp32, "
           f"pos {pos_main}, {'/'.join(cases)}: max abs err {e_da:.3g} (atol "
           f"{ATOL_BF16}), identical bits")
+    # the splits are a function of the shape alone, the same in the wrapper
+    # and in the built kernel
+    for shape in ((b, hkv, t, d, kc.dtype), (b, hkv, t, d, torch.bfloat16),
+                  (2, 2, 200, 32, torch.float32), (1, 1, 64, 8, torch.float32),
+                  (16, 8, t, d, kc.dtype)):
+        check(da.splits(*shape) == da.kernel_splits(*shape),
+              f"decode splits {shape}: wrapper {da.splits(*shape)}, kernel "
+              f"{da.kernel_splits(*shape)}")
+    n_split = da.splits(b, hkv, t, d, kc.dtype)
+    print(f"[decode] splits at B{b} Hkv{hkv} T{t} D{d} fp32 cache: {n_split} "
+          f"({b * hkv * n_split} blocks, clusters of {n_split}; wrapper and "
+          f"kernel agree)")
     da_pumps = pump_times(timer, "decode", run_da, da_built)
+    print("[decode] per pump case over T1: " + ", ".join(
+        f"{k} {v / da_pumps['T1']:.2f}x" for k, v in da_pumps.items()))
     n_keys = b * (pos_main + 1)
     da_bound, da_by = bound_ms(
         2 * qd.numel() * 2 + pd.numel() * 4 + 2 * n_keys * hkv * d * 4,
         4.0 * h * d * n_keys, PEAK_FLOPS_FP32)
+    # T1 at a short, a middle and the deepest pos: splits past pos load
+    # nothing
+    by_pos = {}
+    for pv in (63, 319, pos_main):
+        pp = torch.full((b,), pv, dtype=torch.int32, device="cuda")
+        e = err(da.decode_attention_cuda(qd, kc, vc, pp),
+                ref.decode_attention(qd, kc, vc, pp))
+        check(e <= ATOL_BF16, f"decode pos {pv}: err {e} > {ATOL_BF16}")
+        by_pos[pv] = timer.ms(lambda: da.decode_attention_cuda(qd, kc, vc, pp))
+        pos_bound = bound_ms(2 * qd.numel() * 2 + pp.numel() * 4
+                             + 2 * b * (pv + 1) * hkv * d * 4,
+                             4.0 * h * d * b * (pv + 1), PEAK_FLOPS_FP32)[0]
+        print(f"[decode] T1 at pos {pv}: {by_pos[pv]:.4f} ms, bound "
+              f"{pos_bound:.4f} ms, max abs err {e:.3g}")
     da_ms = timer.ms(lambda: da.decode_attention_cuda(qd, kc, vc, pd))
+    # what the timer itself adds to a call this short: its floor (a
+    # one-element add), and T1 after a flush that leaves L2 clean, where
+    # the call writes back none of the flush's dirty lines
+    one = torch.zeros(1, device="cuda")
+    clean = Timer(read_flush=True)
+    print(f"[decode] T1 {da_ms:.4f} ms after the timer's writing flush, "
+          f"{clean.ms(lambda: da.decode_attention_cuda(qd, kc, vc, pd)):.4f}"
+          f" ms after a reading one; the timer's floor (a one-element add) "
+          f"{timer.ms(lambda: one.add_(1)):.4f} / "
+          f"{clean.ms(lambda: one.add_(1)):.4f} ms")
+    del clean
     da_plain = timer.ms(lambda: ref.decode_attention(qd, kc, vc, pd))
     q4 = qd.float()[:, :, None, :]
     keep = (torch.arange(t, device="cuda")[None, :] <= pd[:, None])
@@ -698,6 +750,7 @@ def phase_paper_kernels(timer):
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels import vecadd as va
     from repro_torch.launch import paper
+    from repro_torch.launch.timing import TIMING_ITERS
     gen = torch.Generator(device="cuda").manual_seed(2024)
     pumps = [PumpSpec(1), PumpSpec(2), PumpSpec(4), PumpSpec(2, "R")]
 
@@ -814,39 +867,65 @@ def phase_paper_kernels(timer):
         f"{mm_bound:.4f} ms ({mm_by}; rtol {paper.RTOL_MATMUL})")
     del a, b, want, base, out
 
-    # (g) stencil: ragged planes, both kinds, M 1 / 2 / 4, 1 and 3 stages,
-    # under RTOL_STENCIL
-    worst = 0.0
+    # (g) stencil: ragged planes and tiles (rows not 16-byte aligned, tiles
+    # ragged in x and y), both kinds, M 1 / 2 / 4 / 8 (32-, 16- and 8-row
+    # tiles), 1 and 3 stages: the plain version's bits (the same operations
+    # in the same order, rounded to nearest)
     for shape in ((10, 8, 8), (18, 16, 16), (6, 37, 70), (34, 33, 65),
-                  (4, 3, 3)):
+                  (4, 3, 3), (18, 70, 300), (10, 40, 520)):
         x = randn(gen, *shape)
         for kind in ("jacobi", "diffusion"):
             for stages in (1, 3):
                 want = ref.stencil_chain(x, stages, kind=kind)
-                for m in (1, 2, 4):
+                for m in (1, 2, 4, 8):
                     if (shape[0] - 2) % m:
                         continue
                     got = st.stencil_chain_cuda(x, stages, kind=kind, pump=m)
-                    e = rel_err(got, want)
-                    worst = max(worst, err(got, want))
-                    check(e <= paper.RTOL_STENCIL,
-                          f"stencil {shape} {kind} S{stages} M{m}: rel {e}")
-    print(f"[stencil] (10,8,8), (18,16,16), (6,37,70), (34,33,65), (4,3,3), "
-          f"jacobi and diffusion, S 1 / 3, M 1 / 2 / 4: max abs err {worst} "
-          f"(rtol {paper.RTOL_STENCIL})")
+                    check(same_bits(got, want),
+                          f"stencil {shape} {kind} S{stages} M{m}: not the "
+                          f"plain version's bits (max abs err "
+                          f"{err(got, want)})")
+    print("[stencil] (10,8,8), (18,16,16), (6,37,70), (34,33,65), (4,3,3), "
+          "(18,70,300), (10,40,520), jacobi and diffusion, S 1 / 3, M 1 / 2 "
+          "/ 4 / 8: the plain version's bits")
+    # card size: M 1, 2 and 4 of both kinds, exact, each timed beside the
+    # bound, the plain version and a copy of the volume (one read and one
+    # write of it, what the bound counts); conv3d for jacobi's interior
     shape = paper.CARD["volume"]
     x = randn(gen, *shape)
     interior = (shape[0] - 2) * (shape[1] - 2) * (shape[2] - 2)
-    want = ref.jacobi3d(x)
-    got = st.stencil_chain_cuda(x, 1, pump=2)
-    e_st = err(got, want)
-    check(rel_err(got, want) <= paper.RTOL_STENCIL,
-          f"stencil card size: max abs err {e_st}")
-    st_bound, st_by = bound_ms(2 * x.numel() * 4, 7 * interior,
-                               PEAK_OPS_FP32)
-    st_o = timer.ms(lambda: st.stencil_chain_cuda(x, 1, pump=1))
-    st_ms = timer.ms(lambda: st.stencil_chain_cuda(x, 1, pump=2))
-    st_plain = timer.ms(lambda: ref.jacobi3d(x))
+    before = st.launches
+    stage_ms = {}
+    for kind in ("jacobi", "diffusion"):
+        want = ref.stencil_chain(x, 1, kind=kind)
+        bound = bound_ms(2 * x.numel() * 4,
+                         paper.STENCIL_OPS[kind] * interior, PEAK_OPS_FP32)
+        for m in (1, 2, 4):
+            got = st.stencil_chain_cuda(x, 1, kind=kind, pump=m)
+            check(same_bits(got, want), f"stencil card size {kind} M{m}: "
+                  f"not the plain version's bits (max abs err "
+                  f"{err(got, want)})")
+            if (kind, m) == ("jacobi", 2):
+                e_st = err(got, want)
+            stage_ms[kind, m] = timer.ms(
+                lambda: st.stencil_chain_cuda(x, 1, kind=kind, pump=m))
+        plain = timer.ms(lambda: ref.stencil_chain(x, 1, kind=kind))
+        plans = {m: st.plan(*shape, m, st.blocks_per_sm(x.device, m))
+                 for m in (1, 2, 4)}
+        print(f"[stencil] {kind} stage on {shape} fp32, the plain version's "
+              f"bits: " + ", ".join(
+                  f"M {m} {stage_ms[kind, m]:.4f} ms ({p.rows}-row tiles, "
+                  f"{p.segments} segments)" for m, p in plans.items())
+              + f"; DP/O {stage_ms[kind, 2] / stage_ms[kind, 1]:.3f}; plain "
+              f"{plain:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+        if kind == "jacobi":
+            st_plain, (st_bound, st_by) = plain, bound
+    check(st.launches - before == 6 * (2 + TIMING_ITERS),
+          f"stencil: {st.launches - before} launches for "
+          f"{6 * (2 + TIMING_ITERS)} stages")
+    st_ms = stage_ms["jacobi", 2]
+    dst = torch.empty_like(x)
+    st_copy = timer.ms(lambda: dst.copy_(x))
     # the interior of one jacobi stage as one cuDNN convolution (boundary
     # not copied), TF32 off
     w = torch.zeros(1, 1, 3, 3, 3, device="cuda")
@@ -855,11 +934,10 @@ def phase_paper_kernels(timer):
         w[0, 0, i, j, k] = 1.0 / 7.0
     x5 = x[None, None]
     st_lib = timer.ms(lambda: F.conv3d(x5, w))
-    print(f"[stencil] jacobi stage on {shape} fp32: kernel O {st_o:.4f} ms, "
-          f"DP (M 2) {st_ms:.4f} ms, plain {st_plain:.4f} ms, conv3d "
-          f"(interior) {st_lib:.4f} ms, bound {st_bound:.4f} ms ({st_by}); "
-          f"max abs err {e_st:.3g}")
-    del x, x5, want, got
+    print(f"[stencil] jacobi DP (M 2) {st_ms:.4f} ms, {st_bound / st_ms:.0%} "
+          f"of the bound; a copy of the volume (Tensor.copy_) {st_copy:.4f} "
+          f"ms; conv3d (interior) {st_lib:.4f} ms; one launch a stage")
+    del x, x5, want, got, dst
 
     # (h) Floyd-Warshall: every M dividing n up to 16, bit-exact (NaN at the
     # same places), n that 64-pivot rounds do not divide, and the launches
@@ -1716,6 +1794,25 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
     return launches
 
 
+def phase_decode_loop():
+    """Decode attention inside qwen3-0.6b's serving loop: ``launch.profile``
+    over a prefill and 8 decode steps (batch 8, prompt 512); prints the
+    kernel's device time per call beside the step's busy and wall time."""
+    from repro_torch.launch import profile as profile_mod
+    dec = profile_mod.main(["--arch", "qwen3-0.6b",
+                            "--attention-impl", "pallas"])["decode"]
+    if dec is None:
+        print("[decode] in qwen3's serving loop: device time not measured")
+        return
+    calls = [v for k, v in dec["kernels"].items() if "decode_split" in k]
+    check(bool(calls), "decode attention did not run in the serving loop")
+    ms, n = (sum(v[i] for v in calls) for i in (0, 1))
+    print(f"[decode] in qwen3's serving loop (launch.profile): "
+          f"{ms / n * 1e3:.2f} us a call, {n:.0f} calls a step, {ms:.4f} of "
+          f"{dec['busy_ms']:.3f} busy ms a step ({dec['wall_ms']:.3f} ms "
+          f"wall, {dec['idle']:.1%} idle)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1745,6 +1842,7 @@ def main() -> int:
         "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
         ("xla_chunked", set_field(attention_impl="xla_chunked")),
         {"flash_attention": 28}, {"decode_attention": 28}, ATOL_E2E_LOGITS)
+    phase_decode_loop()
     launches.update(phase_e2e(
         "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
         ("xla", set_field(ssm_impl="xla")),

@@ -31,6 +31,7 @@ PEAK_FLOPS_BF16 = 989e12          # dense bf16 tensor cores, FLOP/s
 PEAK_FLOPS_FP32 = 67e12           # fp32 on CUDA cores, an FMA = 2 FLOPs
 PEAK_OPS_FP32 = PEAK_FLOPS_FP32 / 2   # fp32 add, mul or min, one per op
 SMEM_BYTES = 227 * 1024           # shared memory one block may use
+SMS = 132                         # streaming multiprocessors (H100 SXM)
 STAGE_K = 32                      # widest K-slice the region kernel stages
 
 

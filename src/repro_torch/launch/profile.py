@@ -20,7 +20,7 @@ import argparse
 import collections
 import dataclasses
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch.autograd import DeviceType
@@ -33,29 +33,40 @@ from repro_torch.models import model as model_mod
 from repro_torch.serve.engine import Engine, ServeConfig
 
 
-def _report(name: str, prof, wall_s: float, steps: int, top: int) -> None:
+def _report(name: str, prof, wall_s: float, steps: int,
+            top: int) -> Optional[dict]:
+    """Prints one phase and returns it: wall and busy ms/step, the idle
+    share, and per kernel name its ms/step and launches/step (None where
+    the profiler recorded no device time)."""
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not events:
         print(f"[profile] {name}: the profiler recorded no device events; "
               f"device time not measured")
-        return
+        return None
     busy_us = sum(e.time_range.elapsed_us() for e in events)
     wall_us = wall_s * 1e6
+    idle = max(0.0, 1 - busy_us / wall_us)
     print(f"[profile] {name}: wall {wall_us / steps / 1e3:.3f} ms/step, "
           f"device busy {busy_us / steps / 1e3:.3f} ms/step, idle "
-          f"{max(0.0, 1 - busy_us / wall_us):.1%}, {len(events) / steps:.0f} "
+          f"{idle:.1%}, {len(events) / steps:.0f} "
           f"device kernels/step over {steps} step(s)")
     by_name = collections.defaultdict(lambda: [0.0, 0])
     for e in events:
         by_name[e.name][0] += e.time_range.elapsed_us()
         by_name[e.name][1] += 1
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
-    for kname, (us, n) in ranked:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    for kname, (us, n) in ranked[:top]:
         print(f"[profile]   {us / busy_us:6.1%} {us / steps / 1e3:8.4f} "
               f"ms/step  x{n / steps:5.1f}/step  {kname[:90]}")
+    return {"wall_ms": wall_us / steps / 1e3, "busy_ms": busy_us / steps / 1e3,
+            "idle": idle,
+            "kernels": {k: (us / steps / 1e3, n / steps)
+                        for k, (us, n) in ranked}}
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Optional[dict]]:
+    """Profiles one prefill and ``--steps`` decode steps; returns each
+    phase's ``_report``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--batch", type=int, default=8)
@@ -98,6 +109,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                 cur = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
 
+    phases = {}
     for name, run, steps in (("prefill", run_prefill, 1),
                              ("decode", run_decode, args.steps)):
         # the wall time comes from an unprofiled run: the profiler adds
@@ -111,7 +123,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         cache = fresh()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(cache)
-        _report(name, prof, wall, steps, args.top)
+        phases[name] = _report(name, prof, wall, steps, args.top)
+    return phases
 
 
 if __name__ == "__main__":

@@ -26,12 +26,18 @@ class Timer:
     allocation) outlasts the flush leaves the card idle inside the timed
     window, and the time holds host time.  ``samples`` and ``late`` count
     the timed calls and those whose start event had fired before the host
-    finished queueing them (their time may hold host time)."""
+    finished queueing them (their time may hold host time).
 
-    def __init__(self, hold_cycles: int = HOLD_CYCLES):
-        self._flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+    The flush leaves L2 full of dirty lines, which a short call writes back
+    to device memory as it evicts them; ``read_flush=True`` flushes by
+    reading the buffer instead, so L2 holds clean lines."""
+
+    def __init__(self, hold_cycles: int = HOLD_CYCLES,
+                 read_flush: bool = False):
+        self._flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32,
                                   device="cuda")
         self.hold_cycles = hold_cycles
+        self.read_flush = read_flush
         self.samples = self.late = 0
 
     def ms(self, fn, iters: int = TIMING_ITERS,
@@ -44,7 +50,10 @@ class Timer:
             if times and budget_s is not None \
                     and time.perf_counter() - t0 > budget_s:
                 break
-            self._flush.zero_()
+            if self.read_flush:
+                self._flush.sum()
+            else:
+                self._flush.zero_()
             if self.hold_cycles:
                 torch.cuda._sleep(self.hold_cycles)
             start = torch.cuda.Event(enable_timing=True)

@@ -134,6 +134,68 @@ def test_stencil_matches_pallas_kernel(kind, m, stages):
                                atol=5e-6)
 
 
+# ----------------------------------------- the stencil kernel's grid plan --
+def test_stencil_tile_rows_and_shared_memory_by_hand():
+    """A staged plane is rows + 2 rows of 256 + 8 floats and the ring holds
+    2 M + 1 of them: 3 x 34 x 264 x 4 = 107,712 B at M 1 and 5 x 34 x 264 x
+    4 = 179,520 at M 2 (32 rows); M 4's 9 planes fit 227 KB only at 16 rows
+    (9 x 18 x 264 x 4 = 171,072), M 8's 17 at 8 rows (17 x 10 x 264 x 4 =
+    179,520); M 16's 33 fit at none (348,480 at 8 rows)."""
+    from repro_torch.core.pump_plan import SMEM_BYTES
+    rows = [port_st.tile_rows(m) for m in (1, 2, 4, 8, 16)]
+    assert rows == [32, 32, 16, 8, 0]
+    assert [port_st.smem_bytes(m, r) for m, r in zip((1, 2, 4, 8), rows)] \
+        == [107712, 179520, 171072, 179520]
+    assert port_st.smem_bytes(4, 32) > SMEM_BYTES
+    assert port_st.smem_bytes(16, 8) == 348480 > SMEM_BYTES
+
+
+# (d0, d1, d2), M, blocks an SM holds -> (rows, tiles_x, tiles_y, segments,
+# seg), worked by hand: 256-wide tiles; segments = min(132 x blocks //
+# tiles, interior // 40), at least 1; seg = ceil(interior / segments)
+# rounded up to a multiple of M; segments = ceil(interior / seg).
+STENCIL_PLANS = [
+    ((514, 512, 512), 1, 1, (32, 2, 16, 4, 128)),   # 132 // 32 = 4
+    ((514, 512, 512), 2, 1, (32, 2, 16, 4, 128)),
+    ((514, 512, 512), 4, 1, (16, 2, 32, 2, 256)),   # 132 // 64 = 2
+    ((514, 512, 512), 8, 1, (8, 2, 64, 1, 512)),    # 132 // 128 = 1
+    ((514, 512, 512), 1, 3, (32, 2, 16, 12, 43)),   # 396 // 32 = 12 = 512 // 40
+    ((514, 512, 512), 2, 3, (32, 2, 16, 12, 44)),   # 43 rounded up to M 2
+    ((10, 8, 8), 2, 1, (32, 1, 1, 1, 8)),           # 8 // 40 = 0 -> 1
+    ((66, 100, 300), 2, 2, (32, 2, 4, 1, 64)),      # 64 // 40 = 1
+    ((65540, 4, 4), 1, 1, (32, 1, 1, 132, 497)),    # 65,538 slabs: one wave
+]
+
+
+@pytest.mark.parametrize("shape,m,bps,want", STENCIL_PLANS)
+def test_stencil_plan_by_hand(shape, m, bps, want):
+    plan = port_st.plan(*shape, m, bps)
+    assert tuple(plan) == want
+    interior = shape[0] - 2
+    assert plan.seg % m == 0
+    assert (plan.segments - 1) * plan.seg < interior <= plan.segments \
+        * plan.seg
+    assert plan.segments <= max(1, 132 * bps // (plan.tiles_x
+                                                 * plan.tiles_y))
+
+
+def test_stencil_wrapper_raises_where_it_cannot_launch():
+    """The shapes the wrapper raised on before still raise (indivisible
+    interiors; a ring too big for shared memory, now from M 16 on instead
+    of M 49); the grid's y extent bounds tile rows; a volume of more than
+    65,535 slabs, which the slab-per-block grid refused, now plans to one
+    wave; and a CPU tensor never reaches the kernel."""
+    for shape, m in (((9, 8, 8), 2), ((12, 8, 8), 4), ((10, 8, 8), 16),
+                     ((51, 8, 8), 49), ((10, 65535 * 8 + 1, 300), 8)):
+        with pytest.raises(ValueError):
+            port_st.launch_rows(*shape, m)
+    assert port_st.launch_rows(10, 8, 8, 8) == 8
+    assert port_st.launch_rows(10, 65535 * 8, 300, 8) == 8
+    assert port_st.launch_rows(65540, 4, 4, 1) == 32
+    with pytest.raises(ValueError, match="CUDA"):
+        port_st.stencil_chain_cuda(torch.zeros(10, 8, 8), 1, pump=2)
+
+
 # ---------------------------------------------------------- floyd-warshall --
 @pytest.mark.parametrize("n", [8, 16, 32])
 @pytest.mark.parametrize("m", [1, 2, 4])

@@ -203,10 +203,18 @@ def test_built_sets_are_plain_functions():
     assert port_fa.smem_bytes(4, "T", 128, f32) > SMEM_BYTES \
         >= port_fa.smem_bytes(4, "T", 128, bf16)
     assert port_fa.padded_dim(8) == 16 and port_fa.padded_dim(36) == 64
-    # decode: qwen3's fp32 cache takes T1, T2, R2, R4; R needs D % 4M == 0
+    # decode: a ring of two transactions; qwen3's fp32 cache takes T1, R2,
+    # R4 (two 2-tile transactions are 256 KB); R needs D % 4M == 0
     assert [c for c in port_da.PUMPS if port_da.built(*c, 2, 128, f32)] == \
-        [(1, "T"), (2, "T"), (2, "R"), (4, "R")]
-    assert port_da.built(4, "T", 2, 128, bf16)
+        [(1, "T"), (2, "R"), (4, "R")]
+    assert port_da.smem_bytes(2, "T", 2, 128, f32) > SMEM_BYTES \
+        >= port_da.smem_bytes(2, "T", 2, 128, bf16)
+    assert port_da.built(2, "T", 2, 128, bf16)
+    assert not port_da.built(4, "T", 2, 128, bf16)
+    assert port_da.built(4, "T", 2, 64, bf16)
+    # a lane holds at most 8 (head, chunk) slots: 8 heads of D 128
+    assert port_da.built(1, "T", 8, 128, f32)
+    assert not port_da.built(1, "T", 16, 128, f32)
     assert not port_da.built(4, "R", 2, 8, f32)
     assert port_da.built(2, "R", 2, 8, f32)
     # the scan: T4 does not fit
