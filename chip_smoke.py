@@ -606,7 +606,8 @@ def ssd_inputs(gen, b, l, h, g, n, p, dtype=torch.float32):
 def phase_ssd_kernels(timer):
     """The SSD scan and decode kernels against their plain versions;
     returns their kernels entries."""
-    from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
+    from repro_torch.core.pump_plan import (HBM_BW, PEAK_FLOPS_BF16,
+                                            PEAK_FLOPS_FP32, bound_ms)
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_decode as sd
     from repro_torch.kernels import ssd_scan as ss
@@ -637,6 +638,32 @@ def phase_ssd_kernels(timer):
               f"{'/'.join(cases)}: rel err {e:.3g}, identical bits")
     e_y = rel_err(ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=64), y_ref)
     check(e_y <= RTOL_SSD_FP32, f"ssd_scan without state: rel err {e_y}")
+    # the same shapes in bf16 (the tensor-core body: rows, columns and
+    # chunks zero-padded to 16-wide tiles), and P 36 (rows of 72 bytes: the
+    # element-wise staging) and chunk 40; y within RTOL_SSD_BF16, the state
+    # within RTOL_SSD_FP32, every built pump case with T1's bits
+    for b, l, h, g, n, p, chunk in [
+            (2, 37, 4, 1, 16, 32, 16), (1, 100, 8, 2, 64, 64, 64),
+            (2, 130, 4, 2, 128, 64, 64), (1, 130, 6, 1, 32, 16, 16),
+            (2, 100, 8, 1, 128, 64, 16), (1, 37, 4, 2, 128, 64, 64),
+            (1, 200, 4, 2, 24, 40, 32), (1, 100, 4, 2, 24, 36, 40),
+            (2, 70, 4, 1, 40, 48, 64)]:
+        x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
+        y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                     final_state=True)
+
+        def check_tc(outs, label, y_ref=y_ref, st_ref=st_ref):
+            e_y, e_s = rel_err(outs[0], y_ref), rel_err(outs[1], st_ref)
+            check(e_y <= RTOL_SSD_BF16, f"{label}: y rel err {e_y}")
+            check(e_s <= RTOL_SSD_FP32, f"{label}: state rel err {e_s}")
+            return e_s
+        cases, e = pump_sweep(
+            "ssd_scan bf16",
+            lambda pump: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                          final_state=True, pump=pump),
+            check_tc, ss.built)
+        print(f"[ssd_scan bf16] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk}: "
+              f"{'/'.join(cases)}: state rel err {e:.3g}, identical bits")
 
     # the mamba2-1.3b path: B 8, L 512, 64 heads x 64, N 128, G 1, chunk 64
     b, l, h, g, n, p, chunk = 8, 512, 64, 1, 128, 64, 64
@@ -662,24 +689,45 @@ def phase_ssd_kernels(timer):
           f"{RTOL_SSD_BF16:.3g}), state {e_s:.3g} (rtol {RTOL_SSD_FP32}); "
           f"max abs err {e_scan:.3g}, identical bits")
     ss_pumps = pump_times(timer, "ssd_scan", run_scan, ss.built)
-    # bytes: each input read once, y and the state written once; operations:
-    # the causal half of C·Bᵀ once per (b, group, chunk), since the heads of
-    # a group share it, and per (b, h, chunk) the causal half of G·x, C·S and
-    # the state update, in fp32 as the kernel and the reference compute them
+    # bytes: each input read once, y and the state written once.  The
+    # products: the causal half of C·Bᵀ once per (b, group, chunk), since
+    # the heads of a group share it, and per (b, h, chunk) C·S, the causal
+    # half of G·x and the state update.  The kernel issues them on the
+    # tensor cores as bf16 terms (ss.TERMS: C·Bᵀ one on bf16 inputs, C·S
+    # and G·x two, the state's three), so their bound is the terms' FLOP
+    # at the bf16 peak; bound_ms is the larger of that and the bytes'.  The
+    # same products as fp32 FMAs (the CUDA-core body, and the figure of
+    # earlier PRs) are printed beside it.
     tri = chunk * (chunk + 1) // 2
-    flops = b * (l // chunk) * 2 * (g * tri * n + h * (chunk * p * n
-                                                      + tri * p
-                                                      + n * p * chunk))
+    per = b * (l // chunk) * 2
+    prods = {"C.B^T": per * g * tri * n, "C.S": per * h * chunk * p * n,
+             "G.x": per * h * tri * p, "state": per * h * n * p * chunk}
+    flops = sum(prods.values())
+    tc_flops = sum(v * ss.TERMS[k] for k, v in prods.items())
     nbytes = sum(t.numel() * t.element_size() for t in (x, dt, a, bm, cm, y,
                                                          st))
-    ss_bound, ss_by = bound_ms(nbytes, flops, PEAK_FLOPS_FP32)
+    bytes_ms = nbytes / HBM_BW * 1e3
+    tc_ms = tc_flops / PEAK_FLOPS_BF16 * 1e3
+    fma_ms = flops / PEAK_FLOPS_FP32 * 1e3
+    ss_bound, ss_by = bound_ms(nbytes, tc_flops, PEAK_FLOPS_BF16)
     ss_ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
                                               final_state=True))
     ss_plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
                                              final_state=True))
+    per_sm = {f"{m}{f}": ss.blocks_per_sm(f, m) for f, m in PUMP_CASES
+              if ss.built(f, m)}
     print(f"[ssd_scan] kernel {ss_ms:.4f} ms, plain {ss_plain:.4f} ms, bound "
-          f"{ss_bound:.4f} ms ({ss_by}: {nbytes / 1e6:.1f} MB, "
-          f"{flops / 1e9:.2f} GFLOP fp32)")
+          f"{ss_bound:.4f} ms ({ss_by}): bytes {nbytes / 1e6:.1f} MB "
+          f"{bytes_ms:.4f} ms; tensor cores {tc_flops / 1e9:.2f} GFLOP of "
+          f"bf16 terms {tc_ms:.4f} ms ({flops / 1e9:.2f} GFLOP of products, "
+          f"{flops / PEAK_FLOPS_BF16 * 1e3:.4f} ms a term); fp32 FMAs "
+          f"{fma_ms:.4f} ms")
+    print("[ssd_scan] split (bf16 terms a product): "
+          + ", ".join(f"{k} {v}" for k, v in ss.TERMS.items())
+          + "; blocks per SM (runtime): "
+          + ", ".join(f"{k} {v}" for k, v in per_sm.items())
+          + f"; CUDA-core body (fp32 inputs) T1 "
+          f"{ss.blocks_per_sm(1, 'T', tensor_cores=False)}")
 
     # (d) the SSD decode step, fp32, grouped B / C, strided views
     for b, h, g, n, p in [(1, 4, 1, 16, 32), (3, 8, 2, 64, 64),
