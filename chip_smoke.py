@@ -78,17 +78,35 @@ Phases, in order; any failure exits non-zero:
    ``attention_impl='pallas'``; launch counts are read around that run.
    The same weights and tokens then go through the plain route
    (``attention_impl='xla_chunked'``) and each step's logits are held to
-   the kernel route's.  Then ``launch.profile`` over qwen3's decode
-   steps: the decode kernel's device time per call beside the step's
-   busy and wall time.
+   the kernel route's.  Then the same weights and prompts through the
+   plan registry (``kernel_plan='measure'``, its own compile cache
+   ``REGISTRY_CACHE``): the engine's warmup plans the bucket grid
+   (printed; every plan measured, at the ``hopper`` tier and inside its
+   kernel's built set), then ``generate`` with 28 flash launches per
+   prefill and 28 decode launches per step, no registry miss and no
+   fallback after the warmup, TTFT and ms/step beside the direct route's,
+   every step's logits within ``ATOL_E2E_LOGITS`` of the direct route's
+   and the tokens identical where every plan gives T1's bits (checked at
+   the serving shapes), and the host µs of one warm registry call.  Then
+   ``launch.profile`` over qwen3's decode steps: the decode kernel's
+   device time per call beside the step's busy and wall time.
 5. end to end, mamba2-1.3b at full width the same way, with
-   ``ssm_impl='pallas'`` against ``ssm_impl='xla'``; then
+   ``ssm_impl='pallas'`` against ``ssm_impl='xla'``, and through the plan
+   registry the same way (48 scans per prefill, 48 SSD decode steps per
+   step, ``ATOL_E2E_SSM_LOGITS``); a fresh registry after
+   ``compiler.clear_memo()`` on the same cache then warms both models'
+   grids with zero measurements; then
    deepseek-v2-lite-16b at full width (27 layers, 64 experts, 31.4 GB of
    bf16 weights) the same way, its MoE layers dropless through the ragged
    grouped GEMM (78 launches per prefill and per decode step) against the
    dense dropless einsum path: one MoE layer on the same input under
    ``RTOL_MOE_LAYER``, then every step's logits under
-   ``ATOL_E2E_MOE_LOGITS``, with the peak device memory.
+   ``ATOL_E2E_MOE_LOGITS``, with the peak device memory; then that MoE
+   layer through the plan registry's ragged route (the compiled ragged
+   graph on the region kernel at pump 1, plans never measured) against
+   the direct ``csrc/grouped_gemm.cu`` route under ``RTOL_MOE_LAYER``,
+   both timed warm, with the registry route's cold first call of a new
+   routing and the gate product at the capacity model's pump.
 6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
@@ -181,6 +199,9 @@ RTOL_REGION_BF16 = 2.0 ** -7
 PUMP_CASES = ((1, "T"), (2, "T"), (4, "T"), (2, "R"), (4, "R"))
 # where chip_smoke keeps the compile cache of its autotune phase
 BUILD_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke"
+# the plan registry phase's own compile cache, emptied at its start so its
+# warmup measures every plan and the replay reads only what it wrote
+REGISTRY_CACHE = BUILD_CACHE / "registry_cache.json"
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1700,16 +1721,11 @@ def check_moe_layer(cfg_k, cfg_p, model, prompts):
     MoE at the prefill's shape and at one decode step's.  The routing is the
     same (one router, one input), so only the expert products' summation
     order and their bf16 roundings differ."""
-    from repro_torch.models import moe, transformer
-    from repro_torch.models.layers import embed, rmsnorm
+    from repro_torch.models import moe
+    layer = model.blocks[0]
     with torch.no_grad():
-        x = embed(model.embed, prompts.cuda(), cfg_k.activation_dtype)
-        pos = torch.arange(x.shape[1], device="cuda")
-        for block in model.blocks_dense:
-            x = transformer.dense_block_apply(block, cfg_k, x, pos)[0]
-        layer = model.blocks[0]
-        x = rmsnorm(layer.norm2, x, cfg_k.norm_eps)
-        for name, xin in (("prefill", x), ("decode", x[:, -1:])):
+        for name, xin in zip(("prefill", "decode"),
+                             moe_layer_input(cfg_k, model, prompts)):
             y_k, aux_k = moe.moe_apply(layer.moe, cfg_k, xin, dropless=True)
             y_p, aux_p = moe.moe_apply(layer.moe, cfg_p, xin, dropless=True)
             e = rel_err(y_k, y_p)
@@ -1721,6 +1737,142 @@ def check_moe_layer(cfg_k, cfg_p, model, prompts):
             check(aux_k.item() == aux_p.item(), "aux losses differ")
 
 
+def moe_layer_input(cfg, model, prompts):
+    """The hidden states of the prompts after the dense block, normed for
+    ``blocks[0]``'s MoE: (prefill input, one decode step's input)."""
+    from repro_torch.models import transformer
+    from repro_torch.models.layers import embed, rmsnorm
+    with torch.no_grad():
+        x = embed(model.embed, prompts.cuda(), cfg.activation_dtype)
+        pos = torch.arange(x.shape[1], device="cuda")
+        for block in model.blocks_dense:
+            x = transformer.dense_block_apply(block, cfg, x, pos)[0]
+        x = rmsnorm(model.blocks[0].norm2, x, cfg.norm_eps)
+    return x, x[:, -1:]
+
+
+def ragged_product_times(name, reg, a, w, kw):
+    """One expert product (the gate's) on the registry's padded layout,
+    CUDA-event times: the compiled ragged graph at the registry's plan (its
+    ``ragged_pump``, 1), the same graph at the capacity model's pump
+    (``'auto'``, the reference's default), and ``csrc/grouped_gemm.cu`` on
+    the same rows in 16-row tiles."""
+    from repro_torch.compiler.registry import PlanRegistry
+    from repro_torch.kernels import ops
+    from repro_torch.launch.timing import Timer
+    timer = Timer()
+    auto_reg = PlanRegistry(ragged_pump="auto", cache=False)
+    t_plan = timer.ms(lambda: reg.grouped_gemm(a, w, **kw))
+    t_auto = timer.ms(lambda: auto_reg.grouped_gemm(a, w, **kw))
+    (auto_plan,) = auto_reg.plans()
+    refused = " (refused: fell back to grouped_gemm.cu)" \
+        if auto_reg.stats.fallbacks else ""
+    t_gg = timer.ms(lambda: ops.grouped_gemm(
+        a, w, group_sizes=kw["group_sizes"], bc=16))
+    (plan,) = [pl for pl in reg.plans()
+               if pl["args"] == [w.shape[0], a.shape[0], w.shape[1],
+                                 w.shape[2]]]
+    print(f"[registry] {name} gate product, {a.shape[0]} padded rows x "
+          f"{w.shape[1]} -> {w.shape[2]}: region kernel at the plan's "
+          f"{plan['launch']} {t_plan:.4f} ms, at the capacity model's "
+          f"{auto_plan['launch']} {t_auto:.4f} ms{refused}; "
+          f"grouped_gemm.cu on the same rows {t_gg:.4f} ms")
+
+
+def check_moe_registry(cfg, model, prompts):
+    """One MoE layer through the plan registry's ragged route
+    (``kernel_plan='measure'``: group sizes on the host, bucketed, the
+    compiled ragged graph on the region kernel) against the direct
+    ``csrc/grouped_gemm.cu`` route, at the prefill's routing and at one
+    decode step's, under ``RTOL_MOE_LAYER``; no ragged plan may be
+    measured and none may fall back.  Both routes timed (host clock around
+    a synchronized call, median of 5, after one call), and the registry
+    route's first call of the routing (cold: a new group-sizes key, so
+    two plans compiled and spot-checked, as every fresh routing of real
+    traffic pays) beside them."""
+    from repro_torch.compiler import CompileCache
+    from repro_torch.compiler.registry import (PlanRegistry,
+                                               set_default_registry)
+    from repro_torch.kernels import grouped_gemm as gg
+    from repro_torch.kernels import region_map_reduce as rmr
+    from repro_torch.models import moe
+    cfg_r = dataclasses.replace(cfg, kernel_plan="measure")
+    reg = PlanRegistry(cache=CompileCache(REGISTRY_CACHE))
+    old = set_default_registry(reg)
+    layer = model.blocks[0].moe
+
+    def wall_ms(fn):
+        fn()
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    try:
+        with torch.no_grad():
+            for name, xin in zip(("prefill", "decode"),
+                                 moe_layer_input(cfg, model, prompts)):
+                # the first call plans this routing (a miss, its spot
+                # check launching each new plan once); the second is warm.
+                # The first call's gate product is kept for the timing of
+                # one product below
+                products = []
+                reg.grouped_gemm = lambda a, w, _f=reg.grouped_gemm, **kw: \
+                    products.append((a, w, kw)) or _f(a, w, **kw)
+                misses = reg.stats.misses
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                y_r, _ = moe.moe_apply(layer, cfg_r, xin, dropless=True)
+                torch.cuda.synchronize()
+                ms_cold = (time.perf_counter() - t0) * 1e3
+                del reg.grouped_gemm
+                # gate and up share one plan key, down has its own
+                check(reg.stats.misses - misses == 2,
+                      f"registry MoE layer {name}: the first call made "
+                      f"{reg.stats.misses - misses} misses (want 2)")
+                ragged_product_times(name, reg, *products[0])
+                rmr.launches = gg.launches = 0
+                y_r2, _ = moe.moe_apply(layer, cfg_r, xin, dropless=True)
+                torch.cuda.synchronize()
+                n_rmr, n_gg = rmr.launches, gg.launches
+                check(n_rmr == 3 and n_gg == 0 and same_bits(
+                    y_r.float(), y_r2.float()),
+                      f"registry MoE layer {name}: region_map_reduce "
+                      f"{n_rmr}, grouped_gemm {n_gg} launches (want 3, 0)")
+                y_d, _ = moe.moe_apply(layer, cfg, xin, dropless=True)
+                e = rel_err(y_r, y_d)
+                ms_r = wall_ms(lambda: moe.moe_apply(layer, cfg_r, xin,
+                                                     dropless=True))
+                ms_d = wall_ms(lambda: moe.moe_apply(layer, cfg, xin,
+                                                     dropless=True))
+                print(f"[registry] one MoE layer, registry ragged route vs "
+                      f"direct grouped_gemm.cu route, {name} "
+                      f"{tuple(xin.shape)}: rel err {e:.3g} (rtol "
+                      f"{RTOL_MOE_LAYER:.3g}); {ms_r:.3f} ms vs {ms_d:.3f} "
+                      f"ms a layer warm; the registry route's first call of "
+                      f"this routing (2 plans compiled and spot-checked) "
+                      f"{ms_cold:.3f} ms")
+                check(e <= RTOL_MOE_LAYER,
+                      f"registry MoE layer {name}: rel err {e}")
+        plans = reg.plans()
+        for pl in plans:
+            print(f"[registry] ragged plan: {pl['args']} (E, rows, D, F), "
+                  f"factor {pl['factor']}{pl['mode']}, launch "
+                  f"{pl['launch']}, pump {pl['pump']}, measured "
+                  f"{pl['measured']}")
+        check(plans and not any(pl["measured"] for pl in plans)
+              and reg.stats.measure_s == 0.0,
+              "a ragged plan was measured on the hot path")
+        check(reg.stats.fallbacks == 0,
+              f"registry MoE layer: {reg.stats.fallbacks} fallbacks")
+    finally:
+        set_default_registry(old)
+
+
 def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
               per_step: dict, atol: float):
     """One model at full width through Engine.generate, batch 8, prompt
@@ -1729,7 +1881,9 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
     of ``per_prefill`` / ``per_step`` must launch that many times in the
     prefill / in each decode step; the kernel route's logits must stay
     within ``atol`` of the plain route's at every step.  Returns the
-    launches of the kernel route's run."""
+    launches of the kernel route's run and the context the registry phase
+    serves the same model from (config, weights, prompts, the kernel
+    route's tokens, logits and times)."""
     import gc
     import importlib
     from repro_torch.configs.base import load_arch
@@ -1839,7 +1993,247 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(max(diffs) <= atol,
           f"route logits differ by {max(diffs)} > {atol}")
-    return launches
+    if cfg.moe:
+        check_moe_registry(eng.cfg, model, prompts)
+    ctx = {"cfg": eng.cfg, "model": model, "prompts": prompts, "scfg": scfg,
+           "mods": mods, "toks": toks, "logits": logits,
+           "ttft_ms": st["ttft_s"] * 1e3, "warm_ttft_ms": warm,
+           "step_ms": steady * 1e3, "step_p50_ms": dec["steady_p50_s"] * 1e3}
+    return launches, ctx
+
+
+def plan_built(kernel: str, spec, cfg, cache_dtype) -> bool:
+    """Whether the kernel is built for a plan's launch spec at ``cfg``'s
+    serving widths (the SSD decode step walks any M that divides H)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    f, mode = spec.factor, spec.mode
+    if kernel == "flash_attention":
+        return fa.built(f, mode, cfg.head_dim_, cfg.activation_dtype)
+    if kernel == "decode_attention":
+        return da.built(f, mode, cfg.n_heads // cfg.n_kv_heads,
+                        cfg.head_dim_, cache_dtype)
+    if kernel == "ssd_scan":
+        return ss.built(f, mode)
+    nh = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    return kernel == "ssd_decode" and nh % f == 0
+
+
+def t1_bits(kernel: str, spec, cfg, scfg, gen) -> bool:
+    """Whether the kernel at a plan's launch spec gives T1's bits on random
+    inputs at ``cfg``'s serving shapes (B 8, prompt 512, the cache)."""
+    from repro_torch.core.ir import PumpSpec
+    from repro_torch.kernels import ops
+    act, b = cfg.activation_dtype, scfg.batch
+    if kernel == "flash_attention":
+        q = randn(gen, b, cfg.n_heads, 512, cfg.head_dim_, dtype=act)
+        k, v = (randn(gen, b, cfg.n_kv_heads, 512, cfg.head_dim_, dtype=act)
+                for _ in range(2))
+        args, kw = (q, k, v), dict(causal=True)
+    elif kernel == "decode_attention":
+        cdt = getattr(torch, scfg.cache_dtype)
+        q = randn(gen, b, cfg.n_heads, cfg.head_dim_, dtype=act)
+        kc, vc = (randn(gen, b, cfg.n_kv_heads, scfg.max_len, cfg.head_dim_,
+                        dtype=cdt) for _ in range(2))
+        args, kw = (q, kc, vc, scfg.max_len - 2), {}
+    else:
+        s_ = cfg.ssm
+        nh = s_.expand * cfg.d_model // s_.head_dim
+        x, dt, a, bm, cm = ssd_inputs(gen, b, 512, nh, s_.n_groups,
+                                      s_.state_dim, s_.head_dim, act)
+        if kernel == "ssd_scan":
+            args, kw = (x, dt, a, bm, cm), dict(chunk=s_.chunk,
+                                               final_state=True)
+        else:
+            st = randn(gen, b, nh, s_.state_dim, s_.head_dim)
+            args = (st, x[:, 0].contiguous(), dt[:, 0].contiguous(), a,
+                    bm[:, 0].contiguous(), cm[:, 0].contiguous())
+            kw = {}
+    fn = getattr(ops, kernel)
+    got, want = fn(*args, **kw, pump=spec), fn(*args, **kw, pump=PumpSpec(1))
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return all(same_bits(g_.float(), w_.float()) for g_, w_ in zip(got, want))
+
+
+def phase_registry(ctx, per_prefill: dict, per_step: dict, atol: float,
+                   reg):
+    """The model of ``ctx`` served again, on the same weights and prompts,
+    through ``Engine`` with ``kernel_plan='measure'`` on the plan registry
+    ``reg``: the warmup plans the bucket grid (printed: kernel, bucket,
+    factor, mode, launch spec, measured or replayed); every plan must be
+    measured, at the ``hopper`` tier and inside its kernel's built set.
+    Then ``generate`` with the launch counts of ``per_prefill`` /
+    ``per_step``, no registry miss and no fallback after the warmup, TTFT
+    and ms/step beside the direct route's, every step's logits within
+    ``atol`` of the direct route's, the tokens identical where every chosen
+    plan gives T1's bits, and the host µs of a warm registry call.
+    Returns the warmup report."""
+    from repro_torch.compiler.registry import set_default_registry
+    from repro_torch.core.ir import PumpSpec
+    from repro_torch.kernels import ops
+    from repro_torch.serve.engine import Engine
+    cfg = dataclasses.replace(ctx["cfg"], kernel_plan="measure")
+    scfg, model, prompts = ctx["scfg"], ctx["model"], ctx["prompts"]
+    mods, n_new = ctx["mods"], ctx["toks"].shape[1]
+    old = set_default_registry(reg)
+    n_before = len(reg.plans())
+    try:
+        eng = Engine(cfg, model, scfg)
+        st0 = eng.stats()
+        print(f"[registry] {cfg.name}: warmup {st0['warmup_s']:.3f} s, "
+              f"{st0['plans_warmed']} plans, {st0['warmup_measured']} "
+              f"measured, {st0['warmup_failed']} failed")
+        cdt = getattr(torch, scfg.cache_dtype)
+        specs, plan_spec = {}, {}
+        for r in eng.warmup_report:
+            print(f"[registry]   {r['kernel']} {r['args']}: factor "
+                  f"{r['factor']}{r['mode']}, launch {r.get('launch')}, "
+                  f"{'replayed' if r['replayed'] else 'measured'} "
+                  f"(winner {r['winner_us']} us), tiers {r['tiers']}, "
+                  f"{r['time_s']:.3f} s")
+            check("error" not in r, f"warmup failed: {r}")
+        for pl in reg.plans()[n_before:]:          # this model's plans
+            spec = PumpSpec(int(pl["launch"][1:]), pl["launch"][0])
+            plan_spec[pl["kernel"], tuple(pl["args"])] = spec
+            check(pl["measured"] and not pl["replayed"],
+                  f"plan not measured: {pl}")
+            check(plan_built(pl["kernel"], spec, cfg, cdt),
+                  f"plan outside the built set: {pl}")
+            specs.setdefault(pl["kernel"], set()).add(spec)
+        check(all(r["tiers"] == ["hopper"] for r in eng.warmup_report),
+              "a warmed plan is not at the hopper tier")
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        bits = all(t1_bits(k_, sp, cfg, scfg, gen) for k_, sps in
+                   specs.items() for sp in sps if sp.factor > 1)
+        hits0, misses0 = reg.stats.hits, reg.stats.misses
+
+        for mod in mods.values():
+            mod.launches = 0
+        toks, logits = eng.generate(prompts, n_new, return_logits=True)
+        launches = {name: mod.launches for name, mod in mods.items()}
+        print(f"[registry] launches: {launches}")
+        for name in mods:
+            want = per_prefill.get(name, 0) + n_new * per_step.get(name, 0)
+            check(launches[name] == want,
+                  f"{name} launches {launches[name]} != {want}")
+        st = eng.stats()
+        hits, misses = reg.stats.hits - hits0, reg.stats.misses - misses0
+        print(f"[registry] after warmup: {hits} hits, {misses} misses, hit "
+              f"rate {hits / max(hits + misses, 1):.4f}, "
+              f"{reg.stats.fallbacks} fallbacks; registry "
+              f"{st['registry']}")
+        check(misses == 0 and hits > 0 and reg.stats.fallbacks == 0,
+              f"registry after warmup: {hits} hits, {misses} misses, "
+              f"{reg.stats.fallbacks} fallbacks")
+
+        # host time spreads between runs, so each route runs again on a
+        # fresh engine, adjacent (direct, then measure, whose warmup is
+        # all hits now), beside the checked run and the direct route's
+        # run of the e2e phase
+        print(f"[registry] direct route, e2e phase: TTFT "
+              f"{ctx['ttft_ms']:.2f} ms (first prefill of the process), "
+              f"warm TTFT {ctx['warm_ttft_ms']:.2f} ms; decode "
+              f"{ctx['step_ms']:.3f} ms/step mean, {ctx['step_p50_ms']:.3f} "
+              f"ms p50")
+        for label, e_ in (("measure route, checked run", eng),
+                          ("direct route, again", None),
+                          ("measure route, again", None)):
+            if e_ is None:
+                route = label.split()[0]
+                e_ = Engine(dataclasses.replace(cfg, kernel_plan=route),
+                            model, scfg)
+                e_.generate(prompts, n_new)
+            st_ = e_.stats()
+            dec = st_["phases"]["decode"]
+            warm = warm_ttft_ms(e_, prompts)
+            print(f"[registry] {label}: TTFT {st_['ttft_s'] * 1e3:.2f} ms, "
+                  f"warm TTFT {warm:.2f} ms; decode "
+                  f"{dec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
+                  f"{dec['steady_p50_s'] * 1e3:.3f} ms p50 over "
+                  f"{dec['steps']} steps")
+        check(reg.stats.misses == misses0 and reg.stats.fallbacks == 0,
+              "the timing runs missed or fell back")
+
+        diff = err(logits, ctx["logits"])
+        agree = (logits.argmax(-1) == ctx["logits"].argmax(-1)).float() \
+            .mean().item()
+        same = torch.equal(toks, ctx["toks"])
+        print(f"[registry] measure vs direct route: logits max abs diff "
+              f"{diff:.4g} (atol {atol}), tokens identical {same}, argmax "
+              f"agreement {agree:.4f}; every plan gives T1's bits: {bits}")
+        check(diff <= atol, f"measure route logits differ by {diff}")
+        check(same or not bits, "tokens differ though every plan gives "
+                                "T1's bits")
+
+        # host cost of one warm call: the registry wrapper (one dict
+        # lookup, then the op) against the op called directly at its spec
+        with torch.no_grad():
+            if cfg.ssm:
+                s_ = cfg.ssm
+                nh = s_.expand * cfg.d_model // s_.head_dim
+                x, dt, a, bm, cm = ssd_inputs(
+                    gen, scfg.batch, 1, nh, s_.n_groups, s_.state_dim,
+                    s_.head_dim, cfg.activation_dtype)
+                st_ = randn(gen, scfg.batch, nh, s_.state_dim, s_.head_dim)
+                args = (st_, x[:, 0].contiguous(), dt[:, 0].contiguous(), a,
+                        bm[:, 0].contiguous(), cm[:, 0].contiguous())
+                name, call = "ssd_decode", reg.ssd_decode
+                bucket = (scfg.batch, nh, s_.head_dim, s_.state_dim)
+            else:
+                q = randn(gen, scfg.batch, cfg.n_heads, cfg.head_dim_,
+                          dtype=cfg.activation_dtype)
+                kc = randn(gen, scfg.batch, cfg.n_kv_heads, scfg.max_len,
+                           cfg.head_dim_, dtype=cdt)
+                args = (q, kc, kc, scfg.max_len - 2)
+                name, call = "decode_attention", reg.decode_attention
+                bucket = (scfg.batch, cfg.n_heads, reg.policy.bucket_seq(
+                    min(reg.policy.bucket_pos(scfg.max_len - 2),
+                        scfg.max_len)), cfg.head_dim_)
+            call(*args)
+            spec = plan_spec[name, bucket]
+            op = getattr(ops, name)
+            # host time spreads between samples: the least of five
+            # interleaved samples of each
+            us_reg, us_op = (min(v) for v in zip(*[
+                (host_us(lambda: call(*args)),
+                 host_us(lambda: op(*args, pump=spec))) for _ in range(5)]))
+        print(f"[registry] host time of one warm {name} call (least of 5 "
+              f"interleaved samples of 200 calls): registry {us_reg:.2f} us, "
+              f"the op at its spec {us_op:.2f} us; the lookup "
+              f"{us_reg - us_op:.2f} us")
+        return eng.warmup_report
+    finally:
+        set_default_registry(old)
+
+
+def phase_registry_replay(archs, reg_cache) -> None:
+    """A fresh registry on the same compile cache, after
+    ``compiler.clear_memo()`` (a new process): warming the same grids must
+    replay every plan with zero measurements."""
+    from repro_torch import compiler
+    from repro_torch.compiler.registry import PlanRegistry
+    from repro_torch.models import transformer
+    compiler.clear_memo()
+    reg = PlanRegistry(cache=reg_cache())
+    t0 = time.perf_counter()
+    report = []
+    for cfg, scfg in archs:
+        reqs = transformer.plan_requests(
+            dataclasses.replace(cfg, kernel_plan="measure"), scfg.batch,
+            scfg.max_len, dtype=cfg.dtype, cached=True,
+            cache_dtype=getattr(torch, scfg.cache_dtype))
+        report += reg.warmup(reqs)
+    wall = time.perf_counter() - t0
+    replayed = sum(1 for r in report if r["replayed"])
+    print(f"[registry] replay: a fresh registry after clear_memo() warmed "
+          f"{len(report)} plans in {wall:.3f} s, {replayed} replayed, "
+          f"measure_s {reg.stats.measure_s}, compile_s "
+          f"{reg.stats.compile_s:.3f}")
+    check(report and replayed == len(report)
+          and reg.stats.measure_s == 0.0
+          and all("error" not in r for r in report),
+          f"replay measured or failed: {report}")
 
 
 def phase_decode_loop():
@@ -1886,19 +2280,35 @@ def main() -> int:
     compiled, compiler_launches = phase_compiler(timer)
     kernels += compiled
     del timer
-    launches = phase_e2e(
+    # the plan registry phase's measured plans go to a cache of their own
+    from repro_torch.compiler import CompileCache
+    from repro_torch.compiler.registry import PlanRegistry
+    REGISTRY_CACHE.unlink(missing_ok=True)
+    registry = PlanRegistry(cache=CompileCache(REGISTRY_CACHE))
+    qwen3 = ({"flash_attention": 28}, {"decode_attention": 28},
+             ATOL_E2E_LOGITS)
+    launches, ctx = phase_e2e(
         "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
-        ("xla_chunked", set_field(attention_impl="xla_chunked")),
-        {"flash_attention": 28}, {"decode_attention": 28}, ATOL_E2E_LOGITS)
+        ("xla_chunked", set_field(attention_impl="xla_chunked")), *qwen3)
+    phase_registry(ctx, *qwen3, registry)
+    served = [(ctx["cfg"], ctx["scfg"])]
+    del ctx
     phase_decode_loop()
-    launches.update(phase_e2e(
+    mamba2 = ({"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS)
+    more, ctx = phase_e2e(
         "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
-        ("xla", set_field(ssm_impl="xla")),
-        {"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS))
-    launches.update(phase_e2e(
+        ("xla", set_field(ssm_impl="xla")), *mamba2)
+    launches.update(more)
+    phase_registry(ctx, *mamba2, registry)
+    served.append((ctx["cfg"], ctx["scfg"]))
+    del ctx
+    phase_registry_replay(served, lambda: CompileCache(REGISTRY_CACHE))
+    more, _ctx = phase_e2e(
         "deepseek-v2-lite-16b", ("ragged grouped GEMM", moe_ragged),
         ("dense dropless", plain_moe),
-        {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS))
+        {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS)
+    launches.update(more)
+    del _ctx
     launches.update(phase_paper())
     launches.update(compiler_launches)
     for entry in kernels:

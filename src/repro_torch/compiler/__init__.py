@@ -203,6 +203,19 @@ def _measure_inputs(graph: Graph, device: torch.device
             if n.kind == NodeKind.MEMORY and not graph.in_edges(n.name)}
 
 
+def _lost_tiers(kern: CompiledKernel, first: Dict[str, str]) -> str:
+    """Why an autotune candidate is no candidate, or ``''``: each region
+    that the first candidate emitted at the ``hopper`` tier and this one,
+    at another pump, keeps below it (the hand-written kernel is not built
+    for that pump), with the reason the backend gave."""
+    out = []
+    for region, em in (kern.report.emission or {}).items():
+        if first.get(region) == "hopper" and em["tier"] != "hopper":
+            why = em["why"][-1] if em["why"] else em["tier"]
+            out.append(f"{region} at tier {em['tier']}: {why}")
+    return "; ".join(out)
+
+
 def _time_kernel(fn, inputs, timer, budget_s: Optional[float] = None
                  ) -> float:
     """One candidate's time in µs.  On the card: the median of
@@ -239,7 +252,10 @@ def compile(graph: Graph, *, factor="auto", mode: str = "T",
     emission; see :mod:`.hopper_backend`), ``'reference'`` (numpy executor,
     the differential-testing oracle) or ``'none'`` (plan only).
     ``autotune='measure'`` times the candidate pump factors ``{1, 2, 4, 8}``
-    on the lowered executable, on ``device``, and keeps the winner; the
+    on the lowered executable, on ``device``, and keeps the winner (a
+    candidate whose pump keeps a region below the ``hopper`` tier that the
+    first candidate reached, its kernel not being built for that pump,
+    counts as failed, not timed); the
     measured plan persists in the cache, so a repeat compile replays it
     without re-measuring.  ``device`` (default the card) is where the
     executable puts inputs that are not tensors and where it is measured;
@@ -339,6 +355,7 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
         timings: Dict[int, float] = {}
         kernels: Dict[int, CompiledKernel] = {}
         failures: Dict[int, str] = {}
+        first_tiers: Optional[Dict[str, str]] = None
         for cand in AUTOTUNE_CANDIDATES:
             if cand > max_factor:
                 continue
@@ -349,6 +366,17 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
                 k = build(cand)
                 achieved = k.spec.factor  # legality may clamp it
                 if achieved in timings:
+                    continue
+                tiers = {r: em["tier"]
+                         for r, em in (k.report.emission or {}).items()}
+                if first_tiers is None:
+                    first_tiers = tiers
+                lost = _lost_tiers(k, first_tiers)
+                if lost:
+                    # a kernel not built for this pump: the region would
+                    # run a PyTorch loop in its place, which is no
+                    # candidate for the kernel's pump
+                    failures[cand] = lost
                     continue
                 t = _time_kernel(k.fn, inputs, timer,
                                  budget_s=AUTOTUNE_CANDIDATE_BUDGET_S)

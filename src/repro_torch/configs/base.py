@@ -81,6 +81,12 @@ class ModelConfig:
     # 'xla': the plain chunked SSD in torch.  'pallas': the hand-written
     # CUDA SSD scan (every prefill) and SSD decode (every decode step)
     ssm_impl: str = "xla"
+    # kernel-plan policy for the 'pallas' routes: 'measure' serves them
+    # through the shape-bucketed plan registry (compiler.registry) at
+    # measured pump factors; 'direct' calls kernels.ops at pump 1.  The
+    # reference defaults to 'measure'; the port defaults to 'direct', so a
+    # config keeps the route it had before the registry was ported
+    kernel_plan: str = "direct"
     # route cache prefill (s > 1) through the flash kernel; valid only when
     # every prefill starts on a fresh cache (pos == 0).  The Engine sets it.
     fresh_prefill_kernel: bool = False
@@ -88,6 +94,13 @@ class ModelConfig:
     attn_block_kv: int = 1024          # KV chunk for chunked attention
     remat: bool = True
     dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        # every model layer tests kernel_plan == 'measure': a typo would
+        # silently turn the registry off, so only the two policies pass
+        if self.kernel_plan not in ("measure", "direct"):
+            raise ValueError(f"kernel_plan must be 'measure' or 'direct', "
+                             f"got {self.kernel_plan!r}")
 
     @property
     def head_dim_(self) -> int:

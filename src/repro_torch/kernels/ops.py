@@ -19,7 +19,13 @@ autotune='measure')``, cached likewise), as the reference's ``_as_spec``
 does; the chosen spec then drives the direct kernel.  The attention and
 SSD ops also take ``(factor, mode)``.  The pump never changes a value: a
 CPU tensor takes the plain version at any pump, a CUDA tensor the kernel
-at that pump, which raises where the case is not built.
+at that pump, which raises where the case is not built.  Where a kernel is
+built for no pump at all (a head dim, dtype or head group it does not
+take), ``'auto'`` and ``'measure'`` plan the unpumped case.
+
+``ragged_request_args`` and ``ragged_grouped_gemm_compiled`` are the
+ragged grouped GEMM through the compiler (its plan key and its execution),
+the route of the plan registry's ``grouped_gemm``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ import warnings
 from typing import Optional, Sequence, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from ..core.ir import PumpSpec
 from ..core.pump_plan import dot_panel_bytes
@@ -64,8 +71,12 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _max_built(built) -> int:
-    """The largest mode-T factor a kernel is built for (``built(f)``)."""
-    return max(f for f in (1, 2, 4, 8, 16) if built(f))
+    """The largest mode-T factor a kernel is built for (``built(f)``), or 1
+    where it is built for none (a head dim, dtype or head group it does not
+    take): the plan is then the unpumped one, which a CPU tensor runs as
+    the plain version and a CUDA tensor refuses with the kernel's own
+    error."""
+    return max((f for f in (1, 2, 4, 8, 16) if built(f)), default=1)
 
 
 def _estimate_spec(pump: str, x: torch.Tensor, kernel: str, builder_args,
@@ -325,6 +336,74 @@ def floyd_warshall(dist: torch.Tensor, *,
 
 
 # ------------------------------------------------------- the grouped GEMM --
+def ragged_request_args(e, d, f, padded, bc, bf, bd, dtype, itemsize):
+    """Canonical (builder_args, builder_kwargs) of one ragged grouped-GEMM
+    request (the reference's ``ragged_request_args``): the single source of
+    the plan key, shared by the plan registry's warmup and the execution
+    path below, so a warmed plan is a hit for the real call."""
+    rows_p = sum(padded)
+    dp = -(-d // bd) * bd
+    fp = -(-f // bf) * bf
+    return ((e, rows_p, dp, fp),
+            dict(bc=bc, bf=bf, bd=bd, group_sizes=tuple(padded),
+                 dtype=dtype, itemsize=itemsize))
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
+    """Zero-pad ``axis`` of ``x`` up to a multiple of ``mult``."""
+    rem = -x.shape[axis] % mult
+    if rem == 0:
+        return x
+    pads = [0, 0] * (x.dim() - 1 - axis) + [0, rem]
+    return F.pad(x, pads)
+
+
+def ragged_grouped_gemm_compiled(x: torch.Tensor, w: torch.Tensor, sizes,
+                                 padded, bc: int, bf: int, bd: int, *,
+                                 kernel_fn) -> torch.Tensor:
+    """The ragged grouped GEMM through the compiler (the reference's
+    ``ragged_grouped_gemm_compiled``, the megablocks idiom): x is the
+    row-major concatenation of the groups (``sum(sizes)`` rows); each group
+    is zero-padded up to ``padded[i]`` (a multiple of the row tile ``bc``,
+    0 skips the expert), the ragged builder's graph is compiled at
+    ``ragged_request_args`` and run (on the card the region kernel,
+    ``csrc/region_map_reduce.cu``), and the real rows come back out.  A
+    caller that already holds the padded layout (``sizes == padded``)
+    skips the per-group segmentation.  ``kernel_fn(builder_args,
+    builder_kwargs)`` returns the compiled plan: the plan registry owns the
+    compile."""
+    e, d, f = w.shape
+    if sum(padded) == 0:
+        return x.new_zeros((0, f))
+    prepadded = list(sizes) == list(padded)
+    if prepadded:
+        xp = x
+    else:
+        parts, off = [], 0
+        for sz, psz in zip(sizes, padded):
+            seg = x[off:off + sz]
+            off += sz
+            if psz:
+                parts.append(_pad_to(seg, 0, psz) if psz > sz else seg)
+        xp = torch.cat(parts) if len(parts) > 1 else parts[0]
+    xp = _pad_to(xp, 1, bd)
+    wp = _pad_to(_pad_to(w, 1, bd), 2, bf)
+    args, kwargs = ragged_request_args(e, d, f, padded, bc, bf, bd,
+                                       _dtype_name(x), x.element_size())
+    kern = kernel_fn(args, kwargs)
+    out = kern({"x": xp.contiguous(), "w": wp.contiguous()})["o"][:, :f]
+    if prepadded:
+        return out
+    outs, off = [], 0
+    for sz, psz in zip(sizes, padded):
+        if sz:
+            outs.append(out[off:off + sz])
+        off += psz
+    if not outs:
+        return x.new_zeros((0, f))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
 def grouped_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 16,
                  bf: int = 128, bd: int = 32,
                  pump: Union[PumpSpec, int, str] = 1,

@@ -5,7 +5,10 @@
 
 runs on the card (``--arch mamba2-1.3b --ssm-impl pallas`` serves the SSM
 family through the SSD kernels; ``--arch deepseek-v2-lite-16b --moe-ragged``
-the MoE family through the grouped-GEMM kernel); ``--smoke --device cpu``
+the MoE family through the grouped-GEMM kernel).  ``--kernel-plan measure``
+serves those kernels through the plan registry at measured pump factors,
+after a warmup that plans the bucket grid;
+``--smoke --device cpu``
 runs the SMOKE config on the CPU, where every op takes its plain version.
 Weights are seeded random draws with the reference init's distributions
 (fp32 for ``--smoke``, else bf16, as in ``repro.launch.serve``).
@@ -64,6 +67,10 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
                     help="serve the MoE layers dropless through the ragged "
                          "grouped-GEMM kernel (moe.ragged_dropless=True, "
                          "moe.inference_capacity_factor=0)")
+    ap.add_argument("--kernel-plan", default=None,
+                    choices=("direct", "measure"),
+                    help="override cfg.kernel_plan; 'measure' serves the "
+                         "kernels through the plan registry")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -82,7 +89,8 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                             generator=torch.Generator().manual_seed(1))
     scfg = ServeConfig(batch=args.batch,
-                       max_len=args.prompt_len + args.new + 1)
+                       max_len=args.prompt_len + args.new + 1,
+                       kernel_plan=args.kernel_plan)
     eng = Engine(cfg, model, scfg, device=dev)
     t0 = time.perf_counter()
     out = eng.generate(prompts, args.new)
@@ -98,6 +106,13 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     print(f"[serve] ttft {stats['ttft_s'] * 1e3:.2f} ms; steady-state decode "
           f"{(steady or float('nan')) * 1e3:.3f} ms/step ({tps:.1f} tok/s) "
           f"over {dec.get('steps', 0)} steps")
+    if stats["registry"] is not None:
+        r = stats["registry"]
+        print(f"[serve] warmup {stats['warmup_s']:.2f}s "
+              f"({stats['plans_warmed']} plans, "
+              f"{stats['warmup_measured']} measured); plan registry: "
+              f"prefill {r['prefill']} | decode {r['decode']} | hit_rate "
+              f"{r['hit_rate']} fallbacks {r['fallbacks']}")
     print("[serve] first sequence:", out[0][:16].tolist())
     return out
 

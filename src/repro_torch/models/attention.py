@@ -5,10 +5,12 @@ Two execution paths, selected by ``cfg.attention_impl`` as in the reference:
   - ``xla_chunked``: plain chunked attention with an online-softmax carry
     over KV blocks (the reference's ``lax.scan`` becomes a Python loop), and
     plain single-position decode attention.
-  - ``pallas``: the hand-written CUDA kernels through ``kernels.ops`` — the
-    flash kernel for cache-free forward and fresh-cache prefill, the decode
-    kernel for every cached S == 1 step.  On CPU tensors the ops take their
-    plain versions.
+  - ``pallas``: the hand-written CUDA kernels — the flash kernel for
+    cache-free forward and fresh-cache prefill, the decode kernel for every
+    cached S == 1 step.  ``cfg.kernel_plan == 'measure'`` routes both
+    through the plan registry (``compiler.registry``: bucketed, measured
+    pump plans), ``'direct'`` calls ``kernels.ops`` at pump 1.  On CPU
+    tensors the ops take their plain versions.
 
 MLA (``mla_apply``) follows the reference's three branches: a fresh-cache
 prefill writes the compressed cache and attends over the current tokens
@@ -95,6 +97,16 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, h, s, dv).to(q.dtype)
 
 
+def _flash(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool) -> torch.Tensor:
+    """The flash kernel for the ``pallas`` routes: through the plan
+    registry under ``kernel_plan='measure'``, else ``ops`` at pump 1."""
+    if cfg.kernel_plan == "measure":
+        from repro_torch.compiler.registry import default_registry
+        return default_registry().flash_attention(q, k, v, causal=causal)
+    return ops.flash_attention(q, k, v, causal=causal)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_mask: torch.Tensor, *,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -154,7 +166,13 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         new_cache = {"k": kc, "v": vc, "pos": pos + s}
         t = kc.shape[2]
         if s == 1:
-            if kernels:
+            if kernels and cfg.kernel_plan == "measure":
+                # the registry keys the plan on pos's bucket and launches
+                # the kernel on the whole cache at the plan's pump
+                from repro_torch.compiler.registry import default_registry
+                out = default_registry().decode_attention(
+                    q[:, :, 0].contiguous(), kc, vc, pos)
+            elif kernels:
                 out = ops.decode_attention(q[:, :, 0].contiguous(), kc, vc, pos)
             else:
                 mask = _kv_valid_mask(t, pos, s, x.device)
@@ -166,13 +184,13 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
             # under its valid mask equals causal attention over the current
             # tokens; pos is concrete here, so the reference's lax.cond is
             # a plain branch
-            out = ops.flash_attention(q, k, v, causal=causal)
+            out = _flash(cfg, q, k, v, causal=causal)
         else:
             out = chunked_attention(q, kc, vc, causal=causal, q_pos=positions,
                                     kv_mask=_kv_valid_mask(t, pos, s, x.device),
                                     block=cfg.attn_block_kv)
     elif kernels:
-        out = ops.flash_attention(q, k, v, causal=causal)
+        out = _flash(cfg, q, k, v, causal=causal)
     else:
         out = chunked_attention(q, k, v, causal=causal, q_pos=positions,
                                 block=cfg.attn_block_kv)
@@ -235,7 +253,7 @@ def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
     v = kv[..., dn:].transpose(1, 2)
     q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
     if kernel:
-        out = ops.flash_attention(q, k, v, causal=True)
+        out = _flash(cfg, q, k, v, causal=True)
     else:
         out = chunked_attention(q, k, v, causal=True, q_pos=positions,
                                 block=cfg.attn_block_kv,

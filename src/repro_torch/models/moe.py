@@ -18,6 +18,9 @@ the port of ``repro.models.moe``.
     row count asks (``row_tile``).  The reference builds its group tables
     on the host from concrete routing, so it takes this route only outside
     a jit trace; the port runs eagerly and always has concrete routing.
+    Under ``kernel_plan='measure'`` the products go through the plan
+    registry instead (``_ragged_registry_experts``), as in the reference:
+    group sizes on the host, bucketed, the compiled ragged graph.
 
 Routing is fp32 softmax, top-k, renormalised gates; the Switch aux loss
 comes back beside the output.  The routed experts are stacked (E, d, de)
@@ -83,18 +86,25 @@ def ragged_layout(idx: torch.Tensor, e: int):
     padded group sizes (E,), the tile table, the buffer's row count)."""
     t, k = idx.shape
     flat_e = idx.reshape(-1)                                      # (t·k,)
-    order = torch.argsort(flat_e, stable=True)
     counts = _bincount(flat_e, e)
     padded = (counts + ROW_TILE - 1) // ROW_TILE * ROW_TILE
     n_tiles = -(-t * k // ROW_TILE) + e
+    return _layout_rows(flat_e, counts, padded), padded, \
+        gg.tile_table(padded, ROW_TILE, n_tiles), n_tiles * ROW_TILE
+
+
+def _layout_rows(flat_e: torch.Tensor, counts: torch.Tensor,
+                 padded: torch.Tensor) -> torch.Tensor:
+    """The buffer row of each assignment when assignments sort by expert id
+    (stably) into consecutive groups of ``padded`` rows."""
+    order = torch.argsort(flat_e, stable=True)
     offs = torch.cumsum(padded, 0) - padded
     starts = torch.cumsum(counts, 0) - counts
     sorted_e = flat_e[order]
     rows = torch.empty_like(flat_e)
-    rows[order] = offs[sorted_e] + (torch.arange(t * k, device=idx.device)
-                                    - starts[sorted_e])
-    return rows, padded, gg.tile_table(padded, ROW_TILE, n_tiles), \
-        n_tiles * ROW_TILE
+    rows[order] = offs[sorted_e] + (torch.arange(
+        flat_e.shape[0], device=flat_e.device) - starts[sorted_e])
+    return rows
 
 
 def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
@@ -122,6 +132,37 @@ def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     gathered = y_pad[rows].reshape(t, k, d)                       # dropless:
     return torch.einsum("tkd,tk->td", gathered.float(),
                         gate).to(xt.dtype)                        # keep all
+
+
+def _ragged_registry_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
+                             idx: torch.Tensor) -> torch.Tensor:
+    """The ragged route under ``kernel_plan='measure'`` (the reference's
+    registry branch, ``repro/models/moe.py:74-80``): the group sizes come to
+    the host (one sync a layer), each is bucketed by the registry's
+    ``policy.bucket_group``, tokens scatter once into that padded layout and
+    the three products run through ``PlanRegistry.grouped_gemm`` (the
+    compiled ragged graph: the region kernel on the card) under its
+    ``ragged_pump``, so a fresh routing is planned, never measured."""
+    from repro_torch.compiler.registry import default_registry
+    reg = default_registry()
+    t, d = xt.shape
+    k = idx.shape[1]
+    flat_e = idx.reshape(-1)
+    counts = _bincount(flat_e, p.gate.shape[0])
+    padded = [reg.policy.bucket_group(c) for c in counts.tolist()]
+    rows = _layout_rows(flat_e, counts, torch.tensor(
+        padded, dtype=counts.dtype, device=counts.device))
+    xs = torch.zeros((sum(padded), d), dtype=xt.dtype, device=xt.device)
+    xs[rows] = xt.repeat_interleave(k, dim=0)
+
+    def gemm(a, w):
+        return reg.grouped_gemm(a, w.to(xt.dtype), group_sizes=padded)
+
+    h = F.silu(gemm(xs, p.gate), inplace=True).mul_(gemm(xs, p.up))
+    del xs
+    gathered = gemm(h, p.down)[rows].reshape(t, k, d)
+    return torch.einsum("tkd,tk->td", gathered.float(),
+                        gate).to(xt.dtype)
 
 
 def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
@@ -154,7 +195,9 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
     aux = e * torch.sum(me * ce) * mo.router_aux_weight
 
     if dropless and mo.ragged_dropless and mo.inference_capacity_factor <= 0:
-        y = _ragged_dropless_experts(p, xt, gate, idx)
+        ragged = _ragged_registry_experts if cfg.kernel_plan == "measure" \
+            else _ragged_dropless_experts
+        y = ragged(p, xt, gate, idx)
     else:
         y = _capacity_experts(p, xt, gate, idx, cap)
     if mo.n_shared_experts:

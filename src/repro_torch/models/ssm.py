@@ -8,9 +8,12 @@ Two SSD routes, selected by ``cfg.ssm_impl`` as in the reference:
   - ``pallas``: the hand-written CUDA kernels through ``kernels.ops``: the
     SSD scan for every prefill (with its final-state output when a cache is
     filled) and the SSD decode step for every cached one-token step.  On
-    CPU tensors the ops take their plain versions.  The reference takes its
-    kernels only under ``kernel_plan='measure'``; the port has no
-    ``kernel_plan`` yet, so ``ssm_impl='pallas'`` alone selects them.
+    CPU tensors the ops take their plain versions.  Under
+    ``kernel_plan='measure'`` both go through the plan registry
+    (``compiler.registry``: bucketed, measured pump plans), as in the
+    reference; under ``'direct'`` through ``kernels.ops`` at pump 1.  The
+    reference takes its kernels only under ``'measure'``; in the port
+    ``ssm_impl='pallas'`` selects them under either policy.
 
 Decode keeps a recurrent state (B, H, N, P) in fp32 and the conv tail
 (B, W - 1, conv_dim) per layer, with a scalar int ``pos``.  Continuation
@@ -150,7 +153,11 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         Cg = C_.reshape(b, s.n_groups, s.state_dim)
         dt1 = dt[:, 0]                                            # (B,H)
         state = cache["state"].float()
-        if kernels:
+        if kernels and cfg.kernel_plan == "measure":
+            from repro_torch.compiler.registry import default_registry
+            y, state = default_registry().ssd_decode(state, xh, dt1, A,
+                                                     Bg, Cg)
+        elif kernels:
             y, state = ops.ssd_decode(state, xh, dt1, A, Bg, Cg)
         else:
             hpg = n_heads // s.n_groups
@@ -178,9 +185,15 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         Cg = C_.reshape(b, l, s.n_groups, s.state_dim)
         if kernels:
             # the kernel masks a ragged L itself, so it keeps the configured
-            # chunk where the plain route below falls back to chunk 1
-            out = ops.ssd_scan(xh, dt, A, Bg, Cg, chunk=s.chunk,
-                               final_state=cache is not None)
+            # chunk where the plain route below falls back to chunk 1 (the
+            # registry fits it to the length bucket)
+            if cfg.kernel_plan == "measure":
+                from repro_torch.compiler.registry import default_registry
+                scan = default_registry().ssd_scan
+            else:
+                scan = ops.ssd_scan
+            out = scan(xh, dt, A, Bg, Cg, chunk=s.chunk,
+                       final_state=cache is not None)
             y, s_final = out if cache is not None else (out, None)
         else:
             chunk = min(s.chunk, l)

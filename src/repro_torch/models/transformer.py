@@ -13,7 +13,8 @@ add up.  Attribute names follow the reference params tree
 ``blocks_dense.<i>.mlp.up.w``, ``blocks.<i>.moe.gate`` ...), which
 ``convert.from_jax_params`` relies on.
 
-Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``.
+Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``,
+``plan_requests``.
 """
 from __future__ import annotations
 
@@ -181,6 +182,75 @@ def init_cache(cfg, batch: int, max_len: int,
 
     return {name: [one(kind) for _ in range(n)]
             for name, kind, n in _segments(cfg)}
+
+
+def plan_requests(cfg, batch: int, max_len: int, *, dtype=None, policy=None,
+                  cached: bool = False, cache_dtype=None):
+    """Warmup descriptors for the kernels this config routes through the
+    plan registry (``compiler.registry``), the reference's
+    ``plan_requests``: one flash request per sequence bucket up to
+    ``max_len`` for the pallas attention impl, one SSD scan request per
+    bucket for the pallas SSM impl.  The ragged MoE grouped GEMM depends on
+    the routing, so it is planned on first use.
+
+    ``cached=True`` is the Engine's grid: flash requests only behind
+    ``cfg.fresh_prefill_kernel``, scan requests with the final state, and
+    the decode grid — one ``decode_attention`` request per pos bucket up to
+    ``max_len`` (GQA only: MLA decode runs the absorbed path) and one
+    ``ssd_decode`` request.  ``cache_dtype`` (the port's addition) is the
+    cache's dtype where it is not the activations': decode attention's
+    built pumps depend on it, so its requests carry it as ``kv_dtype``;
+    the SSD decode step runs in the promotion of the two (its conv window
+    joins the cached tail to the new token), so its request does too."""
+    from repro_torch.compiler.registry import BucketPolicy
+    policy = policy or BucketPolicy()
+    dtype = dtype or cfg.dtype
+    reqs = []
+
+    wants_attn = cfg.attention_impl == "pallas" and (
+        cfg.family in ("dense", "moe", "vlm")
+        or (cfg.family == "hybrid" and cfg.hybrid_attn_every))
+    prefill_attn = wants_attn and (not cached or cfg.fresh_prefill_kernel)
+    if prefill_attn and cfg.mla:
+        m = cfg.mla
+        # mla_apply takes the kernel only when the head dims line up
+        prefill_attn = m.nope_head_dim + m.rope_head_dim == m.v_head_dim
+    if prefill_attn:
+        if cfg.mla:
+            h = hkv = cfg.n_heads
+            d = cfg.mla.nope_head_dim + cfg.mla.rope_head_dim
+        else:
+            h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+        for sb in policy.seq_grid(max_len):
+            reqs.append(("flash_attention",
+                         dict(b=batch, h=h, hkv=hkv, s=sb, t=sb, d=d,
+                              causal=True, dtype=dtype)))
+    if cached and wants_attn and not cfg.mla:
+        kv = {"kv_dtype": str(cache_dtype).replace("torch.", "")} \
+            if cache_dtype is not None else {}
+        for tb in policy.seq_grid(max_len):
+            reqs.append(("decode_attention",
+                         dict(b=batch, h=cfg.n_heads, hkv=cfg.n_kv_heads,
+                              t=tb, d=cfg.head_dim_, dtype=dtype, **kv)))
+
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm_impl == "pallas" \
+            and cfg.ssm:
+        s = cfg.ssm
+        nh = s.expand * cfg.d_model // s.head_dim
+        for lb in policy.seq_grid(max_len):
+            reqs.append(("ssd_scan",
+                         dict(b=batch, l=lb, h=nh, p=s.head_dim,
+                              n=s.state_dim, chunk=s.chunk,
+                              n_groups=s.n_groups, dtype=dtype,
+                              final_state=cached)))
+        if cached:
+            step = dtype if cache_dtype is None else str(
+                torch.promote_types(getattr(torch, dtype), cache_dtype)
+            ).replace("torch.", "")
+            reqs.append(("ssd_decode",
+                         dict(b=batch, h=nh, p=s.head_dim, n=s.state_dim,
+                              n_groups=s.n_groups, dtype=step)))
+    return reqs
 
 
 def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,

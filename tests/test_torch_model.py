@@ -62,7 +62,12 @@ def test_config_mirrors_reference():
     for name in ("CONFIG", "SMOKE"):
         ref, port = getattr(jax_qwen3, name), getattr(port_qwen3, name)
         for f in dataclasses.fields(port):
+            if f.name == "kernel_plan":   # a recorded divergence (below)
+                continue
             assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        # the port defaults to the direct route, the reference to measured
+        # plans (ROADMAP.md queue 3, divergences)
+        assert (port.kernel_plan, ref.kernel_plan) == ("direct", "measure")
     assert port_qwen3.SMOKE.activation_dtype == torch.float32
     assert port_qwen3.CONFIG.activation_dtype == torch.bfloat16
 

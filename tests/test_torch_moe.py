@@ -78,7 +78,10 @@ def test_config_mirrors_reference():
     from repro.configs import deepseek_v2_lite_16b as jax_ds
     for name in ("CONFIG", "SMOKE"):
         ref, port = getattr(jax_ds, name), getattr(port_ds, name)
+        assert (port.kernel_plan, ref.kernel_plan) == ("direct", "measure")
         for f in dataclasses.fields(port):
+            if f.name == "kernel_plan":   # the port's default: 'direct'
+                continue
             got, want = getattr(port, f.name), getattr(ref, f.name)
             if dataclasses.is_dataclass(got):   # MoEConfig, MLAConfig
                 got, want = dataclasses.asdict(got), dataclasses.asdict(want)
@@ -309,6 +312,47 @@ def test_moe_apply_matches_reference(weights, route, moe, dropless, s):
         full, _ = port_moe.moe_apply(model.blocks[0].moe, _pcfg(**DENSE),
                                      torch.from_numpy(x), dropless=True)
         assert not torch.allclose(full, got)
+
+
+@pytest.mark.parametrize("s", [8, 1])
+def test_moe_registry_ragged_route_matches(weights, s):
+    """The ragged route under kernel_plan='measure': group sizes on the
+    host, bucketed by the registry's policy, the three products through
+    ``PlanRegistry.grouped_gemm`` (the compiled ragged graph), against the
+    dense dropless path and the reference's registry route, at the file's
+    tolerance; a fresh routing is planned at the registry's
+    ``ragged_pump`` (1), never measured."""
+    from repro.compiler import registry as jax_reg
+    from repro.models import moe as jax_moe
+    from repro_torch.compiler.registry import (PlanRegistry,
+                                               set_default_registry)
+    params, model = weights
+    x = _moe_input(9, 2, s)
+    jp = jax.tree.map(lambda a: a[0], params["blocks"]["moe"])
+    reg = PlanRegistry(cache=False)
+    old, jold = set_default_registry(reg), jax_reg.set_default_registry(
+        jax_reg.PlanRegistry(cache=False))
+    try:
+        want, want_aux = jax_moe.moe_apply(
+            jp, dataclasses.replace(_jcfg(**RAGGED), kernel_plan="measure"),
+            jnp.asarray(x), dropless=True)
+        got, aux = port_moe.moe_apply(
+            model.blocks[0].moe,
+            dataclasses.replace(_pcfg(**RAGGED), kernel_plan="measure"),
+            torch.from_numpy(x), dropless=True)
+    finally:
+        set_default_registry(old)
+        jax_reg.set_default_registry(jold)
+    dense, _ = port_moe.moe_apply(model.blocks[0].moe, _pcfg(**DENSE),
+                                  torch.from_numpy(x), dropless=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGIT_TOL)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), **LOGIT_TOL)
+    np.testing.assert_allclose(aux.item(), float(want_aux), rtol=1e-6)
+    plans = reg.plans()
+    assert plans and all(pl["kernel"] == "grouped_gemm" and
+                         pl["pump"] == 1 and not pl["measured"]
+                         for pl in plans)
+    assert reg.stats.measure_s == 0.0 and reg.stats.fallbacks == 0
 
 
 # --------------------------------------------------------------------- MLA --

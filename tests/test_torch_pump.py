@@ -192,6 +192,47 @@ def test_auto_factors_by_hand():
     assert out.shape == (1, 2, 16, 128)
 
 
+# Inputs at which a kernel is built for no pump at all: flash at D 256 and
+# D 6 and in fp16; decode at 64 q heads per kv head (64 lane slots at D
+# 128), at D 6 and D 256, and with an fp16 cache.
+UNBUILT = {
+    "flash D256": ("flash", 256, torch.float32, 1),
+    "flash D6": ("flash", 6, torch.float32, 1),
+    "flash fp16": ("flash", 16, torch.float16, 1),
+    "decode G64": ("decode", 128, torch.float32, 64),
+    "decode D6": ("decode", 6, torch.float32, 1),
+    "decode D256": ("decode", 256, torch.float32, 1),
+    "decode fp16 cache": ("decode", 16, torch.float16, 1),
+}
+
+
+@pytest.mark.parametrize("pump", ["auto", "measure"])
+@pytest.mark.parametrize("case", sorted(UNBUILT))
+def test_planned_pump_where_nothing_is_built(case, pump):
+    """'auto' and 'measure' plan with max_factor 1 where the kernel is
+    built for no factor, so a CPU tensor runs the plain version exactly as
+    with pump=1 (no ValueError from an empty max())."""
+    op, d, dtype, group = UNBUILT[case]
+    kernel = port_fa if op == "flash" else port_da
+    assert not any(kernel.built(f, "T", d, dtype) if op == "flash"
+                   else kernel.built(f, "T", group, d, dtype)
+                   for f in (1, 2, 4))
+    rng = np.random.default_rng(11)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)).to(dtype)
+
+    if op == "flash":
+        q, k, v = t(1, 2, 9, d), t(1, 1, 9, d), t(1, 1, 9, d)
+        got = port_ops.flash_attention(q, k, v, causal=True, pump=pump)
+        want = port_ops.flash_attention(q, k, v, causal=True, pump=1)
+    else:
+        q, kc, vc = t(1, group, d), t(1, 1, 12, d), t(1, 1, 12, d)
+        got = port_ops.decode_attention(q, kc, vc, 7, pump=pump)
+        want = port_ops.decode_attention(q, kc, vc, 7, pump=1)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
 # ------------------------------------------------------------ built sets --
 def test_built_sets_are_plain_functions():
     f32, bf16 = torch.float32, torch.bfloat16
