@@ -73,6 +73,15 @@ Phases, in order; any failure exits non-zero:
        that replays the measured factor from the cache with zero
        measurements; ``pump='measure'`` on flash, decode attention and
        the SSD scan, whose kernels' launch counts must move.
+   (k) the shapes the newer configs' serving paths give the kernels, each
+       in every built pump case against its plain version under the
+       tolerance of (b), (c) or (d), timed beside its bound and SDPA:
+       flash (B 8, S 512, bf16, causal) and decode attention (B 8, T 577,
+       fp32 cache) at qwen2-7b's, qwen2.5-14b's, granite-3-2b's and
+       zamba2-2.7b's heads (groups of 7, 5, 4 and 1; D 128, 128, 64, 80);
+       the SSD scan and decode step at zamba2's widths (H 80, N 64).  The
+       grouped GEMM's (i) also runs deepseek-v3's MoE shapes (256 experts
+       top-8, 7168 <-> 2048, prefill and decode routings).
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -106,17 +115,35 @@ Phases, in order; any failure exits non-zero:
    graph on the region kernel at pump 1, plans never measured) against
    the direct ``csrc/grouped_gemm.cu`` route under ``RTOL_MOE_LAYER``,
    both timed warm, with the registry route's cold first call of a new
-   routing and the gate product at the capacity model's pump.
+   routing and the gate product at the capacity model's pump.  zamba2-2.7b
+   (the hybrid family, 54 Mamba-2 blocks and one shared attention block
+   after every 6) comes before the replay, the same way with both impls
+   at ``'pallas'`` against ``'xla_chunked'`` / ``'xla'`` (54 scans and 9
+   flash launches per prefill, 54 SSD decode steps and 9 decode
+   attentions per step, ``ATOL_E2E_HYBRID_LOGITS``), through the plan
+   registry too, whose warmup plans all four serving kernels; the replay
+   covers the three models' grids.  After deepseek-v2-lite:
+   qwen2.5-14b at full width (48 layers, 40/8 heads x 128, ``qkv_bias``;
+   48 flash launches per prefill, 48 decode attentions per step,
+   ``ATOL_E2E_QWEN25_LOGITS``), and deepseek-v3-671b at full width and
+   ``DSV3_LAYERS`` deep (3 dense and 2 MoE layers; 6 grouped-GEMM launches
+   per prefill and per step), whose plain route, MoE layer check and
+   logits comparison run at 8 x ``DSV3_HOLD_PROMPT`` prompt tokens (the
+   reason at the constant).  zamba2, qwen2.5-14b and deepseek-v3 are
+   profiled by ``launch.profile`` (device busy and idle per prefill and
+   decode step) on the kernel route's weights.
 6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
-7. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+7. a ``{"kernels": [...]}`` line (each kernel's launches summed over the
+   paths, and per path under ``launches_by_path``), then the last line
+   ``{"ok": true, "device": {...}}``.  Each phase prints its seconds.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -185,6 +212,36 @@ RTOL_MOE_LAYER = 2.0 ** -6
 # logits the top two lie close, and even the qwen3 and mamba2 routes, with
 # no routing to flip, agree on only 94-97% of the rows
 ATOL_E2E_MOE_LOGITS = 2.0
+# zamba2-2.7b kernel route vs plain route logits after 54 Mamba-2 blocks
+# and 9 applications of the shared attention block, bf16: each block
+# differs as mamba2's do (the plain SSD route rounds G, w, the chunk start
+# states and exp(logP) to bf16, about 2^-9 of y) and each shared block as
+# qwen3's do (fp32 summation order in attention flips single bf16
+# roundings); the differences add up like a random walk over the 63
+# mixers, as over mamba2's 48, and the logits reach about 5.5 here, so the
+# same 0.5 (9%) leaves room for the drift while a wrong decay, a lost
+# chunk or a lost key tile moves the logits by O(1)
+ATOL_E2E_HYBRID_LOGITS = 0.5
+# qwen2.5-14b kernel route vs plain route logits after 48 bf16 layers: the
+# difference is qwen3's (fp32 summation order inside attention flips single
+# bf16 roundings of its outputs), a random walk over 48 layers where
+# qwen3 has 28 (sqrt(48 / 28) = 1.3 times the drift), on logits that reach
+# about 5.6 where qwen3's reach 3; qwen3's 0.1 (3% of its largest logit)
+# scaled by both gives 0.25, and 0.3 (5% of the largest logit) leaves room
+# for it, while a wrong kernel makes the logits unrelated (a difference of
+# their own size)
+ATOL_E2E_QWEN25_LOGITS = 0.3
+# deepseek-v3-671b on one card: every width, the depth cut to its 3 dense
+# layers and 2 MoE layers (27.2 B parameters, 54 GB of bf16 weights; the
+# 61 layers are 671 B).  Its plain route, the dense dropless einsum path,
+# scatters a prefill's t tokens into (256 experts, 8 t, 7168) buffers, two
+# of which live at once (the expert outputs and their padded copy): 2 x
+# 15 GB at 8 x 64 tokens, more than the 26 GB left beside the weights, and
+# 2 x 7.5 GB at 8 x 32.  So the plain route, the MoE layer check and the
+# logits comparison run at 8 x 32 prompt tokens; the kernel route's
+# launches and times stay at 8 x 512
+DSV3_LAYERS = 5
+DSV3_HOLD_PROMPT = 32
 # compiled graphs vs the port's numpy executor where exp enters (flash and
 # decode attention, the SSD scan and decode step): numpy's and the card's
 # exp differ by an ulp on some inputs, amplified by the sums after it; the
@@ -202,6 +259,14 @@ BUILD_CACHE = Path(__file__).resolve().parent / "build" / "chip_smoke"
 # the plan registry phase's own compile cache, emptied at its start so its
 # warmup measures every plan and the replay reads only what it wrote
 REGISTRY_CACHE = BUILD_CACHE / "registry_cache.json"
+
+
+@contextlib.contextmanager
+def timed(phase: str):
+    """Prints the seconds a phase of this run took."""
+    t0 = time.perf_counter()
+    yield
+    print(f"[time] {phase}: {time.perf_counter() - t0:.1f} s")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1106,6 +1171,18 @@ def phase_paper_kernels(timer):
     ]
 
 
+def expert_weights(gen, e: int, d: int, f: int) -> torch.Tensor:
+    """(E, D, F) bf16 expert weights, normal / sqrt(D); above 2^28
+    elements drawn 16 experts at a time (deepseek-v3's whole stack is 15 GB
+    in fp32)."""
+    step = e if e * d * f <= 1 << 28 else 16
+    w = torch.empty(e, d, f, device="cuda", dtype=torch.bfloat16)
+    for i in range(0, e, step):
+        w[i:i + step] = (randn(gen, min(step, e - i), d, f) / d ** 0.5).to(
+            torch.bfloat16)
+    return w
+
+
 def routed_layout(gen, tokens: int, e: int = 64, k: int = 6, d: int = 2048):
     """The ragged route's layout for a top-k routing of ``tokens`` seeded
     hidden states through a seeded router, as ``models.moe`` builds it:
@@ -1120,8 +1197,8 @@ def phase_grouped_gemm(timer):
     """(i) the grouped GEMM against its plain version: fp32 at small ragged
     shapes in every pump case (empty experts, one-row groups, ragged C, F
     and D in the dense form, surplus tiles of a worst-case table), then the
-    deepseek-v2-lite MoE path's shapes in bf16.  Returns its kernels
-    entry."""
+    deepseek-v2-lite and deepseek-v3 MoE paths' shapes in bf16.  Returns
+    its kernels entry."""
     from repro_torch.core.ir import PumpSpec
     from repro_torch.core.pump_plan import PEAK_FLOPS_BF16, bound_ms
     from repro_torch.kernels import grouped_gemm as gg
@@ -1191,64 +1268,69 @@ def phase_grouped_gemm(timer):
           f"integer values, rel err {worst:.3g} on normal values (rtol "
           f"{ATOL_FP32})")
 
-    # the deepseek-v2-lite path: top-6 of 64 experts for a prefill of
-    # 8 x 512 tokens and for one decode step of 8; gate / up (D 2048 ->
-    # F 1408) and down (1408 -> 2048), bf16, in the row tile the MoE layer
-    # picks (128 rows for the prefill, 16 for the decode step)
+    # the MoE paths: deepseek-v2-lite's top-6 of 64 experts (D 2048 <->
+    # F 1408) and deepseek-v3's top-8 of 256 (D 7168 <-> F 2048), each for
+    # a prefill of 8 x 512 tokens and for one decode step of 8; gate / up
+    # (D -> F) and down (F -> D), bf16, in the row tile the MoE layer picks
+    # (128 rows for the prefill, 16 for the decode step)
     from repro_torch.models import moe
-    e, d, f = 64, 2048, 1408
-    w_up = (randn(gen, e, d, f) / d ** 0.5).to(torch.bfloat16)
-    w_down = (randn(gen, e, f, d) / f ** 0.5).to(torch.bfloat16)
     shapes = []
-    for phase, tokens in (("prefill", 8 * 512), ("decode", 8)):
-        rows, padded, tiles, n_rows = routed_layout(gen, tokens)
-        bc = moe.row_tile(tokens * 6, e, torch.bfloat16)
-        if bc != moe.ROW_TILE:
-            tiles = gg.tile_table(padded, bc, -(-n_rows // bc) + e)
-        used = int(padded.sum())
-        active = int((padded > 0).sum())
-        for name, w in (("gate/up", w_up), ("down", w_down)):
-            din, dout = w.shape[1], w.shape[2]
-            x = torch.zeros(n_rows, din, device="cuda", dtype=torch.bfloat16)
-            x[rows] = randn(gen, rows.numel(), din, dtype=torch.bfloat16)
-            got = ops.grouped_gemm(x, w, bc=bc, tiles=tiles)
-            want = ref.ragged_grouped_gemm(x, w, tiles)
-            e_rel, e_abs = rel_err(got, want), err(got, want)
-            check(e_rel <= RTOL_GG_BF16,
-                  f"grouped_gemm {phase} {name}: rel err {e_rel}")
-            nbytes = 2 * (used * din + active * din * dout + used * dout)
-            bound, by = bound_ms(nbytes, 2.0 * used * din * dout,
-                                 PEAK_FLOPS_BF16)
-            ms = timer.ms(lambda: ops.grouped_gemm(x, w, bc=bc, tiles=tiles))
-            plain = timer.ms(lambda: ref.ragged_grouped_gemm(x, w, tiles),
-                             iters=5)
-            lib = None
-            if hasattr(torch, "_grouped_mm"):
-                # the yardstick only: the port never calls it
-                offs = torch.cumsum(padded, 0).to(torch.int32)
-                try:
-                    lib = timer.ms(lambda: torch._grouped_mm(x, w, offs=offs))
-                except RuntimeError as exc:
-                    print(f"[grouped_gemm] torch._grouped_mm refused these "
-                          f"inputs: {str(exc).splitlines()[0]}")
-            print(f"[grouped_gemm {phase} {name}] {tokens} tokens x top-6: "
-                  f"{used} padded rows in {active} experts, {bc}-row "
-                  f"tiles, D{din} F{dout} "
-                  f"bf16: rel err {e_rel:.3g} (rtol {RTOL_GG_BF16:.3g}), "
-                  f"max abs err {e_abs:.3g}; kernel {ms:.4f} ms, plain "
-                  f"{plain:.4f} ms, torch._grouped_mm "
-                  f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
-                  f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
-            shapes.append({"shape": f"{phase} {name}", "rows": used,
-                           "row_tile": bc,
-                           "experts": active, "max_abs_err": e_abs, "ms": ms,
-                           "plain_ms": plain, "bound_ms": bound,
-                           "bound_by": by, "library_ms": lib})
-            del x, got, want
-    del w_up, w_down
-    # the kernels line carries the decode step's gate / up shape, the one
-    # launched most (52 of the 78 launches of each of the 64 steps); every
-    # shape is under "shapes"
+    for path, e, k, d, f in (("deepseek-v2-lite", 64, 6, 2048, 1408),
+                             ("deepseek-v3", 256, 8, 7168, 2048)):
+        w_up = expert_weights(gen, e, d, f)
+        w_down = expert_weights(gen, e, f, d)
+        for phase, tokens in (("prefill", 8 * 512), ("decode", 8)):
+            rows, padded, tiles, n_rows = routed_layout(gen, tokens, e, k, d)
+            bc = moe.row_tile(tokens * k, e, torch.bfloat16)
+            if bc != moe.ROW_TILE:
+                tiles = gg.tile_table(padded, bc, -(-n_rows // bc) + e)
+            used = int(padded.sum())
+            active = int((padded > 0).sum())
+            for name, w in (("gate/up", w_up), ("down", w_down)):
+                din, dout = w.shape[1], w.shape[2]
+                x = torch.zeros(n_rows, din, device="cuda",
+                                dtype=torch.bfloat16)
+                x[rows] = randn(gen, rows.numel(), din, dtype=torch.bfloat16)
+                got = ops.grouped_gemm(x, w, bc=bc, tiles=tiles)
+                want = ref.ragged_grouped_gemm(x, w, tiles)
+                e_rel, e_abs = rel_err(got, want), err(got, want)
+                check(e_rel <= RTOL_GG_BF16,
+                      f"grouped_gemm {path} {phase} {name}: rel err {e_rel}")
+                nbytes = 2 * (used * din + active * din * dout + used * dout)
+                bound, by = bound_ms(nbytes, 2.0 * used * din * dout,
+                                     PEAK_FLOPS_BF16)
+                ms = timer.ms(lambda: ops.grouped_gemm(x, w, bc=bc,
+                                                       tiles=tiles))
+                plain = timer.ms(lambda: ref.ragged_grouped_gemm(x, w, tiles),
+                                 iters=5)
+                lib = None
+                if hasattr(torch, "_grouped_mm"):
+                    # the yardstick only: the port never calls it
+                    offs = torch.cumsum(padded, 0).to(torch.int32)
+                    try:
+                        lib = timer.ms(lambda: torch._grouped_mm(x, w,
+                                                                 offs=offs))
+                    except RuntimeError as exc:
+                        print(f"[grouped_gemm] torch._grouped_mm refused "
+                              f"these inputs: {str(exc).splitlines()[0]}")
+                print(f"[grouped_gemm {path} {phase} {name}] {tokens} tokens "
+                      f"x top-{k}: {used} padded rows in {active} of {e} "
+                      f"experts, {bc}-row tiles, D{din} F{dout} bf16: rel err "
+                      f"{e_rel:.3g} (rtol {RTOL_GG_BF16:.3g}), max abs err "
+                      f"{e_abs:.3g}; kernel {ms:.4f} ms, plain {plain:.4f} "
+                      f"ms, torch._grouped_mm "
+                      f"{'none' if lib is None else f'{lib:.4f} ms'}, bound "
+                      f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+                shapes.append({"shape": f"{path} {phase} {name}",
+                               "rows": used, "row_tile": bc,
+                               "experts": active, "max_abs_err": e_abs,
+                               "ms": ms, "plain_ms": plain, "bound_ms": bound,
+                               "bound_by": by, "library_ms": lib})
+                del x, got, want
+        del w_up, w_down
+    # the kernels line carries deepseek-v2-lite's decode step's gate / up
+    # shape, the one launched most (52 of the 78 launches of each of the 64
+    # steps); every shape is under "shapes"
     main = shapes[2]
     return [{"name": "grouped_gemm", "route": "cuda",
              "source": "src/repro_torch/csrc/grouped_gemm.cu",
@@ -1257,6 +1339,215 @@ def phase_grouped_gemm(timer):
              **{k_: main[k_] for k_ in ("ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
              "shapes": shapes}]
+
+
+# ------------------------------------ the new configs' kernel shapes --
+# the dense and hybrid configs whose attention shapes phase 3 (k) checks:
+# (config, q heads, kv heads, head dim) come from each CONFIG
+SERVING_ARCHS = ("qwen2-7b", "qwen2.5-14b", "granite-3-2b", "zamba2-2.7b")
+
+
+def attention_shape(arch: str):
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch(arch)
+    return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+
+
+def flash_at(timer, gen, label, b, h, hkv, s, d) -> dict:
+    """Flash attention in bf16, causal, at one serving shape: every built
+    pump case against the plain version under ATOL_BF16 with T1's bits;
+    T1, plain and SDPA times beside the bound."""
+    from repro_torch.core.pump_plan import PEAK_FLOPS_BF16, bound_ms
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = randn(gen, b, h, s, d, dtype=torch.bfloat16)
+    k = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
+    v = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
+    want = ref.flash_attention(q, k, v, causal=True)
+
+    def check_one(outs, name):
+        e = err(outs[0], want)
+        check(e <= ATOL_BF16, f"{name}: err {e} > {ATOL_BF16}")
+        return e
+
+    def run(pump):
+        return (fa.flash_attention_cuda(q, k, v, causal=True, pump=pump),)
+    built = lambda f, m: fa.built(f, m, d, q.dtype)  # noqa: E731
+    cases, e = pump_sweep(f"flash {label}", run, check_one, built)
+    pumps = pump_times(timer, f"flash {label}", run, built)
+    pairs = sum(min(i + 1, s) for i in range(s))
+    flops = 4.0 * b * h * d * pairs
+    bound, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
+                         PEAK_FLOPS_BF16)
+    ms = timer.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
+    plain = timer.ms(lambda: ref.flash_attention(q, k, v, causal=True))
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    print(f"[flash {label}] B{b} H{h}/{hkv} S=T={s} D{d} (padded width "
+          f"{fa.padded_dim(d)}) bf16 causal, {'/'.join(cases)}: max abs err "
+          f"{e:.3g} (atol {ATOL_BF16}), identical bits; kernel {ms:.4f} ms "
+          f"({flops / ms * 1e-9:.1f} TFLOP/s, {ms / lib:.2f}x SDPA), plain "
+          f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {"shape": f"{label} B{b} H{h}/{hkv} S{s} D{d}", "max_abs_err": e,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib, "pump_ms": pumps}
+
+
+def decode_at(timer, gen, label, b, h, hkv, t, d, pos) -> dict:
+    """Decode attention with a bf16 q and an fp32 cache at one serving
+    shape, every row at ``pos``: every built pump case against the plain
+    version under ATOL_BF16 with T1's bits; T1, plain and SDPA times
+    beside the bound."""
+    from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ref
+    q = randn(gen, b, h, d, dtype=torch.bfloat16)
+    kc, vc = randn(gen, b, hkv, t, d), randn(gen, b, hkv, t, d)
+    p = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    want = ref.decode_attention(q, kc, vc, p)
+
+    def check_one(outs, name):
+        e = err(outs[0], want)
+        check(e <= ATOL_BF16, f"{name}: err {e} > {ATOL_BF16}")
+        return e
+
+    def run(pump):
+        return (da.decode_attention_cuda(q, kc, vc, p, pump=pump),)
+    built = lambda f, m: da.built(f, m, h // hkv, d, kc.dtype)  # noqa: E731
+    cases, e = pump_sweep(f"decode {label}", run, check_one, built)
+    check(da.splits(b, hkv, t, d, kc.dtype)
+          == da.kernel_splits(b, hkv, t, d, kc.dtype),
+          f"decode {label}: the wrapper's and the kernel's splits differ")
+    pumps = pump_times(timer, f"decode {label}", run, built)
+    n_keys = b * (pos + 1)
+    bound, by = bound_ms(2 * q.numel() * 2 + p.numel() * 4
+                         + 2 * n_keys * hkv * d * 4,
+                         4.0 * h * d * n_keys, PEAK_FLOPS_FP32)
+    ms = timer.ms(lambda: da.decode_attention_cuda(q, kc, vc, p))
+    plain = timer.ms(lambda: ref.decode_attention(q, kc, vc, p))
+    keep = (torch.arange(t, device="cuda")[None, :] <= p[:, None])
+    q4 = q.float()[:, :, None, :]
+    lib = timer.ms(lambda: F.scaled_dot_product_attention(
+        q4, kc, vc, attn_mask=keep[:, None, None, :], enable_gqa=True))
+    print(f"[decode {label}] B{b} H{h}/{hkv} (group {h // hkv}, "
+          f"{da.lane_slots(h // hkv, d)} of {da.MAX_LANE_SLOTS} lane slots) "
+          f"T{t} D{d}, q bf16, cache fp32, pos {pos}, "
+          f"{da.splits(b, hkv, t, d, kc.dtype)} splits, {'/'.join(cases)}: "
+          f"max abs err {e:.3g} (atol {ATOL_BF16}), identical bits; kernel "
+          f"{ms:.4f} ms, plain {plain:.4f} ms, SDPA {lib:.4f} ms, bound "
+          f"{bound:.4f} ms ({by})")
+    return {"shape": f"{label} B{b} H{h}/{hkv} T{t} D{d}", "max_abs_err": e,
+            "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            "library_ms": lib, "pump_ms": pumps}
+
+
+def scan_bound(b, l, h, g, n, p, chunk, tensors):
+    """The SSD scan's bound: each input read once and y and the state
+    written once, against the products' bf16 terms on the tensor cores
+    (``ssd_scan.TERMS``): the causal half of C·Bᵀ once per (b, group,
+    chunk), and per (b, h, chunk) C·S, the causal half of G·x and the
+    state update.  Returns (bound ms, by, bytes, bf16-term FLOP)."""
+    from repro_torch.core.pump_plan import PEAK_FLOPS_BF16, bound_ms
+    from repro_torch.kernels import ssd_scan as ss
+    tri = chunk * (chunk + 1) // 2
+    per = b * -(-l // chunk) * 2
+    prods = {"C.B^T": per * g * tri * n, "C.S": per * h * chunk * p * n,
+             "G.x": per * h * tri * p, "state": per * h * n * p * chunk}
+    tc_flops = sum(v * ss.TERMS[k] for k, v in prods.items())
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    return (*bound_ms(nbytes, tc_flops, PEAK_FLOPS_BF16), nbytes, tc_flops)
+
+
+def phase_serving_shapes(timer, entries) -> None:
+    """(k) the shapes the new configs' serving paths give the kernels,
+    each against its plain version under the tolerance of the phase that
+    checks the kernel at qwen3's and mamba2's shapes, timed beside its
+    bound and, where one exists, SDPA: flash (B 8, S 512, bf16, causal)
+    and decode attention (B 8, T 577, fp32 cache, pos 575) at the head
+    groups and widths of qwen2-7b (7 q heads a kv head, D 128),
+    qwen2.5-14b (5, D 128), granite-3-2b (4, D 64) and zamba2-2.7b (1, D
+    80, which flash runs in its padded width 128); the SSD scan (B 8, L
+    512, H 80, P 64, N 64, chunk 64, bf16: the tensor-core body in its
+    generic form, not the constant-width build of N 128) and the SSD
+    decode step at zamba2's widths.  Each goes into its kernel entry's
+    ``shapes``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
+    by_name = {e_["name"]: e_ for e_ in entries}
+    gen = torch.Generator(device="cuda").manual_seed(2222)
+    for arch in SERVING_ARCHS:
+        h, hkv, d = attention_shape(arch)
+        by_name["flash_attention"].setdefault("shapes", []).append(
+            flash_at(timer, gen, arch, 8, h, hkv, 512, d))
+        by_name["decode_attention"].setdefault("shapes", []).append(
+            decode_at(timer, gen, arch, 8, h, hkv, 577, d, 575))
+
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch("zamba2-2.7b")
+    s_ = cfg.ssm
+    b, l, g, n, p, chunk = 8, 512, s_.n_groups, s_.state_dim, s_.head_dim, \
+        s_.chunk
+    h = s_.expand * cfg.d_model // p
+    x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
+    y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                 final_state=True)
+
+    def check_scan(outs, name):
+        e_y, e_s = rel_err(outs[0], y_ref), rel_err(outs[1], st_ref)
+        check(e_y <= RTOL_SSD_BF16, f"{name}: y rel err {e_y}")
+        check(e_s <= RTOL_SSD_FP32, f"{name}: state rel err {e_s}")
+        return max(err(outs[0], y_ref), err(outs[1], st_ref))
+
+    def run_scan(pump):
+        return ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                final_state=True, pump=pump)
+    cases, e_scan = pump_sweep("ssd_scan zamba2", run_scan, check_scan,
+                               ss.built)
+    y, st = run_scan(1)
+    pumps = pump_times(timer, "ssd_scan zamba2", run_scan, ss.built)
+    bound, by, nbytes, tc_flops = scan_bound(b, l, h, g, n, p, chunk,
+                                             (x, dt, a, bm, cm, y, st))
+    ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                           final_state=True))
+    plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                          final_state=True))
+    print(f"[ssd_scan zamba2] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk} "
+          f"bf16 (generic tensor-core body), {'/'.join(cases)}: rel err y "
+          f"{rel_err(y, y_ref):.3g} (rtol {RTOL_SSD_BF16:.3g}), state "
+          f"{rel_err(st, st_ref):.3g} (rtol {RTOL_SSD_FP32}), identical "
+          f"bits; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
+          f"{tc_flops / 1e9:.2f} GFLOP of bf16 terms)")
+    by_name["ssd_scan"].setdefault("shapes", []).append(
+        {"shape": f"zamba2-2.7b B{b} L{l} H{h} N{n} P{p}",
+         "max_abs_err": e_scan, "ms": ms, "plain_ms": plain,
+         "bound_ms": bound, "bound_by": by, "library_ms": None,
+         "pump_ms": pumps})
+
+    x, dt, a, bm, cm = ssd_inputs(gen, b, 1, h, g, n, p, torch.bfloat16)
+    x, dt, bm, cm = x[:, 0], dt[:, 0], bm[:, 0], cm[:, 0]
+    st = randn(gen, b, h, n, p)
+    y, st2 = sd.ssd_decode_cuda(st, x, dt, a, bm, cm)
+    y_ref, st2_ref = ref.ssd_decode(st, x, dt, a, bm, cm)
+    e_y, e_s = rel_err(y, y_ref), rel_err(st2, st2_ref)
+    check(max(e_y, e_s) <= RTOL_SSD_FP32,
+          f"ssd_decode zamba2 rel err {max(e_y, e_s)} > {RTOL_SSD_FP32}")
+    nbytes = sum(t.numel() * t.element_size() for t in (st, x, dt, a, bm, cm,
+                                                         y, st2))
+    bound, by = bound_ms(nbytes, 5.0 * b * h * n * p, PEAK_FLOPS_FP32)
+    ms = timer.ms(lambda: sd.ssd_decode_cuda(st, x, dt, a, bm, cm))
+    plain = timer.ms(lambda: ref.ssd_decode(st, x, dt, a, bm, cm))
+    print(f"[ssd_decode zamba2] B{b} H{h} G{g} N{n} P{p}, x / dt / B / C "
+          f"bf16, state fp32: rel err y {e_y:.3g}, state {e_s:.3g} (rtol "
+          f"{RTOL_SSD_FP32}); kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+          f"bound {bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB)")
+    by_name["ssd_decode"].setdefault("shapes", []).append(
+        {"shape": f"zamba2-2.7b B{b} H{h} N{n} P{p}",
+         "max_abs_err": max(err(y, y_ref), err(st2, st2_ref)), "ms": ms,
+         "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+         "library_ms": None})
 
 
 # ------------------------------------------------------------ the compiler --
@@ -1715,6 +2006,13 @@ def set_field(**fields):
     return lambda cfg: dataclasses.replace(cfg, **fields)
 
 
+def dsv3_cut(cfg):
+    """deepseek-v3's kernel route on the card: every width kept, the depth
+    cut to ``DSV3_LAYERS``, its MoE layers ragged dropless."""
+    from repro_torch.launch.serve import moe_ragged
+    return moe_ragged(dataclasses.replace(cfg, n_layers=DSV3_LAYERS))
+
+
 def check_moe_layer(cfg_k, cfg_p, model, prompts):
     """One MoE layer on the same input through both routes: the hidden
     states of the prompts after the dense block, through ``blocks[0]``'s
@@ -1874,16 +2172,24 @@ def check_moe_registry(cfg, model, prompts):
 
 
 def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
-              per_step: dict, atol: float):
+              per_step: dict, atol: float, *, hold_prompt: int = 0,
+              moe_registry: bool = True, profile: bool = False):
     """One model at full width through Engine.generate, batch 8, prompt
     512, 64 new tokens, on seeded random bf16 weights.  ``kernel_route``
     and ``plain_route`` are (name, config transform) pairs.  Each kernel
     of ``per_prefill`` / ``per_step`` must launch that many times in the
     prefill / in each decode step; the kernel route's logits must stay
-    within ``atol`` of the plain route's at every step.  Returns the
-    launches of the kernel route's run and the context the registry phase
-    serves the same model from (config, weights, prompts, the kernel
-    route's tokens, logits and times)."""
+    within ``atol`` of the plain route's at every step.  With
+    ``hold_prompt`` the plain route runs, and the logits (and an MoE
+    layer) are held, at that prompt length instead (the first tokens of the
+    same prompts, 64 new tokens), where the plain route fits the card
+    beside the weights; the kernel route's launches and times stay at 512.
+    ``moe_registry`` runs an MoE model's layer through the plan registry's
+    ragged route too; ``profile`` runs ``launch.profile`` on the kernel
+    route's config and weights.  Returns the launches of the kernel
+    route's run and the context the registry phase serves the same model
+    from (config, weights, prompts, the kernel route's tokens, logits and
+    times)."""
     import gc
     import importlib
     from repro_torch.configs.base import load_arch
@@ -1910,11 +2216,16 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
         mixer = (f"SSD {cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim} "
                  f"heads x {cfg.ssm.head_dim}, state {cfg.ssm.state_dim}, "
                  f"chunk {cfg.ssm.chunk}")
+        if cfg.hybrid_attn_every:
+            mixer += (f"; one shared attention block ({cfg.n_heads}/"
+                      f"{cfg.n_kv_heads} heads x {cfg.head_dim_}, d_ff "
+                      f"{cfg.d_ff}) after every {cfg.hybrid_attn_every} "
+                      f"layers")
     elif cfg.mla:
         m = cfg.mla
-        mixer = (f"MLA {cfg.n_heads} heads, kv_lora {m.kv_lora_rank}, nope "
-                 f"{m.nope_head_dim} + rope {m.rope_head_dim}, v "
-                 f"{m.v_head_dim}")
+        mixer = (f"MLA {cfg.n_heads} heads, q_lora {m.q_lora_rank}, kv_lora "
+                 f"{m.kv_lora_rank}, nope {m.nope_head_dim} + rope "
+                 f"{m.rope_head_dim}, v {m.v_head_dim}")
     else:
         mixer = f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.head_dim_}"
     if cfg.moe:
@@ -1922,6 +2233,8 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
         mixer += (f"; {mo.n_dense_layers} dense layer(s) then MoE "
                   f"{mo.n_experts} experts top-{mo.top_k} x {mo.d_expert}, "
                   f"{mo.n_shared_experts} shared")
+    if cfg.mtp_depth:
+        mixer += "; the MTP block carried (no serving path reads it)"
     print(f"[e2e] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{mixer}, vocab {cfg.vocab_size}; {n_params / 1e9:.2f} B seeded "
           f"bf16 weights ({n_params * 2 / 1e9:.1f} GB) in "
@@ -1962,39 +2275,59 @@ def phase_e2e(arch: str, kernel_route, plain_route, per_prefill: dict,
           f"steps; {batch / steady:.1f} tokens/s")
 
     cfg_plain = p_cfg(eng.cfg)
+    held, h_toks, h_logits = prompts, toks, logits
+    if hold_prompt:
+        held = prompts[:, :hold_prompt]
+        print(f"[e2e] the plain route and the comparison at {batch} x "
+              f"{hold_prompt} prompt tokens (the first of the same prompts), "
+              f"{n_new} new, where the plain route fits beside the weights; "
+              f"the kernel route again at that shape:")
+        h_eng = Engine(eng.cfg, model, scfg)
+        h_toks, h_logits = h_eng.generate(held, n_new, return_logits=True)
+        hdec = h_eng.stats()["phases"]["decode"]
+        print(f"[e2e] {k_name} route at {batch} x {hold_prompt}: warm TTFT "
+              f"{warm_ttft_ms(h_eng, held):.2f} ms; decode "
+              f"{hdec['steady_mean_s'] * 1e3:.3f} ms/step mean")
+        del h_eng
     if cfg.moe:
-        check_moe_layer(eng.cfg, cfg_plain, model, prompts)
+        check_moe_layer(eng.cfg, cfg_plain, model, held)
     # plain route, same weights: timed through the same Engine.generate,
     # then the kernel route's tokens fed to it for the logits comparison
     plain = Engine(cfg_plain, model, scfg)
-    plain.generate(prompts, n_new)
+    plain.generate(held, n_new)
     pdec = plain.stats()["phases"]["decode"]
     print(f"[e2e] {p_name} route: warm TTFT "
-          f"{warm_ttft_ms(plain, prompts):.2f} ms; decode "
+          f"{warm_ttft_ms(plain, held):.2f} ms; decode "
           f"{pdec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
           f"{pdec['steady_p50_s'] * 1e3:.3f} ms p50 over {pdec['steps']} "
           f"steps")
-    cache, last = plain.prefill(prompts)
-    diffs = [err(last, logits[0])]
-    agree = [(last.argmax(-1) == logits[0].argmax(-1)).float().mean().item()]
+    cache, last = plain.prefill(held)
+    diffs = [err(last, h_logits[0])]
+    agree = [(last.argmax(-1) == h_logits[0].argmax(-1)).float().mean()
+             .item()]
     with torch.no_grad():
         for i in range(n_new - 1):
             lg, cache = model_mod.decode_step(
-                cfg_plain, model, {"tokens": toks[:, i:i + 1]}, cache)
+                cfg_plain, model, {"tokens": h_toks[:, i:i + 1]}, cache)
             lg = lg[:, -1]
-            diffs.append(err(lg, logits[i + 1]))
-            agree.append((lg.argmax(-1) == logits[i + 1].argmax(-1))
+            diffs.append(err(lg, h_logits[i + 1]))
+            agree.append((lg.argmax(-1) == h_logits[i + 1].argmax(-1))
                          .float().mean().item())
+    del plain, cache
     mean_agree = statistics.fmean(agree)
     print(f"[e2e] kernel vs plain route logits: prefill max abs diff "
           f"{diffs[0]:.4g}, decode steps max {max(diffs[1:]):.4g} (atol "
-          f"{atol}; max |logit| {logits.abs().max().item():.3g}); "
+          f"{atol}; max |logit| {h_logits.abs().max().item():.3g}); "
           f"greedy argmax agreement {mean_agree:.4f}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     check(max(diffs) <= atol,
           f"route logits differ by {max(diffs)} > {atol}")
-    if cfg.moe:
+    if cfg.moe and moe_registry:
         check_moe_registry(eng.cfg, model, prompts)
+    if profile:
+        from repro_torch.launch import profile as profile_mod
+        profile_mod.profile_serving(eng.cfg, batch=batch,
+                                    prompt_len=prompt_len, model=model)
     ctx = {"cfg": eng.cfg, "model": model, "prompts": prompts, "scfg": scfg,
            "mods": mods, "toks": toks, "logits": logits,
            "ttft_ms": st["ttft_s"] * 1e3, "warm_ttft_ms": warm,
@@ -2273,13 +2606,20 @@ def main() -> int:
     from repro_torch.launch.timing import Timer
     t_start = time.perf_counter()
     card = phase_env()
-    phase_build()
+    with timed("build"):
+        phase_build()
     timer = Timer()
-    kernels = (phase_kernels(timer) + phase_ssd_kernels(timer)
-               + phase_paper_kernels(timer) + phase_grouped_gemm(timer))
-    compiled, compiler_launches = phase_compiler(timer)
+    with timed("kernels against their plain versions (3 a-i)"):
+        kernels = (phase_kernels(timer) + phase_ssd_kernels(timer)
+                   + phase_paper_kernels(timer) + phase_grouped_gemm(timer))
+    with timed("the new configs' kernel shapes (3 k)"):
+        phase_serving_shapes(timer, kernels)
+    with timed("compiler (3 j)"):
+        compiled, compiler_launches = phase_compiler(timer)
     kernels += compiled
     del timer
+    # each path's launches, read around its own run: path -> kernel -> count
+    paths = {}
     # the plan registry phase's measured plans go to a cache of their own
     from repro_torch.compiler import CompileCache
     from repro_torch.compiler.registry import PlanRegistry
@@ -2287,32 +2627,73 @@ def main() -> int:
     registry = PlanRegistry(cache=CompileCache(REGISTRY_CACHE))
     qwen3 = ({"flash_attention": 28}, {"decode_attention": 28},
              ATOL_E2E_LOGITS)
-    launches, ctx = phase_e2e(
-        "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
-        ("xla_chunked", set_field(attention_impl="xla_chunked")), *qwen3)
-    phase_registry(ctx, *qwen3, registry)
-    served = [(ctx["cfg"], ctx["scfg"])]
-    del ctx
-    phase_decode_loop()
+    with timed("qwen3-0.6b"):
+        paths["qwen3-0.6b"], ctx = phase_e2e(
+            "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
+            ("xla_chunked", set_field(attention_impl="xla_chunked")), *qwen3)
+        phase_registry(ctx, *qwen3, registry)
+        served = [(ctx["cfg"], ctx["scfg"])]
+        del ctx
+        phase_decode_loop()
     mamba2 = ({"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS)
-    more, ctx = phase_e2e(
-        "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
-        ("xla", set_field(ssm_impl="xla")), *mamba2)
-    launches.update(more)
-    phase_registry(ctx, *mamba2, registry)
-    served.append((ctx["cfg"], ctx["scfg"]))
-    del ctx
-    phase_registry_replay(served, lambda: CompileCache(REGISTRY_CACHE))
-    more, _ctx = phase_e2e(
-        "deepseek-v2-lite-16b", ("ragged grouped GEMM", moe_ragged),
-        ("dense dropless", plain_moe),
-        {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS)
-    launches.update(more)
-    del _ctx
-    launches.update(phase_paper())
-    launches.update(compiler_launches)
+    with timed("mamba2-1.3b"):
+        paths["mamba2-1.3b"], ctx = phase_e2e(
+            "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
+            ("xla", set_field(ssm_impl="xla")), *mamba2)
+        phase_registry(ctx, *mamba2, registry)
+        served.append((ctx["cfg"], ctx["scfg"]))
+        del ctx
+    # zamba2: 54 Mamba-2 blocks in 9 groups of 6, each group followed by
+    # the one shared attention block: 54 scans and 9 flash launches a
+    # prefill, 54 SSD decode steps and 9 decode attentions a step
+    zamba2 = ({"ssd_scan": 54, "flash_attention": 9},
+              {"ssd_decode": 54, "decode_attention": 9},
+              ATOL_E2E_HYBRID_LOGITS)
+    with timed("zamba2-2.7b"):
+        paths["zamba2-2.7b"], ctx = phase_e2e(
+            "zamba2-2.7b",
+            ("pallas", set_field(attention_impl="pallas", ssm_impl="pallas")),
+            ("xla_chunked / xla", set_field(attention_impl="xla_chunked",
+                                            ssm_impl="xla")),
+            *zamba2, profile=True)
+        phase_registry(ctx, *zamba2, registry)
+        served.append((ctx["cfg"], ctx["scfg"]))
+        del ctx
+    with timed("registry replay"):
+        phase_registry_replay(served, lambda: CompileCache(REGISTRY_CACHE))
+    with timed("deepseek-v2-lite-16b"):
+        paths["deepseek-v2-lite-16b"], _ctx = phase_e2e(
+            "deepseek-v2-lite-16b", ("ragged grouped GEMM", moe_ragged),
+            ("dense dropless", plain_moe),
+            {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS)
+        del _ctx
+    with timed("qwen2.5-14b"):
+        paths["qwen2.5-14b"], _ctx = phase_e2e(
+            "qwen2.5-14b", ("pallas", set_field(attention_impl="pallas")),
+            ("xla_chunked", set_field(attention_impl="xla_chunked")),
+            {"flash_attention": 48}, {"decode_attention": 48},
+            ATOL_E2E_QWEN25_LOGITS, profile=True)
+        del _ctx
+    with timed("deepseek-v3-671b, cut depth"):
+        print(f"[e2e] deepseek-v3-671b at full width, cut from 61 layers to "
+              f"{DSV3_LAYERS} (its 3 dense layers and {DSV3_LAYERS - 3} MoE "
+              f"layers; 671 B parameters do not fit one card); the plain "
+              f"route held at 8 x {DSV3_HOLD_PROMPT} prompt tokens")
+        paths["deepseek-v3-671b"], _ctx = phase_e2e(
+            "deepseek-v3-671b", ("ragged grouped GEMM", dsv3_cut),
+            ("dense dropless", plain_moe),
+            {"grouped_gemm": 3 * (DSV3_LAYERS - 3)},
+            {"grouped_gemm": 3 * (DSV3_LAYERS - 3)}, ATOL_E2E_MOE_LOGITS,
+            hold_prompt=DSV3_HOLD_PROMPT, moe_registry=False, profile=True)
+        del _ctx
+    with timed("paper tables"):
+        paths["paper"] = phase_paper()
+    paths["compiler"] = compiler_launches
     for entry in kernels:
-        entry["launches"] = launches[entry["name"]]
+        by_path = {path: n[entry["name"]] for path, n in paths.items()
+                   if n.get(entry["name"])}
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
     print(f"[done] {time.perf_counter() - t_start:.1f}s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Model configs: a jax-free mirror of ``repro.configs.base``.
 
 Field names and defaults match the reference dataclasses, so a config
-means the same in both packages.  The dense, SSM and MoE families are
-served by this port's model (``models.model``); other families are
-accepted here and rejected there.
+means the same in both packages.  Every decoder-only reference config
+has its copy here (dense, SSM, MoE and hybrid), served by this port's
+model (``models.model``); the enc-dec and VLM families are accepted here
+and rejected there.
 """
 from __future__ import annotations
 
@@ -121,8 +122,8 @@ def load_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
             f"repro_torch.configs.{_modname(arch_id)}")
     except ModuleNotFoundError as e:
         raise NotImplementedError(
-            f"arch {arch_id!r} has no config in the port yet; ported: "
-            f"qwen3-0.6b, mamba2-1.3b, deepseek-v2-lite-16b (ROADMAP.md "
-            f"queue 1: the hybrid family is item 3, enc-dec and VLM item 5)"
+            f"arch {arch_id!r} has no config in the port yet; still to "
+            f"port: whisper-base and internvl2-2b (ROADMAP.md queue 1, "
+            f"item 5: enc-dec and VLM)"
         ) from e
     return mod.SMOKE if smoke else mod.CONFIG

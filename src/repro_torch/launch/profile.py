@@ -6,10 +6,15 @@ and a few steady decode steps of ``Engine.generate``'s path.
         --ssm-impl pallas
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch deepseek-v2-lite-16b --moe-ragged
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-2.7b
 
 Serves ``--arch`` (qwen3-0.6b by default) at full width (seeded bf16
-weights, as ``chip_smoke.py``) once to warm up, then profiles a fresh-cache prefill and ``--steps``
-decode steps.  Per phase it prints the host wall time, the device's busy
+weights, as ``chip_smoke.py``) once to warm up, then profiles a
+fresh-cache prefill and ``--steps`` decode steps (``profile_serving``
+does the same for a config it is given, such as ``chip_smoke.py``'s
+deepseek-v3 at a cut depth).  ``--attention-impl`` and ``--ssm-impl``
+(both ``pallas`` by default) apply to the layers that have them, both to
+a hybrid config.  Per phase it prints the host wall time, the device's busy
 time (the sum of kernel and copy times on the card; the port runs one
 stream), the idle share, the kernel count and the kernels that take most
 device time.
@@ -65,8 +70,8 @@ def _report(name: str, prof, wall_s: float, steps: int,
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Optional[dict]]:
-    """Profiles one prefill and ``--steps`` decode steps; returns each
-    phase's ``_report``."""
+    """Profiles one prefill and ``--steps`` decode steps of ``--arch``;
+    returns each phase's ``_report``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b")
     ap.add_argument("--batch", type=int, default=8)
@@ -85,17 +90,29 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Optional[dict]]:
                               ssm_impl=args.ssm_impl)
     if args.moe_ragged:
         cfg = serve.moe_ragged(cfg)
-    model = convert.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
-        torch.bfloat16)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
+    return profile_serving(cfg, batch=args.batch, prompt_len=args.prompt_len,
+                           steps=args.steps, top=args.top)
+
+
+def profile_serving(cfg, *, batch: int = 8, prompt_len: int = 512,
+                    steps: int = 8, top: int = 8, model=None
+                    ) -> Dict[str, Optional[dict]]:
+    """Profiles one prefill and ``steps`` decode steps of ``cfg`` served by
+    ``Engine`` on the card, on ``model`` or on seeded bf16 weights; returns
+    each phase's ``_report``."""
+    if model is None:
+        model = convert.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+            torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(1))
-    eng = Engine(cfg, model, ServeConfig(
-        batch=args.batch, max_len=args.prompt_len + args.steps + 2))
+    eng = Engine(cfg, model, ServeConfig(batch=batch,
+                                         max_len=prompt_len + steps + 2))
     toks = eng.generate(prompts, 2)           # warm: builds, cuBLAS, allocator
     impl = serve.route(cfg)
-    print(f"[profile] {cfg.name} {impl}, batch {args.batch}, "
-          f"prompt {args.prompt_len}, on {torch.cuda.get_device_name(0)}")
+    print(f"[profile] {cfg.name} ({cfg.n_layers} layers) {impl}, batch "
+          f"{batch}, prompt {prompt_len}, on "
+          f"{torch.cuda.get_device_name(0)}")
 
     def run_prefill(_cache):
         eng.prefill(prompts)                  # ends in a synchronize
@@ -103,15 +120,15 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Optional[dict]]:
     def run_decode(cache):
         cur = toks[:, :1]
         with torch.no_grad():
-            for _ in range(args.steps):
+            for _ in range(steps):
                 logits, cache = model_mod.decode_step(eng.cfg, eng.model,
                                                       {"tokens": cur}, cache)
                 cur = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
 
     phases = {}
-    for name, run, steps in (("prefill", run_prefill, 1),
-                             ("decode", run_decode, args.steps)):
+    for name, run, n in (("prefill", run_prefill, 1),
+                         ("decode", run_decode, steps)):
         # the wall time comes from an unprofiled run: the profiler adds
         # host work; the device time from a profiled run of the same steps
         fresh = (lambda: eng.prefill(prompts)[0]) if name == "decode" \
@@ -123,7 +140,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Optional[dict]]:
         cache = fresh()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             run(cache)
-        phases[name] = _report(name, prof, wall, steps, args.top)
+        phases[name] = _report(name, prof, wall, n, top)
     return phases
 
 

@@ -5,7 +5,13 @@
 
 runs on the card (``--arch mamba2-1.3b --ssm-impl pallas`` serves the SSM
 family through the SSD kernels; ``--arch deepseek-v2-lite-16b --moe-ragged``
-the MoE family through the grouped-GEMM kernel).  ``--kernel-plan measure``
+the MoE family through the grouped-GEMM kernel; ``--arch zamba2-2.7b
+--attention-impl pallas --ssm-impl pallas`` the hybrid family through all
+four serving kernels).  Every decoder-only config of the reference is
+served: qwen3-0.6b, qwen2-7b, qwen2.5-14b, granite-3-2b (dense),
+mamba2-1.3b (SSM), deepseek-v2-lite-16b and deepseek-v3-671b (MoE; the
+latter's 671 B parameters do not fit one card at full depth) and
+zamba2-2.7b (hybrid).  ``--kernel-plan measure``
 serves those kernels through the plan registry at measured pump factors,
 after a warmup that plans the bucket grid;
 ``--smoke --device cpu``
@@ -41,6 +47,8 @@ def route(cfg) -> str:
     """Which kernels serve the config, for a report line."""
     if cfg.family == "ssm":
         return cfg.ssm_impl
+    if cfg.family == "hybrid":
+        return f"attention {cfg.attention_impl}, SSM {cfg.ssm_impl}"
     if cfg.family == "moe":
         mo = cfg.moe
         ragged = mo.ragged_dropless and mo.inference_capacity_factor <= 0

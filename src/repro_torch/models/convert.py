@@ -4,7 +4,9 @@
 converted to numpy arrays (the caller does that; this module imports no
 JAX), un-stacks the leading layer axis of each scanned segment
 (``"blocks"``, and ``"blocks_dense"`` in an MoE tree) and loads every leaf
-into the port's modules.  ``init_params`` draws with the reference init's
+into the port's modules; a hybrid tree's ``shared_attn`` and a
+deepseek-v3 tree's ``mtp`` are single blocks, not stacked, and load as
+they are.  ``init_params`` draws with the reference init's
 distributions (``repro/models/layers.py``, ``ssm.py:27-46``,
 ``moe.py:113-129``): dense weights normal · 1/√d_in, the embedding normal
 · 0.02, norm scales ones, biases zeros; in a Mamba-2 mixer ``conv_w``
@@ -12,7 +14,10 @@ normal · 0.1, ``conv_b`` and ``dt_bias`` zeros, ``A_log = log(linspace(1,
 16, H))`` and ``D`` ones; the routed experts' stacked ``gate`` and ``up``
 normal · 1/√d, ``down`` normal · 1/√d_expert.
 The numbers differ from JAX's for the same seed; tests hand weights
-across with ``from_jax_params`` instead.
+across with ``from_jax_params`` instead.  A tensor of more than
+``CHUNKED_DRAW`` elements is drawn in slices of its leading dim, so the
+fp32 draw never holds a copy of a whole expert stack (deepseek-v3's are
+3.8 G elements, 15 GB in fp32).
 """
 from __future__ import annotations
 
@@ -73,16 +78,15 @@ def init_params(cfg, generator: torch.Generator,
         model = model_mod.build(cfg, dtype)
     for mod in model.modules():
         if isinstance(mod, Dense):
-            d_in = mod.w.shape[0]
-            mod.w.copy_(_normal(mod.w.shape, generator) / math.sqrt(d_in))
+            _draw(mod.w, generator, div=math.sqrt(mod.w.shape[0]))
             if mod.b is not None:
                 mod.b.zero_()
         elif isinstance(mod, Embedding):
-            mod.embedding.copy_(_normal(mod.embedding.shape, generator) * 0.02)
+            _draw(mod.embedding, generator, mul=0.02)
         elif isinstance(mod, RMSNorm):
             mod.scale.fill_(1.0)
         elif isinstance(mod, Mamba2):
-            mod.conv_w.copy_(_normal(mod.conv_w.shape, generator) * 0.1)
+            _draw(mod.conv_w, generator, mul=0.1)
             mod.conv_b.zero_()
             mod.A_log.copy_(torch.log(torch.linspace(
                 1.0, 16.0, mod.A_log.shape[0], device=generator.device)))
@@ -91,10 +95,28 @@ def init_params(cfg, generator: torch.Generator,
         elif isinstance(mod, MoE):
             d, de = mod.gate.shape[1], mod.gate.shape[2]
             for w, fan_in in ((mod.gate, d), (mod.up, d), (mod.down, de)):
-                w.copy_(_normal(w.shape, generator) / math.sqrt(fan_in))
+                _draw(w, generator, div=math.sqrt(fan_in))
     return model.requires_grad_(False)
 
 
 def _normal(shape, generator: torch.Generator) -> torch.Tensor:
     return torch.randn(shape, generator=generator, device=generator.device,
                        dtype=torch.float32)
+
+
+# above this many elements a weight is drawn a slice of its leading dim at a
+# time (about 2^26 elements a slice)
+CHUNKED_DRAW = 1 << 28
+
+
+def _draw(w: torch.Tensor, generator: torch.Generator, *, mul: float = 1.0,
+          div: float = 1.0) -> None:
+    """w <- normal · mul / div, drawn in fp32 and cast; in slices of w's
+    leading dim where w has more than ``CHUNKED_DRAW`` elements."""
+    if w.numel() <= CHUNKED_DRAW:
+        w.copy_(_normal(w.shape, generator) * mul / div)
+        return
+    step = max(1, (1 << 26) // (w.numel() // w.shape[0]))
+    for i in range(0, w.shape[0], step):
+        part = w[i:i + step]
+        part.copy_(_normal(part.shape, generator) * mul / div)

@@ -1,7 +1,8 @@
 """Family dispatcher: the single entry point the engine and launcher use.
 
-The dense, SSM and MoE families are ported, with GQA or MLA attention.
-Other families raise ``NotImplementedError`` naming their ROADMAP.md item.
+The decoder-only families are ported: dense, SSM, MoE and hybrid, with
+GQA or MLA attention.  Enc-dec and VLM raise ``NotImplementedError``
+naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -13,7 +14,6 @@ from . import transformer
 
 # ROADMAP.md queue 1 items for the families the port does not have yet
 _NOT_PORTED = {
-    "hybrid": "item 3 (hybrid family, zamba2-2.7b)",
     "encdec": "item 5 (enc-dec and VLM)",
     "vlm": "item 5 (enc-dec and VLM)",
 }
@@ -24,10 +24,12 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported yet "
             f"(ROADMAP.md queue 1, {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "ssm", "moe"):
+    if cfg.family not in ("dense", "ssm", "moe", "hybrid"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
+    if cfg.family in ("ssm", "hybrid") and cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: the {cfg.family} family needs cfg.ssm")
 
 
 def build(cfg, dtype: torch.dtype = torch.float32) -> transformer.Transformer:

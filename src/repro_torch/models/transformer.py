@@ -1,4 +1,4 @@
-"""Decoder-only LM, dense, SSM and MoE families: the port of
+"""Decoder-only LM, dense, SSM, MoE and hybrid families: the port of
 ``repro.models.transformer``.
 
 The reference scans stacked per-layer params over segments of one block
@@ -6,12 +6,23 @@ kind; here each segment is a ``ModuleList`` walked in Python, and the cache
 holds one list of per-layer dicts per segment: (k, v, pos) for a GQA block,
 (c_kv, k_rope, pos) for an MLA block, (state, conv, pos) for a Mamba-2
 block.  The segments are the reference's (``_segments``): ``blocks`` for
-the dense and SSM families; ``blocks_dense`` (attention + SwiGLU) then
-``blocks`` (attention + MoE) for the MoE family, whose router aux losses
-add up.  Attribute names follow the reference params tree
-(``embed.embedding``, ``final_norm.scale``, ``blocks.<i>.attn.wq.w``,
-``blocks_dense.<i>.mlp.up.w``, ``blocks.<i>.moe.gate`` ...), which
+the dense, SSM and hybrid families; ``blocks_dense`` (attention + SwiGLU)
+then ``blocks`` (attention + MoE) for the MoE family, whose router aux
+losses add up.  The hybrid family (zamba2) runs its Mamba-2 ``blocks`` in
+``n_layers // hybrid_attn_every`` groups, each followed by the one
+``shared_attn`` block (attention + SwiGLU, a single weight copy) with that
+group's own GQA cache (``cache["shared_attn"][group]``).  Attribute names
+follow the reference params tree (``embed.embedding``,
+``final_norm.scale``, ``blocks.<i>.attn.wq.w``, ``blocks_dense.<i>.mlp.up.w``,
+``blocks.<i>.moe.gate``, ``shared_attn.attn.wq.w`` ...), which
 ``convert.from_jax_params`` relies on.
+
+A config with ``mtp_depth`` (deepseek-v3) carries the reference's
+multi-token-prediction block as ``mtp``, a ``DenseBlock``, so the reference
+tree loads whole.  As in the reference's ``forward`` and ``decode_step``,
+nothing on the serving path reads it: only the reference's ``loss_fn``
+does (``repro/models/transformer.py:253-262``), which comes with training
+(ROADMAP.md queue 1, item 8).
 
 Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``,
 ``plan_requests``.
@@ -107,9 +118,17 @@ def _segments(cfg) -> List[Tuple[str, str, int]]:
         nd = cfg.moe.n_dense_layers
         segs = [("blocks_dense", "dense", nd)] if nd else []
         return segs + [("blocks", "moe", cfg.n_layers - nd)]
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):    # hybrid: + shared_attn, below
         return [("blocks", "mamba", cfg.n_layers)]
     return [("blocks", "dense", cfg.n_layers)]
+
+
+def _hybrid_groups(cfg) -> int:
+    """Groups of Mamba-2 blocks a hybrid stack runs, each followed by the
+    shared block; 0 where the config has no shared block."""
+    if cfg.family != "hybrid" or not cfg.hybrid_attn_every:
+        return 0
+    return cfg.n_layers // cfg.hybrid_attn_every
 
 
 class Transformer(nn.Module):
@@ -125,6 +144,10 @@ class Transformer(nn.Module):
             block = _BLOCKS[kind][0]
             setattr(self, name, nn.ModuleList(block(cfg, dtype)
                                               for _ in range(n)))
+        if cfg.family == "hybrid":
+            self.shared_attn = DenseBlock(cfg, dtype)
+        if cfg.mtp_depth:
+            self.mtp = DenseBlock(cfg, dtype)
 
 
 def _backbone(cfg, model: Transformer, x: torch.Tensor,
@@ -133,6 +156,26 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
     new_caches)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, List[Dict]] = {}
+    n_groups = _hybrid_groups(cfg)
+    if n_groups:
+        # the reference's hybrid branch: each group's Mamba-2 blocks, then
+        # the shared block with the group's own cache (with no cache it
+        # runs between groups all the same)
+        g = cfg.hybrid_attn_every
+        blocks, shared = [], []
+        for gi in range(n_groups):
+            for i in range(gi * g, (gi + 1) * g):
+                x, _, nc = mamba_block_apply(
+                    model.blocks[i], cfg, x, positions,
+                    caches["blocks"][i] if caches is not None else None)
+                blocks.append(nc)
+            x, _, nc = dense_block_apply(
+                model.shared_attn, cfg, x, positions,
+                caches["shared_attn"][gi] if caches is not None else None)
+            shared.append(nc)
+        if caches is None:
+            return x, aux_total, None
+        return x, aux_total, {"blocks": blocks, "shared_attn": shared}
     for name, kind, _ in _segments(cfg):
         apply = _BLOCKS[kind][1]
         layers: List[Dict] = []
@@ -170,9 +213,10 @@ def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None) -> Dict:
-    """One cache per layer, in one list per segment; ``max_len`` sizes the
-    KV (or compressed MLA) cache of an attention block and nothing of an
-    SSM block."""
+    """One cache per layer, in one list per segment, and for a hybrid stack
+    one GQA cache per group of its shared block (``shared_attn``);
+    ``max_len`` sizes the KV (or compressed MLA) cache of an attention
+    block and nothing of an SSM block."""
     def one(kind):
         if kind == "mamba":
             return mamba2_cache_init(cfg, batch, dtype, device)
@@ -180,8 +224,12 @@ def init_cache(cfg, batch: int, max_len: int,
             return mla_cache_init(cfg, batch, max_len, dtype, device)
         return gqa_cache_init(cfg, batch, max_len, dtype, device)
 
-    return {name: [one(kind) for _ in range(n)]
-            for name, kind, n in _segments(cfg)}
+    caches = {name: [one(kind) for _ in range(n)]
+              for name, kind, n in _segments(cfg)}
+    n_groups = _hybrid_groups(cfg)
+    if n_groups:
+        caches["shared_attn"] = [one("dense") for _ in range(n_groups)]
+    return caches
 
 
 def plan_requests(cfg, batch: int, max_len: int, *, dtype=None, policy=None,

@@ -147,8 +147,7 @@ def test_chunked_attention_matches(valid, causal, block):
                                rtol=5e-6, atol=5e-6)
 
 
-@pytest.mark.parametrize("family,item", [("hybrid", "item 3"),
-                                         ("encdec", "item 5"),
+@pytest.mark.parametrize("family,item", [("encdec", "item 5"),
                                          ("vlm", "item 5")])
 def test_unported_family_names_roadmap_item(family, item):
     cfg = dataclasses.replace(port_qwen3.SMOKE, family=family)

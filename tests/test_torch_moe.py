@@ -91,10 +91,13 @@ def test_config_mirrors_reference():
 
 
 def test_load_arch_names_the_missing_families():
+    from repro_torch.configs import zamba2_2_7b
     from repro_torch.configs.base import load_arch
     assert load_arch("deepseek-v2-lite-16b") is port_ds.CONFIG
-    with pytest.raises(NotImplementedError, match="item 3.*item 5"):
-        load_arch("zamba2-2.7b")
+    assert load_arch("zamba2-2.7b") is zamba2_2_7b.CONFIG
+    with pytest.raises(NotImplementedError,
+                       match="whisper-base and internvl2-2b.*item 5"):
+        load_arch("whisper-base")
 
 
 # ------------------------------------------------------- the grouped GEMM --
