@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero:
        start event (``Timer.late`` counts the samples that held host time);
        decode attention's ``splits`` (the wrapper's and the built
        kernel's must agree), each pump case over T1, and T1 at pos 63, 319
-       and 575, each within atol 2e-2;
+       and 575, each within atol 2e-2; decode attention at per-row
+       positions as a stream's per-slot decode gives them
+       (``STREAM_ROW_POS`` at B 8, T 577, row 7 a free lane past the end)
+       in every built pump case within atol 2e-2 and with T1's bits, and in
+       fp32 at a small ragged shape within atol 1e-5;
    (c) the SSD scan and (d) the SSD decode step: fp32 at small ragged
        shapes through strided views (the scan in every built pump case,
        with T1's bits), then the mamba2-1.3b path's shapes and dtypes,
@@ -98,11 +102,29 @@ Phases, in order; any failure exits non-zero:
    and the tokens identical where every plan gives T1's bits (checked at
    the serving shapes), and the host µs of one warm registry call.  Then
    ``launch.profile`` over qwen3's decode steps: the decode kernel's
-   device time per call beside the step's busy and wall time.
+   device time per call beside the step's busy and wall time.  Then
+   qwen3's **stream** (continuous batching, ``Engine.serve_stream``) on the
+   same weights, ``ServeConfig(batch=8, max_len=577)``, direct route: a
+   seeded FIFO trace of 16 requests (prompts 128 / 256 / 512, 16 or 32 new
+   tokens, 0.5 arrivals a step) with its launches counted (28 flash per
+   admission group, counted from the step snapshots as distinct prompt
+   lengths per admitting step; 28 decode attentions per decode step, at a
+   (B,) device pos), each request held to its run alone through
+   ``generate`` (``ATOL_E2E_LOGITS`` up to the first differing token,
+   which may differ only at a top-2 gap under it), tokens/s against the
+   solo runs' summed wall (at least 1.3x, the reference harness's bar),
+   occupancy, steps, ms a step and TTFT p50; the same trace with
+   ``prefill_chunk_tokens=256`` (the 512-token prompts in two continuation
+   chunks) and with seeded priorities, ``lowest_priority`` preemption and
+   4 slots (at least one preemption, every request done), both held to the
+   FIFO stream's logits the same way.
 5. end to end, mamba2-1.3b at full width the same way, with
    ``ssm_impl='pallas'`` against ``ssm_impl='xla'``, and through the plan
    registry the same way (48 scans per prefill, 48 SSD decode steps per
-   step, ``ATOL_E2E_SSM_LOGITS``); a fresh registry after
+   step, ``ATOL_E2E_SSM_LOGITS``), then its stream: 8 requests (prompts
+   256 / 512) with ``prefill_chunk_tokens=256``, 48 scans per admission
+   group and per continuation chunk, 48 SSD decode steps per step, held to
+   each request alone under ``ATOL_E2E_SSM_LOGITS``; a fresh registry after
    ``compiler.clear_memo()`` on the same cache then warms both models'
    grids with zero measurements; then
    deepseek-v2-lite-16b at full width (27 layers, 64 experts, 31.4 GB of
@@ -136,7 +158,8 @@ Phases, in order; any failure exits non-zero:
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
 7. a ``{"kernels": [...]}`` line (each kernel's launches summed over the
-   paths, and per path under ``launches_by_path``), then the last line
+   paths, and per path under ``launches_by_path``; the streams of qwen3
+   and mamba2 are the ``stream`` path), then the last line
    ``{"ok": true, "device": {...}}``.  Each phase prints its seconds.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
@@ -252,6 +275,15 @@ ATOL_EXP = 5e-6
 # the largest |value|: both sum in fp32 in another order and round once, so
 # an output may differ by one bf16 ulp, at most 2^-7 of the largest value
 RTOL_REGION_BF16 = 2.0 ** -7
+# the per-row decode positions phase 3 (b) checks at T 577: a lane at 0,
+# lanes on either side of a 64-key tile, deep ones, the last key, and a
+# free lane past the end of the cache (pos >= T keeps every key)
+STREAM_ROW_POS = [0, 63, 64, 200, 319, 575, 576, 600]
+# the per-row positions phase 3 (l) checks at B 4, T 577, as the preempted
+# stream's four lanes give them: a lane just past a 128-token prompt, two
+# deeper ones (543, the deepest a request reaches: 512 + 32 - 1) and a
+# free lane past the end of the cache
+STREAM_B4_POS = [128, 300, 543, 640]
 # the pump cases the kernels of rows 1, 2, 8 and 10 are swept over
 PUMP_CASES = ((1, "T"), (2, "T"), (4, "T"), (2, "R"), (4, "R"))
 # where chip_smoke keeps the compile cache of its autotune phase
@@ -480,7 +512,10 @@ def phase_kernels(timer):
             (2, 16, 8, 577, 128, [576, 511], torch.float32),
             (2, 4, 2, 300, 32, [299, 130], torch.float32),
             (2, 16, 2, 150, 128, [149, 40], torch.float32),
-            (2, 4, 2, 130, 256, [129, -1], torch.bfloat16)]:
+            (2, 4, 2, 130, 256, [129, -1], torch.bfloat16),
+            # per-row lanes of a stream: a lane at 0, lanes on either side
+            # of a 64-key tile, the last key, and free lanes past the end
+            (6, 8, 2, 77, 64, [0, 63, 64, 76, 77, 90], torch.float32)]:
         q, k, v = (randn(gen, b, h, d), randn(gen, b, hkv, t, d, dtype=kv_dt),
                    randn(gen, b, hkv, t, d, dtype=kv_dt))
         p = torch.tensor(pos, dtype=torch.int32, device="cuda")
@@ -601,6 +636,25 @@ def phase_kernels(timer):
     print(f"[decode bf16] B{b} H{h}/{hkv} T{t} D{d} q bf16, cache fp32, "
           f"pos {pos_main}, {'/'.join(cases)}: max abs err {e_da:.3g} (atol "
           f"{ATOL_BF16}), identical bits")
+    # per-row positions, as the stream's per-slot decode gives them: every
+    # row at its own depth, row 7 a free lane past the end (pos >= T keeps
+    # every key); every built pump case with T1's bits
+    pr = torch.tensor(STREAM_ROW_POS, dtype=torch.int32, device="cuda")
+    want_rows = ref.decode_attention(qd, kc, vc, pr)
+
+    def check_rows(outs, label):
+        e = err(outs[0], want_rows)
+        check(e <= ATOL_BF16, f"{label}: err {e} > {ATOL_BF16}")
+        return e
+    cases, e_rows = pump_sweep(
+        "decode per-row pos",
+        lambda pump: (da.decode_attention_cuda(qd, kc, vc, pr, pump=pump),),
+        check_rows, da_built)
+    print(f"[decode bf16] per-row pos {STREAM_ROW_POS} (T {t}): "
+          f"{'/'.join(cases)}: max abs err {e_rows:.3g} (atol {ATOL_BF16}), "
+          f"identical bits; T1 "
+          f"{timer.ms(lambda: da.decode_attention_cuda(qd, kc, vc, pr)):.4f}"
+          f" ms")
     # the splits are a function of the shape alone, the same in the wrapper
     # and in the built kernel
     for shape in ((b, hkv, t, d, kc.dtype), (b, hkv, t, d, torch.bfloat16),
@@ -1395,7 +1449,8 @@ def flash_at(timer, gen, label, b, h, hkv, s, d) -> dict:
 
 def decode_at(timer, gen, label, b, h, hkv, t, d, pos) -> dict:
     """Decode attention with a bf16 q and an fp32 cache at one serving
-    shape, every row at ``pos``: every built pump case against the plain
+    shape, every row at ``pos`` (an int), or row i at ``pos[i]`` (a
+    list, as a stream's lanes): every built pump case against the plain
     version under ATOL_BF16 with T1's bits; T1, plain and SDPA times
     beside the bound."""
     from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
@@ -1403,7 +1458,8 @@ def decode_at(timer, gen, label, b, h, hkv, t, d, pos) -> dict:
     from repro_torch.kernels import ref
     q = randn(gen, b, h, d, dtype=torch.bfloat16)
     kc, vc = randn(gen, b, hkv, t, d), randn(gen, b, hkv, t, d)
-    p = torch.full((b,), pos, dtype=torch.int32, device="cuda")
+    rows = [pos] * b if isinstance(pos, int) else list(pos)
+    p = torch.tensor(rows, dtype=torch.int32, device="cuda")
     want = ref.decode_attention(q, kc, vc, p)
 
     def check_one(outs, name):
@@ -1419,7 +1475,7 @@ def decode_at(timer, gen, label, b, h, hkv, t, d, pos) -> dict:
           == da.kernel_splits(b, hkv, t, d, kc.dtype),
           f"decode {label}: the wrapper's and the kernel's splits differ")
     pumps = pump_times(timer, f"decode {label}", run, built)
-    n_keys = b * (pos + 1)
+    n_keys = sum(min(r, t - 1) + 1 for r in rows)
     bound, by = bound_ms(2 * q.numel() * 2 + p.numel() * 4
                          + 2 * n_keys * hkv * d * 4,
                          4.0 * h * d * n_keys, PEAK_FLOPS_FP32)
@@ -1458,6 +1514,49 @@ def scan_bound(b, l, h, g, n, p, chunk, tensors):
     return (*bound_ms(nbytes, tc_flops, PEAK_FLOPS_BF16), nbytes, tc_flops)
 
 
+def scan_at(timer, gen, label, b, l, h, g, n, p, chunk) -> dict:
+    """The SSD scan in bf16 with its final state at one serving shape:
+    every built pump case against the plain version (y within
+    RTOL_SSD_BF16, the state within RTOL_SSD_FP32) with T1's bits; T1 and
+    plain times beside the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as ss
+    x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
+    y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                 final_state=True)
+
+    def check_scan(outs, name):
+        e_y, e_s = rel_err(outs[0], y_ref), rel_err(outs[1], st_ref)
+        check(e_y <= RTOL_SSD_BF16, f"{name}: y rel err {e_y}")
+        check(e_s <= RTOL_SSD_FP32, f"{name}: state rel err {e_s}")
+        return max(err(outs[0], y_ref), err(outs[1], st_ref))
+
+    def run_scan(pump):
+        return ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                final_state=True, pump=pump)
+    cases, e_scan = pump_sweep(f"ssd_scan {label}", run_scan, check_scan,
+                               ss.built)
+    y, st = run_scan(1)
+    pumps = pump_times(timer, f"ssd_scan {label}", run_scan, ss.built)
+    bound, by, nbytes, tc_flops = scan_bound(b, l, h, g, n, p, chunk,
+                                             (x, dt, a, bm, cm, y, st))
+    ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
+                                           final_state=True))
+    plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
+                                          final_state=True))
+    print(f"[ssd_scan {label}] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk} "
+          f"bf16, {'/'.join(cases)}: rel err y {rel_err(y, y_ref):.3g} "
+          f"(rtol {RTOL_SSD_BF16:.3g}), state {rel_err(st, st_ref):.3g} "
+          f"(rtol {RTOL_SSD_FP32}), identical bits; kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e6:.1f} MB, {tc_flops / 1e9:.2f} GFLOP of bf16 "
+          f"terms)")
+    return {"shape": f"{label} B{b} L{l} H{h} N{n} P{p}",
+            "max_abs_err": e_scan, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "pump_ms": pumps}
+
+
 def phase_serving_shapes(timer, entries) -> None:
     """(k) the shapes the new configs' serving paths give the kernels,
     each against its plain version under the tolerance of the phase that
@@ -1473,7 +1572,6 @@ def phase_serving_shapes(timer, entries) -> None:
     ``shapes``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_decode as sd
-    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.core.pump_plan import PEAK_FLOPS_FP32, bound_ms
     by_name = {e_["name"]: e_ for e_ in entries}
     gen = torch.Generator(device="cuda").manual_seed(2222)
@@ -1490,41 +1588,8 @@ def phase_serving_shapes(timer, entries) -> None:
     b, l, g, n, p, chunk = 8, 512, s_.n_groups, s_.state_dim, s_.head_dim, \
         s_.chunk
     h = s_.expand * cfg.d_model // p
-    x, dt, a, bm, cm = ssd_inputs(gen, b, l, h, g, n, p, torch.bfloat16)
-    y_ref, st_ref = ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
-                                 final_state=True)
-
-    def check_scan(outs, name):
-        e_y, e_s = rel_err(outs[0], y_ref), rel_err(outs[1], st_ref)
-        check(e_y <= RTOL_SSD_BF16, f"{name}: y rel err {e_y}")
-        check(e_s <= RTOL_SSD_FP32, f"{name}: state rel err {e_s}")
-        return max(err(outs[0], y_ref), err(outs[1], st_ref))
-
-    def run_scan(pump):
-        return ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
-                                final_state=True, pump=pump)
-    cases, e_scan = pump_sweep("ssd_scan zamba2", run_scan, check_scan,
-                               ss.built)
-    y, st = run_scan(1)
-    pumps = pump_times(timer, "ssd_scan zamba2", run_scan, ss.built)
-    bound, by, nbytes, tc_flops = scan_bound(b, l, h, g, n, p, chunk,
-                                             (x, dt, a, bm, cm, y, st))
-    ms = timer.ms(lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, chunk=chunk,
-                                           final_state=True))
-    plain = timer.ms(lambda: ref.ssd_scan(x, dt, a, bm, cm, chunk=chunk,
-                                          final_state=True))
-    print(f"[ssd_scan zamba2] B{b} L{l} H{h} G{g} N{n} P{p} chunk {chunk} "
-          f"bf16 (generic tensor-core body), {'/'.join(cases)}: rel err y "
-          f"{rel_err(y, y_ref):.3g} (rtol {RTOL_SSD_BF16:.3g}), state "
-          f"{rel_err(st, st_ref):.3g} (rtol {RTOL_SSD_FP32}), identical "
-          f"bits; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bound:.4f} ms ({by}: {nbytes / 1e6:.1f} MB, "
-          f"{tc_flops / 1e9:.2f} GFLOP of bf16 terms)")
     by_name["ssd_scan"].setdefault("shapes", []).append(
-        {"shape": f"zamba2-2.7b B{b} L{l} H{h} N{n} P{p}",
-         "max_abs_err": e_scan, "ms": ms, "plain_ms": plain,
-         "bound_ms": bound, "bound_by": by, "library_ms": None,
-         "pump_ms": pumps})
+        scan_at(timer, gen, "zamba2-2.7b", b, l, h, g, n, p, chunk))
 
     x, dt, a, bm, cm = ssd_inputs(gen, b, 1, h, g, n, p, torch.bfloat16)
     x, dt, bm, cm = x[:, 0], dt[:, 0], bm[:, 0], cm[:, 0]
@@ -1548,6 +1613,35 @@ def phase_serving_shapes(timer, entries) -> None:
          "max_abs_err": max(err(y, y_ref), err(st2, st2_ref)), "ms": ms,
          "plain_ms": plain, "bound_ms": bound, "bound_by": by,
          "library_ms": None})
+
+
+def phase_stream_shapes(timer, entries) -> None:
+    """(l) the shapes the stream phases give the kernels beyond (b)-(d),
+    each against its plain version in every built pump case, timed beside
+    its bound: flash at qwen3's heads (16 / 8, D 128) on admission groups
+    of 128- and 256-token prompts, padded to the engine batch 8; the SSD
+    scan at mamba2's widths (H 64, P 64, N 128, chunk 64) with its final
+    state on a 256-token group (B 8) and a continuation chunk on the
+    one-lane side cache (B 1); decode attention at qwen3's heads at the
+    preempted stream's 4 lanes, each at its own depth
+    (``STREAM_B4_POS``).  Each goes into its kernel entry's ``shapes``."""
+    from repro_torch.configs.base import load_arch
+    by_name = {e_["name"]: e_ for e_ in entries}
+    gen = torch.Generator(device="cuda").manual_seed(2323)
+    h, hkv, d = attention_shape("qwen3-0.6b")
+    for s in (128, 256):
+        by_name["flash_attention"].setdefault("shapes", []).append(
+            flash_at(timer, gen, "qwen3 stream", 8, h, hkv, s, d))
+    by_name["decode_attention"].setdefault("shapes", []).append(
+        decode_at(timer, gen, "qwen3 stream", 4, h, hkv, 577, d,
+                  STREAM_B4_POS))
+    cfg = load_arch("mamba2-1.3b")
+    s_ = cfg.ssm
+    nh = s_.expand * cfg.d_model // s_.head_dim
+    for b in (8, 1):
+        by_name["ssd_scan"].setdefault("shapes", []).append(
+            scan_at(timer, gen, "mamba2 stream", b, 256, nh, s_.n_groups,
+                    s_.state_dim, s_.head_dim, s_.chunk))
 
 
 # ------------------------------------------------------------ the compiler --
@@ -2569,6 +2663,316 @@ def phase_registry_replay(archs, reg_cache) -> None:
           f"replay measured or failed: {report}")
 
 
+def stream_run(eng, reqs, **kw):
+    """One stream through ``Engine.serve_stream`` with its logits collected:
+    (completed by rid, step snapshots, wall seconds, engine timer calls of
+    each phase in the run).  Each snapshot also gets ``t``, the seconds
+    from the stream's start to the end of its step."""
+    def calls():
+        return {ph: len(eng.timer.steady.get(ph, []))
+                + (ph in eng.timer.cold_s)
+                for ph in ("prefill", "prefill_chunk", "decode")}
+    snaps, before = [], calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.serve_stream(
+        reqs, collect_logits=True, step_time_ms=1.0,
+        step_hook=lambda sn: snaps.append(
+            dict(sn, t=time.perf_counter() - t0)), **kw)
+    wall = time.perf_counter() - t0
+    after = calls()
+    return ({r.rid: r for r in done}, snaps, wall,
+            {ph: after[ph] - before[ph] for ph in after})
+
+
+def hold_first_difference(label, got, want, atol):
+    """Each request's logits against a reference run's, step by step up to
+    the first token where the two differ; that token may differ only where
+    the reference's top-2 logit gap at the step is under ``atol``.  ``got``
+    / ``want``: rid -> (tokens (n,), fp32 logits (n, V)).  Prints the steps
+    held out of all; returns the number of identical requests and the
+    largest logit difference held."""
+    same, worst, held = 0, 0.0, 0
+    for rid, (g_toks, g_lg) in sorted(got.items()):
+        w_toks, w_lg = want[rid]
+        check(len(g_toks) == len(w_toks), f"{label} rid {rid}: lengths")
+        for i in range(len(w_toks)):
+            held += 1
+            e = float(np.abs(g_lg[i] - w_lg[i]).max())
+            worst = max(worst, e)
+            check(e <= atol, f"{label} rid {rid} step {i}: logits differ "
+                             f"by {e} > {atol}")
+            if g_toks[i] != w_toks[i]:
+                top2 = np.sort(w_lg[i])[-2:]
+                gap = float(top2[1] - top2[0])
+                check(gap < atol, f"{label} rid {rid} step {i}: token "
+                                  f"{g_toks[i]} != {w_toks[i]} at a top-2 "
+                                  f"gap of {gap} >= {atol}")
+                print(f"[stream] {label} rid {rid}: first different token "
+                      f"at step {i} (top-2 gap {gap:.4g})")
+                break
+        else:
+            same += 1
+    total = sum(len(toks) for toks, _ in got.values())
+    print(f"[stream] {label}: {held} of {total} steps held up to the first "
+          f"difference")
+    return same, worst
+
+
+def hold_every_step(label, cfg_plain, model, reqs, done, atol):
+    """Every step of every streamed request against the plain route
+    (``cfg_plain``: plain attention / SSD in PyTorch, no kernel) on the
+    same weights and the same tokens: one forward over the prompt and the
+    tokens the stream emitted, whose logits at the prompt's last position
+    and after each emitted token are the ones each step of the stream
+    produced.  Every step is held, within ``atol``, however the stream's
+    tokens came out; where the stream's token is not the plain route's
+    argmax, the plain route's top-2 gap there must be under ``atol``.
+    The sequence is padded at its end (which moves no earlier position)
+    to whole SSD chunks.  Returns (steps held, largest difference)."""
+    from repro_torch.models import model as model_mod
+    chunk = cfg_plain.ssm.chunk if cfg_plain.ssm else 1
+    held, worst, flips = 0, 0.0, 0
+    for r in reqs:
+        toks, lg = done[r.rid].tokens, done[r.rid].logits
+        n, plen = len(toks), r.prompt_len
+        seq = np.concatenate([r.tokens, toks[:-1]]).astype(np.int64)
+        seq = np.pad(seq, (0, -len(seq) % chunk))
+        with torch.no_grad():
+            want, _ = model_mod.forward(
+                cfg_plain, model, {"tokens": torch.from_numpy(seq)[None]
+                                   .cuda()})
+        want = want[0, plen - 1:plen - 1 + n].float().cpu().numpy()
+        e = float(np.abs(lg - want).max())
+        worst = max(worst, e)
+        check(e <= atol, f"{label} rid {r.rid}: logits differ from the "
+                         f"plain route's by {e} > {atol}")
+        for i in np.flatnonzero(toks != want.argmax(-1)):
+            top2 = np.sort(want[i])[-2:]
+            gap = float(top2[1] - top2[0])
+            check(gap < atol, f"{label} rid {r.rid} step {i}: token "
+                              f"{toks[i]} is not the plain route's argmax "
+                              f"at a top-2 gap of {gap} >= {atol}")
+            flips += 1
+        held += n
+    print(f"[stream] {label} vs the plain route, teacher-forced: {held} of "
+          f"{held} steps held, logits within {worst:.4g} (atol {atol}), "
+          f"{flips} tokens off the plain route's argmax at a near-tie")
+    return held, worst
+
+
+def admission_groups(snaps, reqs, budget=None):
+    """Fresh grouped prefills of a stream without preemption: the distinct
+    prompt lengths admitted in each step (a prompt longer than the chunk
+    ``budget`` takes continuation chunks instead)."""
+    plen = {r.rid: r.prompt_len for r in reqs}
+    return sum(len({plen[rid] for rid in sn["admitted"]
+                    if budget is None or plen[rid] <= budget})
+               for sn in snaps)
+
+
+def stream_report(label, done, snaps, wall, n_slots):
+    """Prints a stream's tokens/s, steps, ms a step, occupancy and TTFT p50:
+    from admission (the scheduler's ``ttft_s``) and from arrival (the
+    start of the arrival step to the end of the first token's step, the
+    queue wait included).  Returns the tokens served."""
+    occ = [sn["occupancy"] for sn in snaps]
+    ends = [sn["t"] for sn in snaps]
+    ttft = sorted(r.ttft_s for r in done.values())
+    from_arrival = sorted(
+        ends[r.arrival + r.ttft_steps] - (ends[r.arrival - 1]
+                                          if r.arrival else 0.0)
+        for r in done.values())
+    tokens = sum(len(r.tokens) for r in done.values())
+    print(f"[stream] {label}: {len(done)} requests, {tokens} tokens in "
+          f"{wall:.3f} s ({tokens / wall:.1f} tokens/s), {len(snaps)} "
+          f"scheduler steps ({wall / len(snaps) * 1e3:.2f} ms a step), "
+          f"occupancy peak {max(occ)}/{n_slots} mean "
+          f"{statistics.fmean(occ):.2f}, TTFT p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.2f} ms from admission, "
+          f"{from_arrival[len(ttft) // 2] * 1e3:.2f} ms from arrival, "
+          f"{sum(r.preemptions for r in done.values())} preemptions")
+    return tokens
+
+
+def solo_runs(eng, reqs):
+    """Each request alone through ``generate``: rid -> (tokens, logits),
+    and the summed wall seconds."""
+    out, wall = {}, 0.0
+    for r in reqs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, lg = eng.generate(torch.from_numpy(r.tokens.astype(np.int64))
+                                [None], r.n_new, return_logits=True)
+        wall += time.perf_counter() - t0
+        out[r.rid] = (toks[0].cpu().numpy(), lg[:, 0].cpu().numpy())
+    return out, wall
+
+
+def phase_stream_qwen3(ctx, plain):
+    """qwen3-0.6b's stream on the e2e phase's weights, ``Engine`` batch 8,
+    ``max_len`` 577, direct route: a FIFO stream of 16 requests (prompts
+    128 / 256 / 512, 16 or 32 new tokens) with its launches counted (28
+    flash a grouped prefill, 28 decode attentions a decode step), held to
+    each request run alone and to the reference harness's 1.3x bar; the
+    same trace with ``prefill_chunk_tokens=256``; the trace with
+    priorities, ``lowest_priority`` preemption and 4 slots.  Every step of
+    each stream is also held to the plain route (``plain``, a config
+    transform) on the same tokens.  Returns the stream's launches."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.engine import Engine
+    cfg, scfg = ctx["cfg"], ctx["scfg"]
+    eng = Engine(cfg, ctx["model"], scfg)
+    cfg_plain = plain(cfg)
+    wl = dict(seed=23, prompt_lens=(128, 256, 512), new_tokens=(16, 32),
+              arrival_rate=0.5, vocab=cfg.vocab_size)
+    reqs = sched.synthetic_workload(16, **wl)
+    # the same requests with priorities 0 / 1 from a seeded draw of their
+    # own (synthetic_workload's priorities knob would draw them between the
+    # requests' other draws, giving another trace), so each request can be
+    # held to its FIFO run
+    prio = np.random.default_rng(23).integers(0, 2, len(reqs))
+    pre_reqs = [dataclasses.replace(r, priority=int(p_))
+                for r, p_ in zip(reqs, prio)]
+    launches = {"flash_attention": 0, "decode_attention": 0}
+
+    def counted(trace, **kw):
+        fa.launches = da.launches = 0
+        out = stream_run(eng, trace, **kw)
+        launches["flash_attention"] += fa.launches
+        launches["decode_attention"] += da.launches
+        return out, fa.launches, da.launches
+
+    (done, snaps, wall, calls), n_fa, n_da = counted(reqs)
+    groups = admission_groups(snaps, reqs)
+    print(f"[stream] qwen3 FIFO launches: flash {n_fa} ({groups} admission "
+          f"groups), decode attention {n_da} ({calls['decode']} decode "
+          f"steps)")
+    check(n_fa == cfg.n_layers * groups == cfg.n_layers * calls["prefill"],
+          f"flash launches {n_fa} != {cfg.n_layers} x {groups} groups")
+    check(n_da == cfg.n_layers * calls["decode"],
+          f"decode launches {n_da} != {cfg.n_layers} x {calls['decode']}")
+    tokens = stream_report("qwen3 FIFO", done, snaps, wall, 8)
+    fifo = {rid: (r.tokens, r.logits) for rid, r in done.items()}
+    check(all(np.isfinite(r.logits).all() and r.logits.shape ==
+              (len(r.tokens), cfg.vocab_size) for r in done.values()),
+          "stream logits not finite or of the wrong shape")
+    hold_every_step("qwen3 FIFO", cfg_plain, ctx["model"], reqs, done,
+                    ATOL_E2E_LOGITS)
+    solo, solo_wall = solo_runs(eng, reqs)
+    same, worst = hold_first_difference("qwen3 FIFO vs solo", fifo, solo,
+                                        ATOL_E2E_LOGITS)
+    # the device's share of the stream: the same stream again under the
+    # profiler (its device time; the wall is the unprofiled run's)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.serve_stream(reqs, step_time_ms=1.0)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / 1e6
+    print(f"[stream] qwen3 FIFO device busy {busy * 1e3:.1f} ms of "
+          f"{wall * 1e3:.1f} ms wall ({1 - busy / wall:.1%} idle), "
+          f"{len(events) / len(snaps):.0f} device kernels a step"
+          if events else "[stream] qwen3 FIFO: the profiler recorded no "
+          "device events; device time not measured")
+    speed = (tokens / wall) / (tokens / solo_wall)
+    print(f"[stream] qwen3 FIFO vs each request alone: {same}/{len(reqs)} "
+          f"requests identical, logits within {worst:.4g} (atol "
+          f"{ATOL_E2E_LOGITS}); {tokens / wall:.1f} tokens/s streamed, "
+          f"{tokens / solo_wall:.1f} alone in sequence ({solo_wall:.3f} s): "
+          f"{speed:.2f}x (bar 1.3x)")
+    check(speed >= 1.3, f"stream {speed:.2f}x sequential < 1.3x")
+
+    (done, snaps, wall, calls), n_fa, n_da = counted(
+        reqs, prefill_chunk_tokens=256)
+    groups = admission_groups(snaps, reqs, budget=256)
+    n_long = sum(r.prompt_len > 256 for r in reqs)
+    print(f"[stream] qwen3 chunked (256 tokens a step): flash {n_fa} "
+          f"({groups} groups), {calls['prefill_chunk']} continuation chunks "
+          f"for {n_long} 512-token prompts, decode attention {n_da}")
+    check(n_fa == cfg.n_layers * groups and n_da == cfg.n_layers
+          * calls["decode"] and calls["prefill_chunk"] == 2 * n_long,
+          "chunked stream launches")
+    check(any(sn["prefilling"] for sn in snaps), "no chunked prefill")
+    stream_report("qwen3 chunked", done, snaps, wall, 8)
+    hold_every_step("qwen3 chunked", cfg_plain, ctx["model"], reqs, done,
+                    ATOL_E2E_LOGITS)
+    same, worst = hold_first_difference(
+        "qwen3 chunked vs FIFO",
+        {rid: (r.tokens, r.logits) for rid, r in done.items()}, fifo,
+        ATOL_E2E_LOGITS)
+    print(f"[stream] qwen3 chunked vs FIFO: {same}/{len(reqs)} identical, "
+          f"logits within {worst:.4g}")
+
+    (done, snaps, wall, calls), n_fa, n_da = counted(
+        pre_reqs, max_slots=4, preempt_policy="lowest_priority")
+    check(len(done) == len(pre_reqs), "preempted stream lost requests")
+    n_pre = sum(r.preemptions for r in done.values())
+    check(n_pre >= 1, "no preemption in the priority stream")
+    check(n_fa == cfg.n_layers * calls["prefill"]
+          and n_da == cfg.n_layers * calls["decode"],
+          "preempted stream launches")
+    stream_report("qwen3 preempted (4 slots)", done, snaps, wall, 4)
+    hold_every_step("qwen3 preempted", cfg_plain, ctx["model"], pre_reqs,
+                    done, ATOL_E2E_LOGITS)
+    same, worst = hold_first_difference(
+        "qwen3 preempted vs FIFO",
+        {rid: (r.tokens, r.logits) for rid, r in done.items()}, fifo,
+        ATOL_E2E_LOGITS)
+    print(f"[stream] qwen3 preempted vs FIFO: {same}/{len(reqs)} "
+          f"identical, logits within {worst:.4g}")
+    print(f"[stream] qwen3 launches over the three streams: {launches}")
+    return launches
+
+
+def phase_stream_mamba2(ctx, plain):
+    """mamba2-1.3b's stream on the e2e phase's weights: 8 requests (prompts
+    256 / 512, 16 or 32 new tokens), ``prefill_chunk_tokens=256``, so a
+    512-token prompt takes two continuation chunks; the scan launches 48
+    times a grouped prefill and a chunk, the SSD decode step 48 times a
+    decode step; logits held to each request alone, and every step to the
+    plain route (``plain``) on the same tokens.  Returns the stream's
+    launches."""
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.engine import Engine
+    cfg, scfg = ctx["cfg"], ctx["scfg"]
+    eng = Engine(cfg, ctx["model"], scfg)
+    reqs = sched.synthetic_workload(8, seed=23, prompt_lens=(256, 512),
+                                    new_tokens=(16, 32), arrival_rate=0.5,
+                                    vocab=cfg.vocab_size)
+    ss.launches = sd.launches = 0
+    done, snaps, wall, calls = stream_run(eng, reqs,
+                                          prefill_chunk_tokens=256)
+    launches = {"ssd_scan": ss.launches, "ssd_decode": sd.launches}
+    groups = admission_groups(snaps, reqs, budget=256)
+    n_long = sum(r.prompt_len > 256 for r in reqs)
+    print(f"[stream] mamba2 chunked launches: {launches} ({groups} groups, "
+          f"{calls['prefill_chunk']} continuation chunks, {calls['decode']} "
+          f"decode steps)")
+    check(calls["prefill_chunk"] == 2 * n_long
+          and calls["prefill"] == groups, "mamba2 stream prefills")
+    check(launches["ssd_scan"] == cfg.n_layers * (groups + 2 * n_long),
+          f"scan launches {launches['ssd_scan']}")
+    check(launches["ssd_decode"] == cfg.n_layers * calls["decode"],
+          f"SSD decode launches {launches['ssd_decode']}")
+    tokens = stream_report("mamba2 chunked", done, snaps, wall, 8)
+    hold_every_step("mamba2 chunked", plain(cfg), ctx["model"], reqs, done,
+                    ATOL_E2E_SSM_LOGITS)
+    solo, solo_wall = solo_runs(eng, reqs)
+    same, worst = hold_first_difference(
+        "mamba2 chunked vs solo",
+        {rid: (r.tokens, r.logits) for rid, r in done.items()}, solo,
+        ATOL_E2E_SSM_LOGITS)
+    print(f"[stream] mamba2 chunked vs each request alone: {same}/"
+          f"{len(reqs)} identical, logits within {worst:.4g} (atol "
+          f"{ATOL_E2E_SSM_LOGITS}); {tokens / wall:.1f} tokens/s streamed, "
+          f"{tokens / solo_wall:.1f} alone in sequence")
+    return launches
+
+
 def phase_decode_loop():
     """Decode attention inside qwen3-0.6b's serving loop: ``launch.profile``
     over a prefill and 8 decode steps (batch 8, prompt 512); prints the
@@ -2614,6 +3018,8 @@ def main() -> int:
                    + phase_paper_kernels(timer) + phase_grouped_gemm(timer))
     with timed("the new configs' kernel shapes (3 k)"):
         phase_serving_shapes(timer, kernels)
+    with timed("the stream's kernel shapes (3 l)"):
+        phase_stream_shapes(timer, kernels)
     with timed("compiler (3 j)"):
         compiled, compiler_launches = phase_compiler(timer)
     kernels += compiled
@@ -2627,21 +3033,28 @@ def main() -> int:
     registry = PlanRegistry(cache=CompileCache(REGISTRY_CACHE))
     qwen3 = ({"flash_attention": 28}, {"decode_attention": 28},
              ATOL_E2E_LOGITS)
+    qwen3_plain = set_field(attention_impl="xla_chunked")
     with timed("qwen3-0.6b"):
         paths["qwen3-0.6b"], ctx = phase_e2e(
             "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
-            ("xla_chunked", set_field(attention_impl="xla_chunked")), *qwen3)
+            ("xla_chunked", qwen3_plain), *qwen3)
         phase_registry(ctx, *qwen3, registry)
         served = [(ctx["cfg"], ctx["scfg"])]
+        with timed("qwen3-0.6b stream"):
+            stream = phase_stream_qwen3(ctx, qwen3_plain)
         del ctx
         phase_decode_loop()
     mamba2 = ({"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS)
+    mamba2_plain = set_field(ssm_impl="xla")
     with timed("mamba2-1.3b"):
         paths["mamba2-1.3b"], ctx = phase_e2e(
             "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
-            ("xla", set_field(ssm_impl="xla")), *mamba2)
+            ("xla", mamba2_plain), *mamba2)
         phase_registry(ctx, *mamba2, registry)
         served.append((ctx["cfg"], ctx["scfg"]))
+        with timed("mamba2-1.3b stream"):
+            stream.update(phase_stream_mamba2(ctx, mamba2_plain))
+        paths["stream"] = stream
         del ctx
     # zamba2: 54 Mamba-2 blocks in 9 groups of 6, each group followed by
     # the one shared attention block: 54 scans and 9 flash launches a

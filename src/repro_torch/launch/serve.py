@@ -18,6 +18,19 @@ after a warmup that plans the bucket grid;
 runs the SMOKE config on the CPU, where every op takes its plain version.
 Weights are seeded random draws with the reference init's distributions
 (fp32 for ``--smoke``, else bf16, as in ``repro.launch.serve``).
+
+Stream mode, as the reference's: ``--arrival-rate R`` drains a seeded
+synthetic trace of ``--requests`` requests (prompts of ``--prompt-len`` and
+half of it, ``--new`` tokens each; geometric gaps for R < 1, packed
+overload arrivals for R > 1) through ``Engine.serve_stream`` with
+``--max-slots`` decode lanes (default ``--batch``), and prints tokens/s,
+slot occupancy, queue waits and TTFT.  ``--prefill-chunk-tokens``,
+``--preempt``, ``--max-queue`` and ``--deadline-ms`` are the overload
+controls; a shed request is reported on a ``[serve] SHED:`` line.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --smoke --device cpu --arrival-rate 0.5 --max-slots 4 \
+        --requests 8 --prompt-len 8 --new 4
 """
 from __future__ import annotations
 
@@ -57,7 +70,7 @@ def route(cfg) -> str:
     return cfg.attention_impl
 
 
-def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
+def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -81,6 +94,28 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
                          "kernels through the plan registry")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--arrival-rate", type=float, default=None, metavar="R",
+                    help="stream mode: drain a synthetic arrival trace "
+                         "through the continuous-batching scheduler "
+                         "(geometric gaps for R < 1; R > 1 packs overload "
+                         "arrivals)")
+    ap.add_argument("--max-slots", type=int, default=None,
+                    help="decode lanes in stream mode (default: --batch)")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="requests in the stream mode's trace")
+    ap.add_argument("--prefill-chunk-tokens", type=int, default=None,
+                    metavar="T",
+                    help="chunked prefill: at most T prefill tokens a "
+                         "scheduler step")
+    ap.add_argument("--preempt", default=None,
+                    choices=("longest_remaining", "lowest_priority"),
+                    help="slot preemption policy under queue pressure")
+    ap.add_argument("--max-queue", type=int, default=None, metavar="N",
+                    help="bound the admission queue at N; an overflow is "
+                         "shed as queue_full")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="give every request a MS deadline and shed the "
+                         "ones no admission could meet")
     args = ap.parse_args(argv)
 
     cfg = load_arch(args.arch, smoke=args.smoke)
@@ -100,6 +135,8 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
                        max_len=args.prompt_len + args.new + 1,
                        kernel_plan=args.kernel_plan)
     eng = Engine(cfg, model, scfg, device=dev)
+    if args.arrival_rate is not None:
+        return stream(args, cfg, eng)
     t0 = time.perf_counter()
     out = eng.generate(prompts, args.new)
     dt = time.perf_counter() - t0
@@ -123,6 +160,57 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
               f"{r['hit_rate']} fallbacks {r['fallbacks']}")
     print("[serve] first sequence:", out[0][:16].tolist())
     return out
+
+
+def stream(args, cfg, eng):
+    """Stream mode: the reference's seeded trace through
+    ``Engine.serve_stream``; returns the completed requests."""
+    from repro_torch.serve import scheduler as sched_mod
+    reqs = sched_mod.synthetic_workload(
+        args.requests, seed=1,
+        prompt_lens=(max(1, args.prompt_len // 2), args.prompt_len),
+        new_tokens=(args.new,), arrival_rate=args.arrival_rate,
+        vocab=cfg.vocab_size,
+        deadlines_ms=((args.deadline_ms,) if args.deadline_ms is not None
+                      else None))
+    occ = []
+    t0 = time.perf_counter()
+    results, shed = eng.serve_stream(
+        reqs, max_slots=args.max_slots,
+        step_hook=lambda snap: occ.append(snap["occupancy"]),
+        prefill_chunk_tokens=args.prefill_chunk_tokens,
+        preempt_policy=args.preempt, max_queue=args.max_queue,
+        deadline_aware=args.deadline_ms is not None, return_shed=True)
+    dt = time.perf_counter() - t0
+    total_new = sum(r.n_new for r in reqs)
+    served_new = sum(len(r.tokens) for r in results)
+    ttft = sorted(r.ttft_s for r in results) or [float("nan")]
+    waits = [r.queue_wait_steps for r in results] or [0]
+    print(f"[serve] {cfg.name} on {eng.device} ({route(cfg)}): streamed "
+          f"{len(results)}/{len(reqs)} requests ({served_new}/{total_new} "
+          f"new tokens) in {dt:.3f}s wall, {served_new / dt:.1f} tok/s at "
+          f"rate {args.arrival_rate}")
+    print(f"[serve] slots: peak occupancy {max(occ, default=0)}/"
+          f"{args.max_slots or args.batch} over {len(occ)} steps; queue "
+          f"wait: max {max(waits)} step(s); ttft p50 "
+          f"{ttft[len(ttft) // 2] * 1e3:.1f}ms")
+    n_pre = sum(r.preemptions for r in results)
+    if n_pre:
+        print(f"[serve] preemptions: {n_pre} across "
+              f"{sum(1 for r in results if r.preemptions)} request(s) "
+              f"(policy {args.preempt})")
+    if shed:
+        reasons: dict = {}
+        for r in shed:
+            reasons[r.reason] = reasons.get(r.reason, 0) + 1
+        detail = ", ".join(f"{k}={v}" for k, v in sorted(reasons.items()))
+        print(f"[serve] SHED: {len(shed)}/{len(reqs)} request(s) rejected "
+              f"by admission control ({detail})")
+    if results:
+        first = min(results, key=lambda r: r.rid)
+        print("[serve] first request tokens:",
+              [int(t) for t in first.tokens[:16]])
+    return results
 
 
 if __name__ == "__main__":

@@ -20,10 +20,19 @@ decompresses and attends.  Its nope + rope head width (192 in
 deepseek-v2-lite) is not its v width (128), so the flash kernel's branch
 (``dn + dr == dv``) is reached by no shipped config.
 
-Cache positions are a Python int (one depth for every row); per-slot
-position vectors belong to the continuous-batching slice.  The cache is
-written in place: a step writes its k / v rows into the preallocated
-tensors and returns the same tensors with ``pos`` advanced.
+Cache positions come in two shapes, as in the reference.  A Python int
+``pos`` is one depth for every row (``Engine.generate``, a prefill, a
+continuation chunk).  A **per-slot** ``pos``, an int32 ``(B,)`` tensor on
+the cache's device (``init_cache(per_slot_pos=True)``), makes each row an
+independent decode lane at its own depth (``serve.scheduler``): the
+single-token write, the key mask and the rope positions are per row, and
+decode passes the tensor itself to the kernel, which reads it on the card.
+Nothing here reads a tensor ``pos`` on the host.  The per-slot form is
+decode-only (S == 1).  A lane whose ``pos`` has run past the cache (a free
+lane keeps decoding garbage) writes nothing and attends over every key, as
+the reference's mask write does.  The cache is written in place: a step
+writes its rows into the preallocated tensors and returns the same tensors
+with ``pos`` advanced.
 """
 from __future__ import annotations
 
@@ -35,15 +44,53 @@ from torch import nn
 
 from repro_torch.kernels import ops
 
-from .layers import Dense, RMSNorm, apply_rope, dense, rmsnorm
+from .layers import (Dense, RMSNorm, SlotStep, apply_rope, cache_pos, dense,
+                     rmsnorm, slot_step)
 
 NEG_INF = -1e30
 
 
+def _per_slot(pos) -> bool:
+    return isinstance(pos, torch.Tensor) and pos.dim() > 0
+
+
+def _rope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """Positions broadcast over (B, H, S, D) heads: the classic ``(S,)``
+    vector or per-slot ``(B, S)`` rows (the reference's
+    ``_rope_positions``)."""
+    return positions[None, :] if positions.dim() == 1 \
+        else positions[:, None, :]
+
+
 def _kv_valid_mask(length: int, pos: int, s: int,
                    device: torch.device) -> torch.Tensor:
-    """Valid-slot mask (length,) for a cache after writing s tokens at pos."""
+    """Valid-slot mask (length,) for a cache of ``length`` after writing
+    ``s`` tokens at an int ``pos`` (per slot: ``SlotStep.valid``)."""
     return torch.arange(length, device=device) < pos + s
+
+
+def _slot_step(slots: Optional[SlotStep], pos: torch.Tensor,
+               length: int) -> SlotStep:
+    """The step's shared ``SlotStep``, or this layer's own where it is
+    called alone."""
+    return slots if slots is not None else slot_step(pos, length)
+
+
+def _write_rows(cache: torch.Tensor, new: torch.Tensor, st: SlotStep) -> None:
+    """Per-slot single-token write, in place: row b of ``cache`` (B, T, ...)
+    takes ``new[b]`` at ``st.at[b]``; a row with pos >= T keeps its cache
+    unchanged (the reference's mask write)."""
+    keep = st.keep.reshape(-1, *([1] * (new.dim() - 1)))
+    cache[st.rows, st.at] = torch.where(keep, new.to(cache.dtype),
+                                        cache[st.rows, st.at])
+
+
+def _per_slot_only_decode(s: int) -> None:
+    if s != 1:
+        raise ValueError(
+            "per-slot cache positions are decode-only (S == 1): prefill "
+            "runs on a fresh int-pos cache and is scattered into its slot "
+            "(serve.scheduler.insert_rows)")
 
 
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -138,10 +185,13 @@ class GQA(nn.Module):
 
 
 def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
-              causal: bool = True, cache: Optional[Dict] = None
+              causal: bool = True, cache: Optional[Dict] = None,
+              slots: Optional[SlotStep] = None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """GQA self-attention.  x (B, S, d); positions (S,).  ``cache`` is
-    dict(k, v, pos) with an int pos; returns (out, new_cache)."""
+    """GQA self-attention.  x (B, S, d); positions (S,), or (B, S) under a
+    per-slot cache.  ``cache`` is dict(k, v, pos), pos an int or a (B,)
+    int32 tensor; ``slots`` the decode step's shared write and mask under
+    a per-slot pos.  Returns (out, new_cache)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
@@ -151,7 +201,7 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
-    rp = positions[None, :]
+    rp = _rope_positions(positions)
     q = apply_rope(q.transpose(1, 2), rp, cfg.rope_theta)   # (B, H, S, hd)
     k = apply_rope(k.transpose(1, 2), rp, cfg.rope_theta)
     v = v.transpose(1, 2)
@@ -161,23 +211,32 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     if cache is not None:
         pos = cache["pos"]
         kc, vc = cache["k"], cache["v"]
-        kc[:, :, pos:pos + s] = k.to(kc.dtype)
-        vc[:, :, pos:pos + s] = v.to(vc.dtype)
-        new_cache = {"k": kc, "v": vc, "pos": pos + s}
         t = kc.shape[2]
+        st = None
+        if _per_slot(pos):
+            _per_slot_only_decode(s)
+            # each lane writes at its own depth (rows of (B, T, Hkv, hd))
+            st = _slot_step(slots, pos, t)
+            _write_rows(kc.transpose(1, 2), k[:, :, 0], st)
+            _write_rows(vc.transpose(1, 2), v[:, :, 0], st)
+        else:
+            kc[:, :, pos:pos + s] = k.to(kc.dtype)
+            vc[:, :, pos:pos + s] = v.to(vc.dtype)
+        new_cache = {"k": kc, "v": vc,
+                     "pos": pos + s if st is None else st.next_pos}
         if s == 1:
+            # the kernel takes an int or the (B,) tensor pos itself; the
+            # registry keys a tensor on the full-cache plan
             if kernels and cfg.kernel_plan == "measure":
-                # the registry keys the plan on pos's bucket and launches
-                # the kernel on the whole cache at the plan's pump
                 from repro_torch.compiler.registry import default_registry
                 out = default_registry().decode_attention(
                     q[:, :, 0].contiguous(), kc, vc, pos)
             elif kernels:
                 out = ops.decode_attention(q[:, :, 0].contiguous(), kc, vc, pos)
             else:
-                mask = _kv_valid_mask(t, pos, s, x.device)
-                out = decode_attention(q[:, :, 0], kc, vc,
-                                       mask.expand(b, t))
+                mask = (_kv_valid_mask(t, pos, s, x.device).expand(b, t)
+                        if st is None else st.valid)
+                out = decode_attention(q[:, :, 0], kc, vc, mask)
             out = out[:, :, None, :]
         elif kernels and cfg.fresh_prefill_kernel and pos == 0:
             # fresh-cache prefill: attention over the just-written cache
@@ -186,6 +245,8 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
             # a plain branch
             out = _flash(cfg, q, k, v, causal=causal)
         else:
+            # a continuation chunk (pos > 0, or the flash route off) attends
+            # over the whole written prefix under its valid mask
             out = chunked_attention(q, kc, vc, causal=causal, q_pos=positions,
                                     kv_mask=_kv_valid_mask(t, pos, s, x.device),
                                     block=cfg.attn_block_kv)
@@ -200,11 +261,12 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
 
 def gqa_cache_init(cfg, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: Optional[torch.device] = None) -> Dict:
+                   device: Optional[torch.device] = None,
+                   per_slot_pos: bool = False) -> Dict:
     shape = (batch, cfg.n_kv_heads, max_len, cfg.head_dim_)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": 0}
+            "pos": cache_pos(batch, per_slot_pos, device)}
 
 
 # --------------------------------------------------------------------- MLA --
@@ -262,12 +324,16 @@ def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
 
 
 def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
-              cache: Optional[Dict] = None
+              cache: Optional[Dict] = None, slots: Optional[SlotStep] = None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """MLA self-attention (causal).  x (B, S, d); positions (S,); ``cache``
-    is dict(c_kv, k_rope, pos) with an int pos, written in place.  Prefill
-    and the cache-free forward decompress and attend; a decode step (S == 1)
-    attends over the compressed cache through the absorbed projections."""
+    """MLA self-attention (causal).  x (B, S, d); positions (S,), or (B, S)
+    under a per-slot cache; ``cache`` is dict(c_kv, k_rope, pos), pos an
+    int or a (B,) int32 tensor, written in place; ``slots`` as in
+    ``gqa_apply``.  Prefill and the
+    cache-free forward decompress and attend; a continuation chunk
+    (``cfg.prefill_continuation``) decompresses the whole written prefix; a
+    decode step (S == 1) attends over the compressed cache through the
+    absorbed projections."""
     m = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -278,7 +344,7 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     # no shipped config has (deepseek-v2-lite: 128 + 64 != 128)
     flash = cfg.attention_impl == "pallas" and dn + dr == dv
     q_nope, q_rope = _mla_q(p, cfg, x)
-    rp = positions[None, :]
+    rp = _rope_positions(positions)
     q_rope = apply_rope(q_rope.transpose(1, 2), rp,
                         cfg.rope_theta).transpose(1, 2)
     kv_a = dense(p.wkv_a, x)
@@ -291,20 +357,38 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         return dense(p.wo, out), None
 
     pos = cache["pos"]
-    if not isinstance(pos, int):
-        raise NotImplementedError(
-            "per-slot (B,) cache positions are not ported yet (ROADMAP.md "
-            "queue 1, item 4)")
     ckv_c, krope_c = cache["c_kv"], cache["k_rope"]
-    ckv_c[:, pos:pos + s] = c_kv.to(ckv_c.dtype)
-    krope_c[:, pos:pos + s] = k_rope.to(krope_c.dtype)
-    new_cache = {"c_kv": ckv_c, "k_rope": krope_c, "pos": pos + s}
+    t = ckv_c.shape[1]
+    st = None
+    if _per_slot(pos):
+        _per_slot_only_decode(s)
+        st = _slot_step(slots, pos, t)
+        _write_rows(ckv_c, c_kv[:, 0], st)
+        _write_rows(krope_c, k_rope[:, 0], st)
+    else:
+        ckv_c[:, pos:pos + s] = c_kv.to(ckv_c.dtype)
+        krope_c[:, pos:pos + s] = k_rope.to(krope_c.dtype)
+    new_cache = {"c_kv": ckv_c, "k_rope": krope_c,
+                 "pos": pos + s if st is None else st.next_pos}
 
+    if s > 1 and cfg.prefill_continuation:
+        # continuation chunk: the current tokens attend over the whole
+        # written cache, the compressed prefix decompressed through wkv_b
+        # and masked to the pos + s valid slots (at pos 0 the mask reduces
+        # this to the chunk-local prefill below)
+        kv = dense(p.wkv_b, ckv_c.to(x.dtype)).reshape(b, t, h, dn + dv)
+        k = torch.cat([kv[..., :dn],
+                       krope_c[:, :, None, :].to(x.dtype).expand(b, t, h, dr)],
+                      dim=-1).transpose(1, 2)
+        q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+        out = chunked_attention(q, k, kv[..., dn:].transpose(1, 2),
+                                causal=True, q_pos=positions,
+                                kv_mask=_kv_valid_mask(t, pos, s, x.device),
+                                block=cfg.attn_block_kv,
+                                scale=(dn + dr) ** -0.5)
+        out = out.transpose(1, 2).reshape(b, s, h * dv)
+        return dense(p.wo, out), new_cache
     if s > 1:
-        if cfg.prefill_continuation:
-            raise NotImplementedError(
-                "continuation prefill into a filled MLA cache is not ported "
-                "yet (ROADMAP.md queue 1, item 4)")
         # prefill: attend over the current tokens; the flash kernel only on
         # a fresh cache, as the reference's lax.cond on pos == 0
         kv = dense(p.wkv_b, c_kv).reshape(b, s, h, dn + dv)
@@ -314,7 +398,6 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
 
     # absorbed decode: w_uk (kvr, h, dn), w_uv (kvr, h, dv); every product
     # that touches the cache reads it in its own dtype and sums in fp32
-    t = ckv_c.shape[1]
     wkv_b = p.wkv_b.w.reshape(kvr, h, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
     f32 = torch.float32
@@ -325,8 +408,9 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     sc = sc + torch.einsum("bhr,btr->bht",
                            q_rope[:, 0].to(krope_c.dtype).to(f32),
                            krope_c.to(f32))
-    keep = _kv_valid_mask(t, pos, 1, x.device)
-    sc = torch.where(keep[None, None, :], sc * (dn + dr) ** -0.5, NEG_INF)
+    keep = (_kv_valid_mask(t, pos, 1, x.device)[None, None, :]
+            if st is None else st.valid[:, None, :])
+    sc = torch.where(keep, sc * (dn + dr) ** -0.5, NEG_INF)
     attn = torch.softmax(sc, dim=-1)
     out_c = torch.einsum("bht,btk->bhk", attn.to(ckv_c.dtype).to(f32),
                          ckv_c.to(f32))
@@ -338,10 +422,11 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
 
 def mla_cache_init(cfg, batch: int, max_len: int,
                    dtype: torch.dtype = torch.bfloat16,
-                   device: Optional[torch.device] = None) -> Dict:
+                   device: Optional[torch.device] = None,
+                   per_slot_pos: bool = False) -> Dict:
     m = cfg.mla
     return {"c_kv": torch.zeros((batch, max_len, m.kv_lora_rank),
                                 dtype=dtype, device=device),
             "k_rope": torch.zeros((batch, max_len, m.rope_head_dim),
                                   dtype=dtype, device=device),
-            "pos": 0}
+            "pos": cache_pos(batch, per_slot_pos, device)}

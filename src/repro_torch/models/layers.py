@@ -11,7 +11,7 @@ fp32 product against the table, and rope rotates split halves.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -93,3 +93,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def cache_pos(batch: int, per_slot_pos: bool,
+              device: Optional[torch.device] = None):
+    """A new cache's ``pos``: an int 0, or per slot (continuous batching) an
+    int32 (batch,) zero tensor on ``device``."""
+    if per_slot_pos:
+        return torch.zeros(batch, dtype=torch.int32, device=device)
+    return 0
+
+
+class SlotStep(NamedTuple):
+    """What one per-slot decode step (a (B,) ``pos``) shares between its
+    layers, built once by ``transformer.decode_step``: every cache's next
+    ``pos`` and, for KV caches of ``length`` slots, the write (row ``rows[b]``
+    writes at ``at[b]`` where ``keep[b]``, i.e. pos < length: a lane past the
+    end writes nothing) and the keys each row attends to (``valid``, (B,
+    length))."""
+    next_pos: torch.Tensor
+    rows: Optional[torch.Tensor] = None
+    at: Optional[torch.Tensor] = None
+    keep: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+
+
+def slot_step(pos: torch.Tensor, length: Optional[int] = None) -> SlotStep:
+    """The ``SlotStep`` of a per-slot ``pos``; ``length`` None where the
+    model holds no KV cache (an SSM stack)."""
+    if length is None:
+        return SlotStep(pos + 1)
+    keys = torch.arange(length, device=pos.device)
+    return SlotStep(pos + 1, torch.arange(pos.shape[0], device=pos.device),
+                    pos.clamp(max=length - 1), pos < length,
+                    keys[None, :] <= pos[:, None])

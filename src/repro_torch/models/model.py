@@ -46,9 +46,13 @@ def forward(cfg, model, batch: Dict, *, last_only: bool = False):
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device] = None) -> Dict:
+               device: Optional[torch.device] = None,
+               per_slot_pos: bool = False) -> Dict:
+    """``per_slot_pos=True``: the continuous-batching cache, a (batch,)
+    int32 ``pos`` per layer (``serve.scheduler``)."""
     check_supported(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dtype, device)
+    return transformer.init_cache(cfg, batch, max_len, dtype, device,
+                                  per_slot_pos)
 
 
 def decode_step(cfg, model, batch: Dict, cache: Dict, *,

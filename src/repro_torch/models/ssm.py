@@ -16,8 +16,17 @@ Two SSD routes, selected by ``cfg.ssm_impl`` as in the reference:
     ``ssm_impl='pallas'`` selects them under either policy.
 
 Decode keeps a recurrent state (B, H, N, P) in fp32 and the conv tail
-(B, W - 1, conv_dim) per layer, with a scalar int ``pos``.  Continuation
-prefill (``cfg.prefill_continuation``) is not ported.
+(B, W - 1, conv_dim) per layer.  The step is position-free, so ``pos`` is
+bookkeeping: an int, or per slot an int32 (B,) tensor
+(``mamba2_cache_init(per_slot_pos=True)``).
+
+A continuation chunk (``cfg.prefill_continuation``) starts from the cached
+state, as in the reference: the conv window is seeded from the cached
+tail, the chunk is scanned from a zero state (under ``ssm_impl='pallas'``
+by the scan kernel with its final state, under either kernel plan), and
+the exact initial-state correction is plain torch: with s0 the cached
+state, y_t gains C_t·s0·exp(cumsum_t A·dt) and the final state
+s0·exp(sum A·dt).  Both terms are zero at s0 = 0.
 """
 from __future__ import annotations
 
@@ -29,7 +38,7 @@ from torch import nn
 
 from repro_torch.kernels import ops
 
-from .layers import Dense, RMSNorm, dense, rmsnorm
+from .layers import Dense, RMSNorm, SlotStep, cache_pos, dense, rmsnorm
 
 
 class Mamba2(nn.Module):
@@ -64,12 +73,13 @@ def _split_proj(cfg, proj: torch.Tensor):
     return z, xbc, dt, d_in, n_heads, gn
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
+def _causal_conv(window: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time.  xbc (B, L, C); w (W, C)."""
-    wdt, l = w.shape[0], xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, wdt - 1, 0))
-    out = sum(pad[:, i:i + l, :] * w[i] for i in range(wdt))
+    """Depthwise causal conv over time.  window (B, W - 1 + L, C): the L
+    tokens after the W - 1 before them; w (W, C).  Returns (B, L, C)."""
+    wdt = w.shape[0]
+    l = window.shape[1] - wdt + 1
+    out = sum(window[:, i:i + l, :] * w[i] for i in range(wdt))
     return F.silu(out + b)
 
 
@@ -129,9 +139,11 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
-                 cache: Optional[Dict] = None
+                 cache: Optional[Dict] = None,
+                 slots: Optional[SlotStep] = None
                  ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """x (B, L, d) -> (out, new_cache).  cache: dict(state, conv, pos)."""
+    """x (B, L, d) -> (out, new_cache).  cache: dict(state, conv, pos);
+    ``slots``: a per-slot decode step's shared next ``pos``."""
     s = cfg.ssm
     b, l, _ = x.shape
     proj = dense(p.in_proj, x)
@@ -171,13 +183,17 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         y = y + p.D.float()[None, :, None] * xh.float()
         y = y.reshape(b, 1, d_in).to(x.dtype)
         new_cache = {"state": state.to(cache["state"].dtype),
-                     "conv": new_conv, "pos": cache["pos"] + 1}
+                     "conv": new_conv, "pos": cache["pos"] + 1
+                     if slots is None else slots.next_pos}
     else:
-        if cache is not None and cfg.prefill_continuation:
-            raise NotImplementedError(
-                "continuation prefill into a filled SSM cache is not ported "
-                "yet (ROADMAP.md queue 1, item 4)")
-        conv_out = _causal_conv(xbc, p.conv_w.to(x.dtype),
+        cont = cache is not None and cfg.prefill_continuation
+        wdt = s.conv_width
+        # the W - 1 tokens before the chunk: a continuation's cached tail
+        # (so token 0 sees the previous chunk's last tokens), else zeros
+        before = cache["conv"].to(x.dtype) if cont else \
+            xbc.new_zeros(b, wdt - 1, xbc.shape[-1])
+        window = torch.cat([before, xbc], dim=1)
+        conv_out = _causal_conv(window, p.conv_w.to(x.dtype),
                                 p.conv_b.to(x.dtype))
         xs, B_, C_ = torch.split(conv_out, [d_in, gn, gn], dim=-1)
         xh = xs.reshape(b, l, n_heads, s.head_dim)
@@ -200,13 +216,24 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
             if l % chunk:
                 chunk = 1
             y, s_final = _ssd_chunked(xh, dt, A, Bg, Cg, chunk)
+        if cont:
+            # the exact initial-state correction on the zero-state scan
+            s0 = cache["state"].float()                            # (B,H,N,P)
+            lp = torch.cumsum(A[None, None, :] * dt.float(), dim=1)  # (B,L,H)
+            hpg = n_heads // s.n_groups
+            Ch = Cg.repeat_interleave(hpg, dim=2).float()
+            y_init = torch.einsum("blhn,bhnp->blhp", Ch, s0) \
+                * torch.exp(lp)[..., None]
+            y = (y.float() + y_init).to(xh.dtype)
+            s_final = s_final.float() \
+                + s0 * torch.exp(lp[:, -1])[..., None, None]
         y = y + p.D.to(y.dtype)[None, None, :, None] * xh
         y = y.reshape(b, l, d_in)
         new_cache = None
         if cache is not None:
-            # prefill: store the final SSD state and the conv tail
-            wdt = s.conv_width
-            tail = F.pad(xbc, (0, 0, max(0, wdt - 1 - l), 0))[:, -(wdt - 1):]
+            # prefill: store the final SSD state and the conv tail, off the
+            # window, so a chunk shorter than it keeps the earlier tokens
+            tail = window[:, -(wdt - 1):]
             new_cache = {"state": s_final.to(cache["state"].dtype),
                          "conv": tail.to(cache["conv"].dtype),
                          "pos": cache["pos"] + l}
@@ -216,9 +243,11 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
 
 
 def mamba2_cache_init(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
-                      device: Optional[torch.device] = None) -> Dict:
+                      device: Optional[torch.device] = None,
+                      per_slot_pos: bool = False) -> Dict:
     """Recurrent state (fp32) and conv tail (``dtype``) of one layer.  The
-    step is position-free; ``pos`` is bookkeeping, a scalar int."""
+    step is position-free; ``pos`` is bookkeeping, an int, or per slot an
+    int32 (B,) tensor."""
     s = cfg.ssm
     d_in = s.expand * cfg.d_model
     n_heads = d_in // s.head_dim
@@ -228,5 +257,5 @@ def mamba2_cache_init(cfg, batch: int, dtype: torch.dtype = torch.bfloat16,
                              dtype=torch.float32, device=device),
         "conv": torch.zeros((batch, s.conv_width - 1, conv_dim), dtype=dtype,
                             device=device),
-        "pos": 0,
+        "pos": cache_pos(batch, per_slot_pos, device),
     }

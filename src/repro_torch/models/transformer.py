@@ -36,15 +36,15 @@ from torch import nn
 
 from .attention import (GQA, MLA, gqa_apply, gqa_cache_init, mla_apply,
                         mla_cache_init)
-from .layers import (Dense, Embedding, RMSNorm, SwiGLU, dense, embed, rmsnorm,
-                     swiglu, unembed)
+from .layers import (Dense, Embedding, RMSNorm, SlotStep, SwiGLU, dense, embed,
+                     rmsnorm, slot_step, swiglu, unembed)
 from .moe import MoE, moe_apply
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
 
 
-def _attn_apply(p, cfg, x, positions, cache):
+def _attn_apply(p, cfg, x, positions, cache, slots):
     fn = mla_apply if cfg.mla else gqa_apply
-    return fn(p, cfg, x, positions=positions, cache=cache)
+    return fn(p, cfg, x, positions=positions, cache=cache, slots=slots)
 
 
 class DenseBlock(nn.Module):
@@ -57,11 +57,12 @@ class DenseBlock(nn.Module):
 
 
 def dense_block_apply(p: DenseBlock, cfg, x: torch.Tensor,
-                      positions: torch.Tensor, cache: Optional[Dict] = None
+                      positions: torch.Tensor, cache: Optional[Dict] = None,
+                      slots: Optional[SlotStep] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     h, new_cache = _attn_apply(p.attn, cfg,
                                rmsnorm(p.norm1, x, cfg.norm_eps), positions,
-                               cache)
+                               cache, slots)
     x = x + h
     x = x + swiglu(p.mlp, rmsnorm(p.norm2, x, cfg.norm_eps))
     return x, None, new_cache
@@ -77,13 +78,14 @@ class MoEBlock(nn.Module):
 
 
 def moe_block_apply(p: MoEBlock, cfg, x: torch.Tensor,
-                    positions: torch.Tensor, cache: Optional[Dict] = None
+                    positions: torch.Tensor, cache: Optional[Dict] = None,
+                    slots: Optional[SlotStep] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Attention + MoE.  A cached call is serving, so the MoE is dropless
     (the reference's ``dropless=cache is not None``)."""
     h, new_cache = _attn_apply(p.attn, cfg,
                                rmsnorm(p.norm1, x, cfg.norm_eps), positions,
-                               cache)
+                               cache, slots)
     x = x + h
     y, aux = moe_apply(p.moe, cfg, rmsnorm(p.norm2, x, cfg.norm_eps),
                        dropless=cache is not None)
@@ -98,10 +100,11 @@ class MambaBlock(nn.Module):
 
 
 def mamba_block_apply(p: MambaBlock, cfg, x: torch.Tensor,
-                      positions: torch.Tensor, cache: Optional[Dict] = None
+                      positions: torch.Tensor, cache: Optional[Dict] = None,
+                      slots: Optional[SlotStep] = None
                       ) -> Tuple[torch.Tensor, None, Optional[Dict]]:
     h, new_cache = mamba2_apply(p.mixer, cfg, rmsnorm(p.norm, x, cfg.norm_eps),
-                                cache=cache)
+                                cache=cache, slots=slots)
     return x + h, None, new_cache
 
 
@@ -151,9 +154,11 @@ class Transformer(nn.Module):
 
 
 def _backbone(cfg, model: Transformer, x: torch.Tensor,
-              positions: torch.Tensor, caches: Optional[Dict] = None):
-    """Embedded input -> final hidden states.  Returns (x, summed aux loss,
-    new_caches)."""
+              positions: torch.Tensor, caches: Optional[Dict] = None,
+              slots: Optional[SlotStep] = None):
+    """Embedded input -> final hidden states.  ``slots``: a per-slot decode
+    step's write and masks, shared by every layer.  Returns (x, summed aux
+    loss, new_caches)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches: Dict[str, List[Dict]] = {}
     n_groups = _hybrid_groups(cfg)
@@ -167,11 +172,13 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
             for i in range(gi * g, (gi + 1) * g):
                 x, _, nc = mamba_block_apply(
                     model.blocks[i], cfg, x, positions,
-                    caches["blocks"][i] if caches is not None else None)
+                    caches["blocks"][i] if caches is not None else None,
+                    slots)
                 blocks.append(nc)
             x, _, nc = dense_block_apply(
                 model.shared_attn, cfg, x, positions,
-                caches["shared_attn"][gi] if caches is not None else None)
+                caches["shared_attn"][gi] if caches is not None else None,
+                slots)
             shared.append(nc)
         if caches is None:
             return x, aux_total, None
@@ -182,7 +189,7 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
         for i, block in enumerate(getattr(model, name)):
             x, aux, nc = apply(block, cfg, x, positions,
                                caches[name][i] if caches is not None
-                               else None)
+                               else None, slots)
             if aux is not None:
                 aux_total = aux_total + aux
             layers.append(nc)
@@ -212,17 +219,22 @@ def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
 
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
-               device: Optional[torch.device] = None) -> Dict:
+               device: Optional[torch.device] = None,
+               per_slot_pos: bool = False) -> Dict:
     """One cache per layer, in one list per segment, and for a hybrid stack
     one GQA cache per group of its shared block (``shared_attn``);
     ``max_len`` sizes the KV (or compressed MLA) cache of an attention
-    block and nothing of an SSM block."""
+    block and nothing of an SSM block.  ``per_slot_pos=True`` builds the
+    continuous-batching cache: every ``pos`` is an int32 (batch,) tensor on
+    ``device``, so each row is a decode lane at its own depth."""
     def one(kind):
         if kind == "mamba":
-            return mamba2_cache_init(cfg, batch, dtype, device)
+            return mamba2_cache_init(cfg, batch, dtype, device, per_slot_pos)
         if cfg.mla:
-            return mla_cache_init(cfg, batch, max_len, dtype, device)
-        return gqa_cache_init(cfg, batch, max_len, dtype, device)
+            return mla_cache_init(cfg, batch, max_len, dtype, device,
+                                  per_slot_pos)
+        return gqa_cache_init(cfg, batch, max_len, dtype, device,
+                              per_slot_pos)
 
     caches = {name: [one(kind) for _ in range(n)]
               for name, kind, n in _segments(cfg)}
@@ -301,16 +313,38 @@ def plan_requests(cfg, batch: int, max_len: int, *, dtype=None, policy=None,
     return reqs
 
 
+def _kv_length(cache: Dict) -> Optional[int]:
+    """The slots of the model's KV (or compressed MLA) caches, all sized to
+    one ``max_len``; None for a stack of SSM blocks alone."""
+    for layers in cache.values():
+        for c in layers:
+            if "k" in c:
+                return c["k"].shape[2]
+            if "c_kv" in c:
+                return c["c_kv"].shape[1]
+    return None
+
+
 def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,
                 last_only: bool = False) -> Tuple[torch.Tensor, Dict]:
     """tokens (B, S) at the cache's position -> (logits (B, S, V), cache).
-    S == 1 is a decode step and S > 1 a cached prefill.  ``last_only``
-    projects only the final position (the Engine's prefill reads no other);
-    the reference always projects all S."""
+    S == 1 is a decode step and S > 1 a cached prefill.  An int ``pos``
+    gives (S,) positions, a per-slot (B,) one (B, S) rows, and its cache
+    write, masks and next ``pos`` are built here once for every layer
+    (``layers.SlotStep``; every layer's new ``pos`` is that one tensor).
+    ``last_only`` projects only the final position (the Engine's prefill
+    reads no other); the reference always projects all S."""
     x = embed(model.embed, tokens, cfg.activation_dtype)
     pos = cache[_segments(cfg)[0][0]][0]["pos"]
-    positions = pos + torch.arange(tokens.shape[1], device=x.device)
-    x, _, new_caches = _backbone(cfg, model, x, positions, caches=cache)
+    steps = torch.arange(tokens.shape[1], device=x.device)
+    slots = None
+    if isinstance(pos, torch.Tensor):
+        positions = pos[:, None] + steps[None, :]
+        slots = slot_step(pos, _kv_length(cache))
+    else:
+        positions = pos + steps
+    x, _, new_caches = _backbone(cfg, model, x, positions, caches=cache,
+                                 slots=slots)
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, model, x), new_caches

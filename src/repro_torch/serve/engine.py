@@ -28,15 +28,26 @@ a cold bucket is measured there, a bucket in the persistent compile cache
 replays.  So every kernel call of ``generate`` after it is a registry hit;
 its cost is ``warmup_s``, never step time.
 
+**Continuous batching.**  ``Engine.serve_stream`` serves a stream of
+requests through ``serve.scheduler``: ``max_slots`` decode lanes over one
+per-slot cache (each row's ``pos`` an int32 device tensor), admission into
+freed lanes, grouped fresh prefills scattered into the lanes, and one
+batched decode step a scheduler step.  ``Engine.prefill_chunk`` is the
+continuation prefill under chunked prefill and preemption resume: a
+config with ``prefill_continuation=True`` and ``fresh_prefill_kernel=False``
+that attends over the whole written prefix and seeds the SSM scan from the
+cached state.
+
 Not ported yet (ROADMAP.md queue 1): plan artifacts (``plan_artifact``,
-item 7), the degradation ladder of ``_run_step`` and the NaN guard (item
-6), tracing, ``serve_stream`` and the scheduler, and sampling with
-``temperature > 0``.
+item 7), the degradation ladder of ``_run_step``, the NaN guard and the
+scheduler's ``obs`` counters and fault seams (item 6), tracing, and
+sampling with ``temperature > 0`` (item 4).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import statistics
 import time
 from typing import Any, Dict, List, Optional, Union
 
@@ -73,6 +84,11 @@ class Engine:
         if not cfg.fresh_prefill_kernel:
             cfg = dataclasses.replace(cfg, fresh_prefill_kernel=True)
         self.cfg, self.scfg = cfg, scfg
+        # continuation prefill: s > 1 into a cache already holding tokens,
+        # so attention masks over the whole written prefix (the flash
+        # fresh-prefill route off) and the SSM scan seeds from the cache
+        self.cont_cfg = dataclasses.replace(
+            cfg, prefill_continuation=True, fresh_prefill_kernel=False)
         self.device = device_mod.resolve(device)
         self.model = model.to(self.device)
         self.cache_dtype = getattr(torch, scfg.cache_dtype)
@@ -139,6 +155,27 @@ class Engine:
         return cache, logits[:, -1]
 
     @torch.no_grad()
+    def prefill_chunk(self, cache, tokens: torch.Tensor):
+        """Continuation prefill: advance ``cache`` (int pos, possibly
+        already holding tokens) by one chunk of ``tokens`` (B, S_chunk).
+        Returns (cache, last-position logits (B, V)).  At pos 0 this is the
+        answer of ``prefill`` without the flash fresh-cache route."""
+        tokens = tokens.to(self.device)
+        with self._serving():
+            logits, cache = self.timer.run(
+                "prefill_chunk", model_mod.decode_step, self.cont_cfg,
+                self.model, {"tokens": tokens}, cache, last_only=True)
+        return cache, logits[:, -1]
+
+    @torch.no_grad()
+    def decode_token(self, cache, tokens: torch.Tensor):
+        """One decode step of every row of ``cache`` (int or per-slot pos):
+        tokens (B, 1) -> (logits (B, 1, V), cache)."""
+        with self._serving():
+            return self.timer.run("decode", model_mod.decode_step, self.cfg,
+                                  self.model, {"tokens": tokens}, cache)
+
+    @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, n_new: int,
                  return_logits: bool = False):
         """Greedy generation: (B, n_new) tokens, or with ``return_logits``
@@ -151,18 +188,81 @@ class Engine:
             torch.cuda.synchronize()
         self.ttft_s = time.perf_counter() - t_start
         toks, lgs = [], [last.float()]
-        with self._serving():
-            for _ in range(n_new):
-                toks.append(cur)
-                logits, cache = self.timer.run(
-                    "decode", model_mod.decode_step, self.cfg, self.model,
-                    {"tokens": cur}, cache)
-                lgs.append(logits[:, -1].float())
-                cur = logits[:, -1].argmax(dim=-1)[:, None]
+        for _ in range(n_new):
+            toks.append(cur)
+            logits, cache = self.decode_token(cache, cur)
+            lgs.append(logits[:, -1].float())
+            cur = logits[:, -1].argmax(dim=-1)[:, None]
         out = torch.cat(toks, dim=1)
         if return_logits:
             return out, torch.stack(lgs[:n_new])
         return out
+
+    def measured_step_time_ms(self) -> Optional[float]:
+        """A measured decode-step time (ms) for the scheduler's virtual
+        clock, or None: the p50 of this engine's steady decode steps (at
+        least 3, so no cold step is the estimate), else the warmup's plan
+        times (the slowest bucket's winner per decode kernel times the
+        layers that run it, kernels only, so an underestimate)."""
+        steps = self.timer.steady.get("decode", [])
+        if len(steps) >= 3:
+            return statistics.median(steps) * 1e3
+        best: Dict[str, float] = {}
+        for rec in self.warmup_report:
+            us, kern = rec.get("winner_us"), rec.get("kernel")
+            if us and kern in ("decode_attention", "ssd_decode"):
+                best[kern] = max(best.get(kern, 0.0), float(us))
+        if not best:
+            return None
+        cfg = self.cfg
+        if cfg.family == "hybrid" and cfg.hybrid_attn_every:
+            n_attn = cfg.n_layers // cfg.hybrid_attn_every
+        elif cfg.family == "ssm":
+            n_attn = 0
+        else:
+            n_attn = cfg.n_layers
+        n_ssm = cfg.n_layers - n_attn if cfg.family in ("ssm", "hybrid") \
+            else 0
+        ms = (best.get("decode_attention", 0.0) * n_attn
+              + best.get("ssd_decode", 0.0) * n_ssm) / 1e3
+        return ms or None
+
+    @torch.no_grad()
+    def serve_stream(self, requests, *, max_slots: Optional[int] = None,
+                     collect_logits: bool = False, step_hook=None,
+                     prefill_chunk_tokens: Optional[int] = None,
+                     preempt_policy: Optional[str] = None,
+                     max_queue: Optional[int] = None,
+                     deadline_aware: bool = False,
+                     step_time_ms: Optional[float] = None,
+                     return_shed: bool = False):
+        """Serve a stream of ``scheduler.Request``s (virtual arrival steps;
+        ``scheduler.synthetic_workload`` makes seeded traces) through the
+        continuous-batching scheduler: ``max_slots`` (default: the engine
+        batch) decode lanes over one per-slot cache.  Returns
+        ``[CompletedRequest]`` sorted by rid; in fp32 each request's tokens
+        are those of running it alone through ``generate``, in bf16 they
+        may differ at near-ties of the top two logits (a GEMM over all
+        lanes rounds otherwise than one over a single row).  With
+        ``return_shed`` a
+        ``(completed, shed)`` pair.  ``prefill_chunk_tokens``,
+        ``preempt_policy``, ``max_queue`` and ``deadline_aware`` are the
+        reference's overload controls.  ``step_time_ms`` maps deadlines
+        onto scheduler steps; None takes ``measured_step_time_ms`` and
+        falls back to 1.0."""
+        from . import scheduler as sched_mod
+        if step_time_ms is None:
+            step_time_ms = self.measured_step_time_ms() or 1.0
+        sched = sched_mod.Scheduler(
+            self, max_slots=max_slots, collect_logits=collect_logits,
+            step_hook=step_hook, prefill_chunk_tokens=prefill_chunk_tokens,
+            preempt_policy=preempt_policy, max_queue=max_queue,
+            deadline_aware=deadline_aware, step_time_ms=step_time_ms)
+        completed = sched.run(requests)
+        if return_shed:
+            return completed, sorted(sched.shed.values(),
+                                     key=lambda r: r.rid)
+        return completed
 
     def stats(self) -> Dict[str, Any]:
         """Time to first token of the last ``generate``, the plan warmup,

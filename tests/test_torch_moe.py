@@ -407,20 +407,73 @@ def test_mla_prefill_decode_and_forward_match(q_lora):
     assert pc["pos"] == PROMPT + 3
 
 
-def test_mla_continuation_and_per_slot_positions_are_not_ported(weights):
-    _, model = weights
-    cfg = dataclasses.replace(port_ds.SMOKE, prefill_continuation=True)
-    cache = port_model.init_cache(cfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_model.decode_step(cfg, model, {"tokens": torch.zeros(1, 4).long()},
-                               cache)
-    cache = port_model.init_cache(port_ds.SMOKE, 2, 8, torch.float32)
-    cache["blocks_dense"][0]["pos"] = torch.tensor([0, 1])
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_attn.mla_apply(model.blocks_dense[0].attn, port_ds.SMOKE,
-                            torch.zeros(2, 1, 64),
-                            positions=torch.zeros(1).long(),
-                            cache=cache["blocks_dense"][0])
+def _mla_pair(q_lora=0):
+    """(reference params, reference config, port MLA, port config) on the
+    same seeded weights."""
+    from repro.configs import deepseek_v2_lite_16b as jax_ds
+    from repro.models import attention as jax_attn
+    jcfg = dataclasses.replace(
+        jax_ds.SMOKE, mla=dataclasses.replace(jax_ds.SMOKE.mla,
+                                              q_lora_rank=q_lora))
+    pcfg = dataclasses.replace(
+        port_ds.SMOKE, mla=dataclasses.replace(port_ds.SMOKE.mla,
+                                               q_lora_rank=q_lora))
+    jp = jax_attn.mla_init(jax.random.PRNGKey(3), jcfg)
+    mla = port_attn.MLA(pcfg)
+    flat = convert._flatten(jax.tree.map(np.asarray, jp))
+    mla.load_state_dict({k: torch.tensor(v) for k, v in flat.items()},
+                        strict=True)
+    return jp, jcfg, mla.requires_grad_(False), pcfg
+
+
+@pytest.mark.parametrize("q_lora", [0, 24])
+def test_mla_continuation_and_per_slot_decode_match(q_lora):
+    """MLA's continuation prefill (the compressed prefix decompressed and
+    masked to pos + s) in uneven chunks, then absorbed decode steps on a
+    per-slot cache whose rows sit at different depths, one of them past
+    the cache (a free lane: it writes nothing and attends to every key);
+    outputs and the compressed cache against the reference at 5e-6."""
+    from repro.models import attention as jax_attn
+    jp, jcfg, mla, pcfg = _mla_pair(q_lora)
+    jcfg, pcfg = (dataclasses.replace(c, prefill_continuation=True)
+                  for c in (jcfg, pcfg))
+    t = 16
+    x = _normal(11, BATCH, 11, pcfg.d_model)
+    jc = jax_attn.mla_cache_init(jcfg, BATCH, t, jnp.float32)
+    pc = port_attn.mla_cache_init(pcfg, BATCH, t, torch.float32)
+    lo = 0
+    for n in (4, 2, 5):
+        pos = np.arange(lo, lo + n)
+        want, jc = jax_attn.mla_apply(jp, jcfg, jnp.asarray(x[:, lo:lo + n]),
+                                      positions=jnp.asarray(pos), cache=jc)
+        got, pc = port_attn.mla_apply(mla, pcfg,
+                                      torch.from_numpy(x[:, lo:lo + n]),
+                                      positions=torch.from_numpy(pos),
+                                      cache=pc)
+        lo += n
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=f"chunk ending at {lo}", **TOL)
+    assert pc["pos"] == lo
+    rows = np.asarray([lo, t + 2], np.int32)        # row 1 past the cache
+    jc = dict(jc, pos=jnp.asarray(rows))
+    pc = dict(pc, pos=torch.from_numpy(rows))
+    for step in range(3):
+        xs = _normal(20 + step, BATCH, 1, pcfg.d_model)
+        pos = (rows + step)[:, None]
+        want, jc = jax_attn.mla_apply(jp, jcfg, jnp.asarray(xs),
+                                      positions=jnp.asarray(pos), cache=jc)
+        got, pc = port_attn.mla_apply(mla, pcfg, torch.from_numpy(xs),
+                                      positions=torch.from_numpy(pos),
+                                      cache=pc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=f"per-slot step {step}", **TOL)
+    for leaf in ("c_kv", "k_rope"):
+        np.testing.assert_allclose(pc[leaf].numpy(), np.asarray(jc[leaf]),
+                                   **TOL)
+    assert pc["pos"].tolist() == (rows + 3).tolist()
+    with pytest.raises(ValueError, match="decode-only"):
+        port_attn.mla_apply(mla, pcfg, torch.from_numpy(x[:, :2]),
+                            positions=torch.zeros(BATCH, 2).long(), cache=pc)
 
 
 # ------------------------------------------------------------ the model ----

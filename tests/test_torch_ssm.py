@@ -276,13 +276,60 @@ def test_cache_holds_no_max_len():
         assert la["pos"] == 0
 
 
-def test_continuation_prefill_is_not_ported(weights):
-    _, model = weights
-    cfg = dataclasses.replace(port_mamba2.SMOKE, prefill_continuation=True)
-    cache = port_model.init_cache(cfg, 1, 8, torch.float32)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        port_model.decode_step(cfg, model,
-                               {"tokens": torch.zeros(1, 4).long()}, cache)
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_continuation_prefill_and_per_slot_decode_match(weights, impl):
+    """A prompt in continuation chunks (``prefill_continuation``; the 2 and
+    1 are shorter than the conv window), then decode steps on a per-slot
+    cache at ragged positions: logits and the state / conv leaves against
+    the reference's jitted ``decode_step`` on the same configs."""
+    from repro.models import transformer as jax_tf
+    params, model = weights
+    jcfg, pcfg = (dataclasses.replace(c, prefill_continuation=True)
+                  for c in _configs(impl))
+    toks = _tokens(4, (BATCH, 12))
+    jstep = jax.jit(functools.partial(jax_tf.decode_step, jcfg))
+    jcache = jax_tf.init_cache(jcfg, BATCH, 4, jnp.float32)
+    pcache = port_model.init_cache(pcfg, BATCH, 4, torch.float32)
+    lo = 0
+    for n in (5, 2, 1, 4):
+        want, jcache = jstep(params, jnp.asarray(toks[:, lo:lo + n]), jcache)
+        got, pcache = port_model.decode_step(
+            pcfg, model, {"tokens": torch.from_numpy(toks[:, lo:lo + n])},
+            pcache)
+        lo += n
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=f"chunk ending at {lo}",
+                                   **LOGIT_TOL)
+    for i, layer in enumerate(pcache["blocks"]):
+        np.testing.assert_allclose(layer["state"].numpy(), np.asarray(
+            jcache["blocks"]["state"][i]), **STATE_TOL)
+        np.testing.assert_allclose(layer["conv"].numpy(), np.asarray(
+            jcache["blocks"]["conv"][i]), **TOL)
+        assert layer["pos"] == 12
+    # per-slot: the same state, rows at their own (bookkeeping) depths
+    jslot = jax_tf.init_cache(jcfg, BATCH, 4, jnp.float32, per_slot_pos=True)
+    pslot = port_model.init_cache(pcfg, BATCH, 4, torch.float32,
+                                  per_slot_pos=True)
+    jslot = jax.tree.map(lambda a, b: b if b.shape == a.shape else a,
+                         jslot, jcache)
+    jslot["blocks"]["pos"] = jnp.asarray([[12, 3]] * pcfg.n_layers,
+                                         jnp.int32)
+    for big, small in zip(pslot["blocks"], pcache["blocks"]):
+        big["state"].copy_(small["state"])
+        big["conv"].copy_(small["conv"])
+        big["pos"].copy_(torch.tensor([12, 3]))
+    for step in range(3):
+        t = _tokens(20 + step, (BATCH, 1))
+        want, jslot = jstep(params, jnp.asarray(t), jslot)
+        got, pslot = port_model.decode_step(
+            pcfg, model, {"tokens": torch.from_numpy(t)}, pslot)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   err_msg=f"per-slot step {step}",
+                                   **LOGIT_TOL)
+    assert pslot["blocks"][0]["pos"].tolist() == [15, 6]
+    np.testing.assert_allclose(pslot["blocks"][1]["state"].numpy(),
+                               np.asarray(jslot["blocks"]["state"][1]),
+                               **STATE_TOL)
 
 
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
