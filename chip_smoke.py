@@ -86,6 +86,13 @@ Phases, in order; any failure exits non-zero:
        the SSD scan and decode step at zamba2's widths (H 80, N 64).  The
        grouped GEMM's (i) also runs deepseek-v3's MoE shapes (256 experts
        top-8, 7168 <-> 2048, prefill and decode routings).
+   (m) the shapes whisper-base's and internvl2-2b's paths give the
+       attention kernels, the same way: flash non-causal at the encoder's
+       B 8, 8 / 8 heads, S = T = 1500 (a last key tile of 28), D 64; flash
+       causal at whisper's prefill (S 384, D 64) and internvl2's
+       image-prefixed forward (16 / 8 heads, S 768, D 128); decode
+       attention at whisper's decode (group 1, T 448, D 64, fp32 cache) at
+       pos 384 and at per-row positions ``WHISPER_ROW_POS``.
 4. end to end, qwen3-0.6b at full width (seeded random bf16 weights),
    batch 8, prompt 512, 64 new tokens through ``Engine.generate`` with
    ``attention_impl='pallas'``; launch counts are read around that run.
@@ -147,19 +154,33 @@ Phases, in order; any failure exits non-zero:
    covers the three models' grids.  After deepseek-v2-lite:
    qwen2.5-14b at full width (48 layers, 40/8 heads x 128, ``qkv_bias``;
    48 flash launches per prefill, 48 decode attentions per step,
-   ``ATOL_E2E_QWEN25_LOGITS``), and deepseek-v3-671b at full width and
+   ``ATOL_E2E_QWEN25_LOGITS``); whisper-base at full width (the enc-dec
+   family: seeded frames (8, 1500, 512) for the stub frontend through
+   ``encdec.encode`` on both routes, 6 non-causal flash launches on the
+   kernel route; ``Engine(batch 8, max_len 448)`` generating 64 tokens
+   after a 384-token prompt on each route's own encoder output, 6 flash
+   launches a prefill and 6 decode attentions a step,
+   ``ATOL_E2E_WHISPER_LOGITS`` at every step, the encoder's ms, and
+   ``launch.profile``'s encoder, prefill and decode rows); internvl2-2b
+   at full width as qwen3 (24 flash launches a prefill, 24 decode
+   attentions a step, ``ATOL_E2E_INTERNVL2_LOGITS``), then its
+   image-prefixed ``model.forward`` (patches (8, 256, 1024), 512 tokens,
+   ``last_only``; 24 flash launches, last-position logits within the
+   same tolerance of the plain route's); and deepseek-v3-671b at full width and
    ``DSV3_LAYERS`` deep (3 dense and 2 MoE layers; 6 grouped-GEMM launches
    per prefill and per step), whose plain route, MoE layer check and
    logits comparison run at 8 x ``DSV3_HOLD_PROMPT`` prompt tokens (the
-   reason at the constant).  zamba2, qwen2.5-14b and deepseek-v3 are
-   profiled by ``launch.profile`` (device busy and idle per prefill and
+   reason at the constant).  zamba2, qwen2.5-14b, whisper-base,
+   internvl2-2b and deepseek-v3 are profiled by ``launch.profile`` (device busy and idle per prefill and
    decode step) on the kernel route's weights.
 6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
 7. a ``{"kernels": [...]}`` line (each kernel's launches summed over the
    paths, and per path under ``launches_by_path``; the streams of qwen3
-   and mamba2 are the ``stream`` path), then the last line
+   and mamba2 are the ``stream`` path, whisper-base's counts its encoder,
+   prefill and steps, internvl2-2b's its generate and image-prefixed
+   forward), then the last line
    ``{"ok": true, "device": {...}}``.  Each phase prints its seconds.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
@@ -254,6 +275,35 @@ ATOL_E2E_HYBRID_LOGITS = 0.5
 # for it, while a wrong kernel makes the logits unrelated (a difference of
 # their own size)
 ATOL_E2E_QWEN25_LOGITS = 0.3
+# whisper-base kernel route vs plain route logits after 6 encoder and 6
+# decoder bf16 layers, each route on its own encoder output: as in qwen3,
+# fp32 summation order inside attention (the encoder's non-causal flash
+# over 1500 keys, the decoder's flash and decode attention) flips single
+# bf16 roundings, which compound through the encoder (its outputs differ
+# by 1.6% of their largest value, about 5) and reach the decoder through
+# cross-attention.  On an H100 80GB HBM3 (700 W) the routes differ by
+# 0.0187 on logits that reach 2.2; 0.05 (2.3% of the largest logit) leaves 2.7x room, while a
+# wrong kernel (a lost key tile, a wrong mask) moves the logits by their
+# own size
+ATOL_E2E_WHISPER_LOGITS = 0.05
+# internvl2-2b kernel route vs plain route logits after 24 bf16 layers
+# (16 / 8 heads x 128): qwen3's difference (fp32 summation order inside
+# attention flips single bf16 roundings, a random walk over the layers)
+# on logits that reach about 5.7 (an untied head) where qwen3's reach
+# 3.7; qwen3's 0.1 scaled by that gives 0.15, and 0.2 (3.5% of the
+# largest logit) leaves room for it.  On an H100 80GB HBM3 (700 W) the
+# routes differ by 0.0983 over the 64 steps and by 0.0678 in the
+# image-prefixed forward
+ATOL_E2E_INTERNVL2_LOGITS = 0.2
+# whisper-base's decoder context, 448 positions (max_target_positions in
+# openai/whisper-base's config): a 384-token prompt and 64 new tokens
+WHISPER_MAX_LEN = 448
+WHISPER_PROMPT = 384
+# the per-row positions phase 3 (m) checks whisper's decode attention at
+# (B 8, T 448): a lane at 0, lanes on either side of a 64-key tile, the
+# prompt's last token and the first decode step's, the last key, and a
+# lane past the end of the cache (pos >= T keeps every key)
+WHISPER_ROW_POS = [0, 63, 64, 200, 383, 384, 447, 500]
 # deepseek-v3-671b on one card: every width, the depth cut to its 3 dense
 # layers and 2 MoE layers (27.2 B parameters, 54 GB of bf16 weights; the
 # 61 layers are 671 B).  Its plain route, the dense dropless einsum path,
@@ -379,12 +429,12 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
                                 if want.numel() else 0.0)
 
 
-def warm_ttft_ms(eng, prompts, reps: int = 3) -> float:
+def warm_ttft_ms(eng, prompts, reps: int = 3, enc_out=None) -> float:
     """Median time (ms) of prefill + first argmax, after the first call."""
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
-        eng.prefill(prompts)[1].argmax(-1)
+        eng.prefill(prompts, enc_out)[1].argmax(-1)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return statistics.median(times) * 1e3
@@ -1407,17 +1457,17 @@ def attention_shape(arch: str):
     return cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
 
 
-def flash_at(timer, gen, label, b, h, hkv, s, d) -> dict:
-    """Flash attention in bf16, causal, at one serving shape: every built
-    pump case against the plain version under ATOL_BF16 with T1's bits;
-    T1, plain and SDPA times beside the bound."""
+def flash_at(timer, gen, label, b, h, hkv, s, d, causal=True) -> dict:
+    """Flash attention in bf16, causal or not, at one serving shape: every
+    built pump case against the plain version under ATOL_BF16 with T1's
+    bits; T1, plain and SDPA times beside the bound."""
     from repro_torch.core.pump_plan import PEAK_FLOPS_BF16, bound_ms
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     q = randn(gen, b, h, s, d, dtype=torch.bfloat16)
     k = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
     v = randn(gen, b, hkv, s, d, dtype=torch.bfloat16)
-    want = ref.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=causal)
 
     def check_one(outs, name):
         e = err(outs[0], want)
@@ -1425,24 +1475,26 @@ def flash_at(timer, gen, label, b, h, hkv, s, d) -> dict:
         return e
 
     def run(pump):
-        return (fa.flash_attention_cuda(q, k, v, causal=True, pump=pump),)
+        return (fa.flash_attention_cuda(q, k, v, causal=causal, pump=pump),)
     built = lambda f, m: fa.built(f, m, d, q.dtype)  # noqa: E731
     cases, e = pump_sweep(f"flash {label}", run, check_one, built)
     pumps = pump_times(timer, f"flash {label}", run, built)
-    pairs = sum(min(i + 1, s) for i in range(s))
+    pairs = sum(min(i + 1, s) for i in range(s)) if causal else s * s
     flops = 4.0 * b * h * d * pairs
     bound, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()), flops,
                          PEAK_FLOPS_BF16)
-    ms = timer.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=True))
-    plain = timer.ms(lambda: ref.flash_attention(q, k, v, causal=True))
+    ms = timer.ms(lambda: fa.flash_attention_cuda(q, k, v, causal=causal))
+    plain = timer.ms(lambda: ref.flash_attention(q, k, v, causal=causal))
     lib = timer.ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
+        q, k, v, is_causal=causal, enable_gqa=True))
+    mask = "causal" if causal else "non-causal"
     print(f"[flash {label}] B{b} H{h}/{hkv} S=T={s} D{d} (padded width "
-          f"{fa.padded_dim(d)}) bf16 causal, {'/'.join(cases)}: max abs err "
+          f"{fa.padded_dim(d)}) bf16 {mask}, {'/'.join(cases)}: max abs err "
           f"{e:.3g} (atol {ATOL_BF16}), identical bits; kernel {ms:.4f} ms "
           f"({flops / ms * 1e-9:.1f} TFLOP/s, {ms / lib:.2f}x SDPA), plain "
           f"{plain:.4f} ms, SDPA {lib:.4f} ms, bound {bound:.4f} ms ({by})")
-    return {"shape": f"{label} B{b} H{h}/{hkv} S{s} D{d}", "max_abs_err": e,
+    return {"shape": f"{label} B{b} H{h}/{hkv} S{s} D{d}"
+            + ("" if causal else " non-causal"), "max_abs_err": e,
             "ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by,
             "library_ms": lib, "pump_ms": pumps}
 
@@ -1642,6 +1694,37 @@ def phase_stream_shapes(timer, entries) -> None:
         by_name["ssd_scan"].setdefault("shapes", []).append(
             scan_at(timer, gen, "mamba2 stream", b, 256, nh, s_.n_groups,
                     s_.state_dim, s_.head_dim, s_.chunk))
+
+
+def phase_encdec_vlm_shapes(timer, entries) -> None:
+    """(m) the shapes whisper-base's and internvl2-2b's paths give the
+    kernels, each in every built pump case against its plain version under
+    ATOL_BF16 with T1's bits, timed beside its bound and SDPA: flash
+    non-causal at the encoder's (B 8, 8 / 8 heads, S = T = 1500, D 64; the
+    last 64-key tile holds 28 keys), causal at whisper's prefill (S 384,
+    D 64) and at internvl2's image-prefixed forward (16 / 8 heads, S 768 =
+    256 patches + 512 tokens, D 128); decode attention at whisper's decode
+    (B 8, 8 / 8 heads, group 1, T 448, D 64, fp32 cache) at pos 384 and at
+    ``WHISPER_ROW_POS``.  Each goes into its kernel entry's ``shapes``."""
+    from repro_torch.configs.base import load_arch
+    by_name = {e_["name"]: e_ for e_ in entries}
+    gen = torch.Generator(device="cuda").manual_seed(2424)
+    flash = by_name["flash_attention"].setdefault("shapes", [])
+    decode = by_name["decode_attention"].setdefault("shapes", [])
+    h, hkv, d = attention_shape("whisper-base")
+    enc = load_arch("whisper-base").encoder_seq
+    flash.append(flash_at(timer, gen, "whisper-base encoder", 8, h, hkv, enc,
+                          d, causal=False))
+    flash.append(flash_at(timer, gen, "whisper-base prefill", 8, h, hkv,
+                          WHISPER_PROMPT, d))
+    for label, pos in (("whisper-base", WHISPER_PROMPT),
+                       ("whisper-base per-row", WHISPER_ROW_POS)):
+        decode.append(decode_at(timer, gen, label, 8, h, hkv,
+                                WHISPER_MAX_LEN, d, pos))
+    vlm = load_arch("internvl2-2b")
+    h, hkv, d = attention_shape("internvl2-2b")
+    flash.append(flash_at(timer, gen, "internvl2-2b image-prefixed", 8, h,
+                          hkv, vlm.n_vision_tokens + 512, d))
 
 
 # ------------------------------------------------------------ the compiler --
@@ -2992,6 +3075,178 @@ def phase_decode_loop():
           f"wall, {dec['idle']:.1%} idle)")
 
 
+def phase_whisper(atol: float) -> dict:
+    """whisper-base at full width (6 encoder and 6 decoder layers, seeded
+    bf16 weights, fp32 cache): seeded frames (8, 1500, 512) through
+    ``encdec.encode`` on both routes (6 non-causal flash launches on the
+    kernel route, none on the plain one), then ``Engine(batch 8, max_len
+    448).generate`` of 64 tokens after a 384-token prompt on each route's
+    own encoder output (6 flash launches a prefill, 6 decode attentions a
+    step; cross-attention is plain on both routes).  The plain route is
+    teacher-forced on the kernel route's tokens and every step's logits
+    held within ``atol``.  Prints the encoder's ms, TTFT, ms a step and the
+    peak memory, then ``launch.profile``'s encoder / prefill / decode
+    rows.  Returns the kernel route's launches (encoder, prefill and
+    steps)."""
+    import gc
+    from repro_torch.configs.base import load_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import profile as profile_mod
+    from repro_torch.launch.timing import Timer
+    from repro_torch.models import convert, encdec
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+    batch, n_new = 8, WHISPER_MAX_LEN - WHISPER_PROMPT
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(load_arch("whisper-base"),
+                              attention_impl="pallas")
+    cfg_plain = dataclasses.replace(cfg, attention_impl="xla_chunked")
+    n_enc, n_dec = cfg.n_encoder_layers, cfg.n_layers
+    model = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                         device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(2))
+    prompts = torch.randint(0, cfg.vocab_size, (batch, WHISPER_PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    print(f"[whisper] {cfg.name}: {n_enc} encoder and {n_dec} decoder "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads x {cfg.head_dim_}, d_ff {cfg.d_ff}, vocab "
+          f"{cfg.vocab_size}; {n_params / 1e6:.1f} M seeded bf16 weights; "
+          f"frames {tuple(frames.shape)} (stub frontend), prompt "
+          f"{tuple(prompts.shape)}, {n_new} new, max_len {WHISPER_MAX_LEN}")
+
+    def counts():
+        return {"flash_attention": fa.launches,
+                "decode_attention": da.launches}
+
+    fa.launches = da.launches = 0
+    with torch.no_grad():
+        enc_k = encdec.encode(cfg, model, frames)
+    check(counts() == {"flash_attention": n_enc, "decode_attention": 0},
+          f"whisper encode launches {counts()}")
+    scfg = ServeConfig(batch=batch, max_len=WHISPER_MAX_LEN)
+    eng = Engine(cfg, model, scfg)
+    toks, logits = eng.generate(prompts, n_new, enc_out=enc_k,
+                                return_logits=True)
+    launches = counts()
+    want = {"flash_attention": n_enc + n_dec,
+            "decode_attention": n_new * n_dec}
+    print(f"[whisper] launches: encoder {n_enc} flash, then {launches}")
+    check(launches == want, f"whisper launches {launches} != {want}")
+    with torch.no_grad():
+        enc_p = encdec.encode(cfg_plain, model, frames)
+    check(counts() == launches, "the plain encoder launched a kernel")
+    check(tuple(enc_k.shape) == (batch, cfg.encoder_seq, cfg.d_model)
+          and bool(torch.isfinite(enc_k).all()), "encoder output")
+    check(tuple(toks.shape) == (batch, n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          f"tokens {tuple(toks.shape)}")
+    check(tuple(logits.shape) == (n_new, batch, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "logits not finite")
+    timer = Timer()
+    with torch.no_grad():
+        enc_ms = timer.ms(lambda: encdec.encode(cfg, model, frames), iters=5)
+        enc_plain_ms = timer.ms(
+            lambda: encdec.encode(cfg_plain, model, frames), iters=5)
+    del timer
+    st = eng.stats()
+    dec = st["phases"]["decode"]
+    warm = warm_ttft_ms(eng, prompts, enc_out=enc_k)
+    print(f"[whisper] encoder: kernel route {enc_ms:.3f} ms, plain route "
+          f"{enc_plain_ms:.3f} ms; output rel err {rel_err(enc_k, enc_p):.3g}"
+          f" (max |value| {enc_p.float().abs().max().item():.3g})")
+    print(f"[whisper] pallas route: TTFT {st['ttft_s'] * 1e3:.2f} ms (first "
+          f"prefill of the process), warm TTFT {warm:.2f} ms; decode "
+          f"{dec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
+          f"{dec['steady_p50_s'] * 1e3:.3f} ms p50 over {dec['steps']} "
+          f"steps; {batch / dec['steady_mean_s']:.1f} tokens/s")
+
+    plain = Engine(cfg_plain, model, scfg)
+    plain.generate(prompts, n_new, enc_out=enc_p)
+    pdec = plain.stats()["phases"]["decode"]
+    print(f"[whisper] xla_chunked route: warm TTFT "
+          f"{warm_ttft_ms(plain, prompts, enc_out=enc_p):.2f} ms; decode "
+          f"{pdec['steady_mean_s'] * 1e3:.3f} ms/step mean, "
+          f"{pdec['steady_p50_s'] * 1e3:.3f} ms p50 over {pdec['steps']} "
+          f"steps")
+    cache, last = plain.prefill(prompts, enc_p)
+    diffs = [err(last, logits[0])]
+    with torch.no_grad():
+        for i in range(n_new - 1):
+            lg, cache = model_mod.decode_step(
+                plain.cfg, model, {"tokens": toks[:, i:i + 1],
+                                   "enc_out": enc_p}, cache)
+            diffs.append(err(lg[:, -1], logits[i + 1]))
+    del plain, cache
+    print(f"[whisper] kernel vs plain route logits: prefill max abs diff "
+          f"{diffs[0]:.4g}, decode steps max {max(diffs[1:]):.4g} (atol "
+          f"{atol}; max |logit| {logits.abs().max().item():.3g}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB")
+    check(max(diffs) <= atol, f"whisper route logits differ by {max(diffs)}"
+          f" > {atol}")
+    profile_mod.profile_serving(eng.cfg, batch=batch,
+                                prompt_len=WHISPER_PROMPT, model=model)
+    return launches
+
+
+def phase_vlm_forward(ctx, plain_route, atol: float) -> dict:
+    """internvl2-2b's image-prefixed forward on the e2e phase's weights:
+    ``model.forward`` over seeded patches (8, 256, 1024) and the e2e
+    prompts (8, 512), ``last_only``, on the kernel route (24 causal flash
+    launches over 768 positions: the projector's 256 prefix embeddings and
+    512 tokens) and the plain route (none); the last-position logits within
+    ``atol``, each route timed.  Returns the kernel route's launches."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import model as model_mod
+    cfg, model, prompts = ctx["cfg"], ctx["model"], ctx["prompts"]
+    cfg_plain = plain_route(cfg)
+    patches = torch.randn((prompts.shape[0], cfg.n_vision_tokens,
+                           cfg.d_vision), device="cuda",
+                          generator=torch.Generator(device="cuda")
+                          .manual_seed(3))
+    batch = {"patches": patches, "tokens": prompts.cuda()}
+
+    def run(c):
+        with torch.no_grad():
+            return model_mod.forward(c, model, batch, last_only=True)[0]
+
+    fa.launches = 0
+    got = run(cfg)
+    n = fa.launches
+    check(n == cfg.n_layers, f"image-prefixed forward: {n} flash launches "
+          f"!= {cfg.n_layers}")
+    want = run(cfg_plain)
+    check(fa.launches == n, "the plain route launched flash")
+    check(tuple(got.shape) == (prompts.shape[0], 1, cfg.vocab_size)
+          and bool(torch.isfinite(got).all()), "forward logits")
+    e = err(got, want)
+    ms, plain_ms = [], []
+    for c, out in ((cfg, ms), (cfg_plain, plain_ms)):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(c)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+    positions = cfg.n_vision_tokens + prompts.shape[1]
+    print(f"[vlm] image-prefixed forward, patches {tuple(patches.shape)} + "
+          f"tokens {tuple(prompts.shape)} -> {positions} positions, last "
+          f"only: {n} flash launches; "
+          f"kernel route {statistics.median(ms):.2f} ms, plain route "
+          f"{statistics.median(plain_ms):.2f} ms (median of 3, warm); "
+          f"last-position logits max abs diff {e:.4g} (atol {atol}; max "
+          f"|logit| {want.abs().max().item():.3g})")
+    check(e <= atol, f"image-prefixed forward logits differ by {e} > {atol}")
+    return {"flash_attention": n}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3020,6 +3275,8 @@ def main() -> int:
         phase_serving_shapes(timer, kernels)
     with timed("the stream's kernel shapes (3 l)"):
         phase_stream_shapes(timer, kernels)
+    with timed("whisper-base and internvl2-2b's kernel shapes (3 m)"):
+        phase_encdec_vlm_shapes(timer, kernels)
     with timed("compiler (3 j)"):
         compiled, compiler_launches = phase_compiler(timer)
     kernels += compiled
@@ -3087,6 +3344,21 @@ def main() -> int:
             {"flash_attention": 48}, {"decode_attention": 48},
             ATOL_E2E_QWEN25_LOGITS, profile=True)
         del _ctx
+    with timed("whisper-base"):
+        paths["whisper-base"] = phase_whisper(ATOL_E2E_WHISPER_LOGITS)
+    with timed("internvl2-2b"):
+        vlm_plain = set_field(attention_impl="xla_chunked")
+        paths["internvl2-2b"], ctx = phase_e2e(
+            "internvl2-2b", ("pallas", set_field(attention_impl="pallas")),
+            ("xla_chunked", vlm_plain), {"flash_attention": 24},
+            {"decode_attention": 24}, ATOL_E2E_INTERNVL2_LOGITS,
+            profile=True)
+        forward = phase_vlm_forward(ctx, vlm_plain,
+                                    ATOL_E2E_INTERNVL2_LOGITS)
+        for name, n in forward.items():
+            paths["internvl2-2b"][name] = paths["internvl2-2b"].get(
+                name, 0) + n
+        del ctx
     with timed("deepseek-v3-671b, cut depth"):
         print(f"[e2e] deepseek-v3-671b at full width, cut from 61 layers to "
               f"{DSV3_LAYERS} (its 3 dense layers and {DSV3_LAYERS - 3} MoE "

@@ -1,10 +1,9 @@
 """Model configs: a jax-free mirror of ``repro.configs.base``.
 
 Field names and defaults match the reference dataclasses, so a config
-means the same in both packages.  Every decoder-only reference config
-has its copy here (dense, SSM, MoE and hybrid), served by this port's
-model (``models.model``); the enc-dec and VLM families are accepted here
-and rejected there.
+means the same in both packages.  Every reference config has its copy
+here (dense, SSM, MoE, hybrid, enc-dec and VLM), served by this port's
+model (``models.model``).
 """
 from __future__ import annotations
 
@@ -117,13 +116,5 @@ def _modname(arch_id: str) -> str:
 
 
 def load_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
-    try:
-        mod = importlib.import_module(
-            f"repro_torch.configs.{_modname(arch_id)}")
-    except ModuleNotFoundError as e:
-        raise NotImplementedError(
-            f"arch {arch_id!r} has no config in the port yet; still to "
-            f"port: whisper-base and internvl2-2b (ROADMAP.md queue 1, "
-            f"item 5: enc-dec and VLM)"
-        ) from e
+    mod = importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
     return mod.SMOKE if smoke else mod.CONFIG

@@ -7,6 +7,8 @@ and a few steady decode steps of ``Engine.generate``'s path.
     PYTHONPATH=src python -m repro_torch.launch.profile \
         --arch deepseek-v2-lite-16b --moe-ragged
     PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2-2.7b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper-base \
+        --prompt-len 384
 
 Serves ``--arch`` (qwen3-0.6b by default) at full width (seeded bf16
 weights, as ``chip_smoke.py``) once to warm up, then profiles a
@@ -14,7 +16,10 @@ fresh-cache prefill and ``--steps`` decode steps (``profile_serving``
 does the same for a config it is given, such as ``chip_smoke.py``'s
 deepseek-v3 at a cut depth).  ``--attention-impl`` and ``--ssm-impl``
 (both ``pallas`` by default) apply to the layers that have them, both to
-a hybrid config.  Per phase it prints the host wall time, the device's busy
+a hybrid config.  An enc-dec config (whisper-base) gets seeded frames
+(batch, encoder_seq, d_model) and a third phase, the encoder, whose
+output every prefill and decode step attends over.  Per phase it prints
+the host wall time, the device's busy
 time (the sum of kernel and copy times on the card; the port runs one
 stream), the idle share, the kernel count and the kernels that take most
 device time.
@@ -98,8 +103,8 @@ def profile_serving(cfg, *, batch: int = 8, prompt_len: int = 512,
                     steps: int = 8, top: int = 8, model=None
                     ) -> Dict[str, Optional[dict]]:
     """Profiles one prefill and ``steps`` decode steps of ``cfg`` served by
-    ``Engine`` on the card, on ``model`` or on seeded bf16 weights; returns
-    each phase's ``_report``."""
+    ``Engine`` on the card (and an enc-dec model's encoder), on ``model``
+    or on seeded bf16 weights; returns each phase's ``_report``."""
     if model is None:
         model = convert.init_params(
             cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
@@ -108,31 +113,50 @@ def profile_serving(cfg, *, batch: int = 8, prompt_len: int = 512,
                             generator=torch.Generator().manual_seed(1))
     eng = Engine(cfg, model, ServeConfig(batch=batch,
                                          max_len=prompt_len + steps + 2))
-    toks = eng.generate(prompts, 2)           # warm: builds, cuBLAS, allocator
+    frames = enc_out = None
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        frames = torch.randn(
+            (batch, cfg.encoder_seq, cfg.d_model), device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(2))
+
+        def encode():
+            with torch.no_grad():
+                return encdec.encode(eng.cfg, eng.model, frames)
+        enc_out = encode()
+    # warm: builds, cuBLAS, allocator
+    toks = eng.generate(prompts, 2, enc_out=enc_out)
     impl = serve.route(cfg)
     print(f"[profile] {cfg.name} ({cfg.n_layers} layers) {impl}, batch "
           f"{batch}, prompt {prompt_len}, on "
           f"{torch.cuda.get_device_name(0)}")
 
+    def run_encode(_cache):
+        encode()
+        torch.cuda.synchronize()
+
     def run_prefill(_cache):
-        eng.prefill(prompts)                  # ends in a synchronize
+        eng.prefill(prompts, enc_out)         # ends in a synchronize
 
     def run_decode(cache):
         cur = toks[:, :1]
+        batch = {} if enc_out is None else {"enc_out": enc_out}
         with torch.no_grad():
             for _ in range(steps):
-                logits, cache = model_mod.decode_step(eng.cfg, eng.model,
-                                                      {"tokens": cur}, cache)
+                logits, cache = model_mod.decode_step(
+                    eng.cfg, eng.model, dict(batch, tokens=cur), cache)
                 cur = logits[:, -1].argmax(-1)[:, None]
         torch.cuda.synchronize()
 
+    runs = [("prefill", run_prefill, 1), ("decode", run_decode, steps)]
+    if frames is not None:
+        runs.insert(0, ("encode", run_encode, 1))
     phases = {}
-    for name, run, n in (("prefill", run_prefill, 1),
-                         ("decode", run_decode, steps)):
+    for name, run, n in runs:
         # the wall time comes from an unprofiled run: the profiler adds
         # host work; the device time from a profiled run of the same steps
-        fresh = (lambda: eng.prefill(prompts)[0]) if name == "decode" \
-            else (lambda: None)
+        fresh = (lambda: eng.prefill(prompts, enc_out)[0]) \
+            if name == "decode" else (lambda: None)
         cache = fresh()
         t0 = time.perf_counter()
         run(cache)

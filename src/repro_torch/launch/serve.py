@@ -7,12 +7,15 @@ runs on the card (``--arch mamba2-1.3b --ssm-impl pallas`` serves the SSM
 family through the SSD kernels; ``--arch deepseek-v2-lite-16b --moe-ragged``
 the MoE family through the grouped-GEMM kernel; ``--arch zamba2-2.7b
 --attention-impl pallas --ssm-impl pallas`` the hybrid family through all
-four serving kernels).  Every decoder-only config of the reference is
-served: qwen3-0.6b, qwen2-7b, qwen2.5-14b, granite-3-2b (dense),
-mamba2-1.3b (SSM), deepseek-v2-lite-16b and deepseek-v3-671b (MoE; the
-latter's 671 B parameters do not fit one card at full depth) and
-zamba2-2.7b (hybrid).  ``--kernel-plan measure``
-serves those kernels through the plan registry at measured pump factors,
+four serving kernels).  Every config of the reference is served:
+qwen3-0.6b, qwen2-7b, qwen2.5-14b, granite-3-2b (dense), mamba2-1.3b
+(SSM), deepseek-v2-lite-16b and deepseek-v3-671b (MoE; the latter's 671 B
+parameters do not fit one card at full depth), zamba2-2.7b (hybrid), and
+the enc-dec and VLM families as the reference serves them: ``--arch
+whisper-base`` draws seeded frames (batch, encoder_seq, d_model) for the
+stub frontend, encodes them outside the engine and generates over the
+encoder output; ``--arch internvl2-2b`` is served text-only (no patches),
+the dense backbone alone.  ``--kernel-plan measure`` serves those kernels through the plan registry at measured pump factors,
 after a warmup that plans the bucket grid;
 ``--smoke --device cpu``
 runs the SMOKE config on the CPU, where every op takes its plain version.
@@ -58,6 +61,11 @@ def moe_ragged(cfg):
 
 def route(cfg) -> str:
     """Which kernels serve the config, for a report line."""
+    if cfg.family == "encdec":
+        return (f"encoder and decoder self-attention {cfg.attention_impl}, "
+                f"cross-attention xla_chunked")
+    if cfg.family == "vlm":
+        return f"{cfg.attention_impl}, text only"
     if cfg.family == "ssm":
         return cfg.ssm_impl
     if cfg.family == "hybrid":
@@ -134,11 +142,22 @@ def main(argv: Optional[Sequence[str]] = None):
     scfg = ServeConfig(batch=args.batch,
                        max_len=args.prompt_len + args.new + 1,
                        kernel_plan=args.kernel_plan)
+    if args.arrival_rate is not None and cfg.family == "encdec":
+        ap.error("--arrival-rate mode needs a decoder cache "
+                 "(encdec archs are not supported by the scheduler)")
     eng = Engine(cfg, model, scfg, device=dev)
     if args.arrival_rate is not None:
         return stream(args, cfg, eng)
+    enc_out = None
+    if cfg.family == "encdec":
+        from repro_torch.models import encdec
+        frames = torch.randn(
+            (args.batch, cfg.encoder_seq, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))
+        with torch.no_grad():
+            enc_out = encdec.encode(eng.cfg, eng.model, frames)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, args.new)
+    out = eng.generate(prompts, args.new, enc_out=enc_out)
     dt = time.perf_counter() - t0
 
     stats = eng.stats()

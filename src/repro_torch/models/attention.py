@@ -1,4 +1,6 @@
-"""Attention: the port of ``repro.models.attention`` (GQA and MLA).
+"""Attention: the port of ``repro.models.attention`` (GQA and MLA; GQA
+also as cross-attention over an encoder output, ``kv_input``, which always
+takes the plain chunked route, as in the reference).
 
 Two execution paths, selected by ``cfg.attention_impl`` as in the reference:
 
@@ -186,29 +188,41 @@ class GQA(nn.Module):
 
 def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
               causal: bool = True, cache: Optional[Dict] = None,
-              slots: Optional[SlotStep] = None
+              slots: Optional[SlotStep] = None,
+              kv_input: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """GQA self-attention.  x (B, S, d); positions (S,), or (B, S) under a
+    """GQA attention.  x (B, S, d); positions (S,), or (B, S) under a
     per-slot cache.  ``cache`` is dict(k, v, pos), pos an int or a (B,)
     int32 tensor; ``slots`` the decode step's shared write and mask under
-    a per-slot pos.  Returns (out, new_cache)."""
+    a per-slot pos.  ``kv_input`` (B, T, d) makes it cross-attention: k
+    and v projected from it, no rope, no cache, non-causal, and always the
+    plain chunked route (the reference's kernel branch needs ``kv_input``
+    None).  Returns (out, new_cache)."""
     b, s, _ = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if kv_input is not None and cache is not None:
+        raise ValueError("cross-attention (kv_input) takes no cache")
+    kv_src = x if kv_input is None else kv_input
+    t_in = kv_src.shape[1]
 
     q = dense(p.wq, x).reshape(b, s, h, hd)
-    k = dense(p.wk, x).reshape(b, s, hkv, hd)
-    v = dense(p.wv, x).reshape(b, s, hkv, hd)
+    k = dense(p.wk, kv_src).reshape(b, t_in, hkv, hd)
+    v = dense(p.wv, kv_src).reshape(b, t_in, hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
-    rp = _rope_positions(positions)
-    q = apply_rope(q.transpose(1, 2), rp, cfg.rope_theta)   # (B, H, S, hd)
-    k = apply_rope(k.transpose(1, 2), rp, cfg.rope_theta)
-    v = v.transpose(1, 2)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if kv_input is None:
+        rp = _rope_positions(positions)
+        q = apply_rope(q, rp, cfg.rope_theta)               # (B, H, S, hd)
+        k = apply_rope(k, rp, cfg.rope_theta)
     kernels = cfg.attention_impl == "pallas"
 
     new_cache = None
-    if cache is not None:
+    if kv_input is not None:
+        out = chunked_attention(q, k, v, causal=False, q_pos=positions,
+                                block=cfg.attn_block_kv)
+    elif cache is not None:
         pos = cache["pos"]
         kc, vc = cache["k"], cache["v"]
         t = kc.shape[2]

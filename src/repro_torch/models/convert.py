@@ -6,12 +6,15 @@ JAX), un-stacks the leading layer axis of each scanned segment
 (``"blocks"``, and ``"blocks_dense"`` in an MoE tree) and loads every leaf
 into the port's modules; a hybrid tree's ``shared_attn`` and a
 deepseek-v3 tree's ``mtp`` are single blocks, not stacked, and load as
-they are.  ``init_params`` draws with the reference init's
-distributions (``repro/models/layers.py``, ``ssm.py:27-46``,
-``moe.py:113-129``): dense weights normal · 1/√d_in, the embedding normal
-· 0.02, norm scales ones, biases zeros; in a Mamba-2 mixer ``conv_w``
-normal · 0.1, ``conv_b`` and ``dt_bias`` zeros, ``A_log = log(linspace(1,
-16, H))`` and ``D`` ones; the routed experts' stacked ``gate`` and ``up``
+they are.  An enc-dec tree stacks ``enc_blocks`` and ``dec_blocks``
+(``frontend_proj``, ``enc_norm``, ``embed`` and ``dec_norm`` load as they
+are); a VLM tree is the dense tree plus its ``projector``.
+``init_params`` draws with the reference init's distributions
+(``repro/models/layers.py``, ``ssm.py:27-46``, ``moe.py:113-129``): dense
+weights normal · 1/√d_in, the embedding normal · 0.02, norm scales ones,
+LayerNorm and dense biases zeros; in a Mamba-2 mixer ``conv_w`` normal ·
+0.1, ``conv_b`` and ``dt_bias`` zeros, ``A_log = log(linspace(1, 16,
+H))`` and ``D`` ones; the routed experts' stacked ``gate`` and ``up``
 normal · 1/√d, ``down`` normal · 1/√d_expert.
 The numbers differ from JAX's for the same seed; tests hand weights
 across with ``from_jax_params`` instead.  A tensor of more than
@@ -22,13 +25,13 @@ fp32 draw never holds a copy of a whole expert stack (deepseek-v3's are
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import model as model_mod
-from .layers import Dense, Embedding, RMSNorm
+from .layers import Dense, Embedding, LayerNorm, RMSNorm
 from .moe import MoE
 from .ssm import Mamba2
 from .transformer import _segments
@@ -45,12 +48,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def _stacked(cfg) -> Tuple[str, ...]:
+    """The tree's scanned segments, whose leaves lead with a layer axis."""
+    if cfg.family == "encdec":
+        return ("enc_blocks", "dec_blocks")
+    return tuple(name for name, _, _ in _segments(cfg))
+
+
 def from_jax_params(cfg, tree: Mapping[str, Any], *,
                     device: Optional[torch.device] = None,
                     dtype: Optional[torch.dtype] = None):
     """The reference params tree (numpy leaves) as a port model.  ``dtype``
     defaults to the leaves' own (fp32 for the reference's default init)."""
-    stacked = tuple(f"{name}." for name, _, _ in _segments(cfg))
+    stacked = tuple(f"{name}." for name in _stacked(cfg))
     state: Dict[str, torch.Tensor] = {}
     for name, arr in _flatten(tree).items():
         t = torch.tensor(np.asarray(arr))
@@ -85,6 +95,9 @@ def init_params(cfg, generator: torch.Generator,
             _draw(mod.embedding, generator, mul=0.02)
         elif isinstance(mod, RMSNorm):
             mod.scale.fill_(1.0)
+        elif isinstance(mod, LayerNorm):
+            mod.scale.fill_(1.0)
+            mod.bias.zero_()
         elif isinstance(mod, Mamba2):
             _draw(mod.conv_w, generator, mul=0.1)
             mod.conv_b.zero_()

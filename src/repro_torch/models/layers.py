@@ -5,8 +5,9 @@ reference pytree's keys (``w``, ``b``, ``scale``, ``embedding``), so a
 flattened JAX params tree maps one to one onto a ``state_dict``; the
 apply functions beside them take the module as the reference's take the
 params dict.  The numerics follow the reference: ``dense`` is ``x @ w``
-with w in (d_in, d_out) layout, ``rmsnorm`` computes in fp32 and casts
-back, ``embed`` casts the table to the activation dtype, ``unembed`` is an
+with w in (d_in, d_out) layout, ``rmsnorm`` and ``layernorm`` compute in
+fp32 and cast back, the GELU MLP takes JAX's default (tanh) GELU,
+``embed`` casts the table to the activation dtype, ``unembed`` is an
 fp32 product against the table, and rope rotates split halves.
 """
 from __future__ import annotations
@@ -48,6 +49,25 @@ def rmsnorm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (x * p.scale.float()).to(dtype)
 
 
+class LayerNorm(nn.Module):
+    def __init__(self, d: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.empty(d, dtype=dtype))
+        self.bias = nn.Parameter(torch.empty(d, dtype=dtype))
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """fp32 mean and population variance, ``rsqrt(var + eps)``, scale and
+    bias in fp32, cast back (the reference's ``layernorm``)."""
+    dtype = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * p.scale.float() + p.bias.float()).to(dtype)
+
+
 class Embedding(nn.Module):
     def __init__(self, vocab: int, d: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -74,6 +94,23 @@ class SwiGLU(nn.Module):
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return dense(p.down, F.silu(dense(p.gate, x)) * dense(p.up, x))
+
+
+class GeluMLP(nn.Module):
+    def __init__(self, d: int, d_ff: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.up = Dense(d, d_ff, bias=True, dtype=dtype)
+        self.down = Dense(d_ff, d, bias=True, dtype=dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (the erf form
+    differs from it by up to about 5e-4)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.down, gelu(dense(p.up, x)))
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,

@@ -1,30 +1,30 @@
 """Family dispatcher: the single entry point the engine and launcher use.
 
-The decoder-only families are ported: dense, SSM, MoE and hybrid, with
-GQA or MLA attention.  Enc-dec and VLM raise ``NotImplementedError``
-naming their ROADMAP.md item.
+Every family of the reference is ported: dense, SSM, MoE and hybrid
+(``transformer``, with GQA or MLA attention), enc-dec (``encdec``) and VLM
+(``multimodal``: the dense backbone behind a projector), dispatched as the
+reference's ``models/model.py`` does.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional
 
 import torch
+from torch import nn
 
-from . import transformer
+from . import encdec, multimodal, transformer
 
-# ROADMAP.md queue 1 items for the families the port does not have yet
-_NOT_PORTED = {
-    "encdec": "item 5 (enc-dec and VLM)",
-    "vlm": "item 5 (enc-dec and VLM)",
-}
+
+def _mod(cfg):
+    if cfg.family == "encdec":
+        return encdec
+    if cfg.family == "vlm":
+        return multimodal
+    return transformer
 
 
 def check_supported(cfg) -> None:
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md queue 1, {_NOT_PORTED[cfg.family]})")
-    if cfg.family not in ("dense", "ssm", "moe", "hybrid"):
+    if cfg.family not in ("dense", "ssm", "moe", "hybrid", "encdec", "vlm"):
         raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.name}: the moe family needs cfg.moe")
@@ -32,14 +32,21 @@ def check_supported(cfg) -> None:
         raise ValueError(f"{cfg.name}: the {cfg.family} family needs cfg.ssm")
 
 
-def build(cfg, dtype: torch.dtype = torch.float32) -> transformer.Transformer:
+def build(cfg, dtype: torch.dtype = torch.float32) -> nn.Module:
     """Uninitialised parameters for ``cfg`` (see ``convert``)."""
     check_supported(cfg)
+    if cfg.family == "encdec":
+        return encdec.EncDec(cfg, dtype)
+    if cfg.family == "vlm":
+        return multimodal.VLM(cfg, dtype)
     return transformer.Transformer(cfg, dtype)
 
 
 def forward(cfg, model, batch: Dict, *, last_only: bool = False):
+    """batch: tokens (B, S), with frames (encdec) or patches (vlm)."""
     check_supported(cfg)
+    if cfg.family in ("encdec", "vlm"):
+        return _mod(cfg).forward(cfg, model, batch, last_only=last_only)
     return transformer.forward(cfg, model, batch["tokens"],
                                last_only=last_only)
 
@@ -47,17 +54,26 @@ def forward(cfg, model, batch: Dict, *, last_only: bool = False):
 def init_cache(cfg, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[torch.device] = None,
-               per_slot_pos: bool = False) -> Dict:
+               per_slot_pos: bool = False):
     """``per_slot_pos=True``: the continuous-batching cache, a (batch,)
-    int32 ``pos`` per layer (``serve.scheduler``)."""
+    int32 ``pos`` per layer (``serve.scheduler``); not for encdec."""
     check_supported(cfg)
-    return transformer.init_cache(cfg, batch, max_len, dtype, device,
-                                  per_slot_pos)
+    if per_slot_pos and cfg.family == "encdec":
+        raise ValueError("per-slot cache positions (continuous batching) "
+                         "are not supported for the encdec family")
+    if cfg.family == "encdec":
+        return encdec.init_cache(cfg, batch, max_len, dtype, device)
+    return _mod(cfg).init_cache(cfg, batch, max_len, dtype, device,
+                                per_slot_pos)
 
 
-def decode_step(cfg, model, batch: Dict, cache: Dict, *,
-                last_only: bool = False):
-    """One cached step; batch carries tokens (B, S)."""
+def decode_step(cfg, model, batch: Dict, cache, *, last_only: bool = False):
+    """One cached step; batch carries tokens (B, S) (+ enc_out for
+    encdec)."""
     check_supported(cfg)
-    return transformer.decode_step(cfg, model, batch["tokens"], cache,
-                                   last_only=last_only)
+    if cfg.family == "encdec":
+        return encdec.decode_step(cfg, model, batch["tokens"],
+                                  batch["enc_out"], cache,
+                                  last_only=last_only)
+    return _mod(cfg).decode_step(cfg, model, batch["tokens"], cache,
+                                 last_only=last_only)

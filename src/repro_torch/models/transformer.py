@@ -1,4 +1,5 @@
-"""Decoder-only LM, dense, SSM, MoE and hybrid families: the port of
+"""Decoder-only LM, dense, SSM, MoE and hybrid families (and the VLM
+family's backbone, ``models.multimodal``): the port of
 ``repro.models.transformer``.
 
 The reference scans stacked per-layer params over segments of one block
@@ -205,11 +206,16 @@ def _logits(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
+            input_embeds: Optional[torch.Tensor] = None,
             last_only: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) -> (logits (B, S, V) fp32, aux loss: the MoE layers'
-    router losses summed, 0 for other families).  ``last_only`` projects
-    only the final position, as serving prefill needs."""
+    router losses summed, 0 for other families).  ``input_embeds`` (B, P,
+    d), a VLM's projected patches, go in front of the token embeddings
+    (logits then cover P + S positions).  ``last_only`` projects only the
+    final position, as serving prefill needs."""
     x = embed(model.embed, tokens, cfg.activation_dtype)
+    if input_embeds is not None:
+        x = torch.cat([input_embeds.to(x.dtype), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux, _ = _backbone(cfg, model, x, positions)
     if last_only:

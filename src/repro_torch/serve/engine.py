@@ -12,7 +12,12 @@ kernel; ``max_len`` sizes no SSM cache.  An MoE model with MLA
 (deepseek-v2-lite) is served with its compressed cache; with
 ``moe.ragged_dropless`` and ``inference_capacity_factor <= 0`` each MoE
 layer's three expert products run the grouped-GEMM kernel, in the prefill
-and in every decode step.
+and in every decode step.  An enc-dec model (whisper-base) is served with
+its encoder output: the caller runs ``encdec.encode`` outside the engine,
+as the reference launcher does, and ``generate(..., enc_out=...)`` puts it
+in every step's batch for the decoder's cross-attention.  A VLM
+(internvl2-2b) is served text-only, as the dense family, as in the
+reference; patches reach it only through ``model.forward``.
 Steps run through ``StepTimer``, so the first call of each phase is kept
 apart from steady-state time.
 
@@ -141,48 +146,61 @@ class Engine:
         finally:
             set_default_registry(old)
 
+    def _batch(self, tokens: torch.Tensor, enc_out=None) -> Dict:
+        """A step's batch: the tokens, and an enc-dec model's encoder
+        output."""
+        batch = {"tokens": tokens.to(self.device)}
+        if enc_out is not None:
+            batch["enc_out"] = enc_out.to(self.device)
+        return batch
+
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor):
-        """tokens (B, S_prompt) -> (cache, last-position logits (B, V))."""
-        tokens = tokens.to(self.device)
+    def prefill(self, tokens: torch.Tensor, enc_out=None):
+        """tokens (B, S_prompt) -> (cache, last-position logits (B, V)).
+        ``enc_out``: an enc-dec model's encoder output (``encdec.encode``,
+        run outside the engine)."""
         cache = model_mod.init_cache(self.cfg, int(tokens.shape[0]),
                                      self.scfg.max_len, self.cache_dtype,
                                      self.device)
         with self._serving():
             logits, cache = self.timer.run(
                 "prefill", model_mod.decode_step, self.cfg, self.model,
-                {"tokens": tokens}, cache, last_only=True)
+                self._batch(tokens, enc_out), cache, last_only=True)
         return cache, logits[:, -1]
 
     @torch.no_grad()
-    def prefill_chunk(self, cache, tokens: torch.Tensor):
+    def prefill_chunk(self, cache, tokens: torch.Tensor, enc_out=None):
         """Continuation prefill: advance ``cache`` (int pos, possibly
         already holding tokens) by one chunk of ``tokens`` (B, S_chunk).
         Returns (cache, last-position logits (B, V)).  At pos 0 this is the
         answer of ``prefill`` without the flash fresh-cache route."""
-        tokens = tokens.to(self.device)
         with self._serving():
             logits, cache = self.timer.run(
                 "prefill_chunk", model_mod.decode_step, self.cont_cfg,
-                self.model, {"tokens": tokens}, cache, last_only=True)
+                self.model, self._batch(tokens, enc_out), cache,
+                last_only=True)
         return cache, logits[:, -1]
 
     @torch.no_grad()
-    def decode_token(self, cache, tokens: torch.Tensor):
+    def decode_token(self, cache, tokens: torch.Tensor, enc_out=None):
         """One decode step of every row of ``cache`` (int or per-slot pos):
         tokens (B, 1) -> (logits (B, 1, V), cache)."""
         with self._serving():
             return self.timer.run("decode", model_mod.decode_step, self.cfg,
-                                  self.model, {"tokens": tokens}, cache)
+                                  self.model, self._batch(tokens, enc_out),
+                                  cache)
 
     @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, n_new: int,
-                 return_logits: bool = False):
+                 enc_out=None, return_logits: bool = False):
         """Greedy generation: (B, n_new) tokens, or with ``return_logits``
         a (tokens, logits) pair where logits is the fp32 (n_new, B, V)
-        stack of the distributions each token was chosen from."""
+        stack of the distributions each token was chosen from.  An
+        enc-dec model's every step attends over ``enc_out``."""
         t_start = time.perf_counter()
-        cache, last = self.prefill(prompt_tokens)
+        if enc_out is not None:
+            enc_out = enc_out.to(self.device)
+        cache, last = self.prefill(prompt_tokens, enc_out)
         cur = last.argmax(dim=-1)[:, None]
         if self.device.type == "cuda":
             torch.cuda.synchronize()
@@ -190,7 +208,7 @@ class Engine:
         toks, lgs = [], [last.float()]
         for _ in range(n_new):
             toks.append(cur)
-            logits, cache = self.decode_token(cache, cur)
+            logits, cache = self.decode_token(cache, cur, enc_out)
             lgs.append(logits[:, -1].float())
             cur = logits[:, -1].argmax(dim=-1)[:, None]
         out = torch.cat(toks, dim=1)

@@ -13,7 +13,10 @@ fp32 sums differently, a few 1e-6 after the unembed); and the greedy
 tokens of ``Engine.generate`` are identical to the JAX engine's on the
 kernel route (``pallas``; the ragged grouped GEMM for deepseek-v3) and on
 the plain one, both impls for zamba2, and for zamba2 under
-``kernel_plan='measure'`` too.  The qwen2 configs run with nonzero seeded
+``kernel_plan='measure'`` too.  whisper-base and internvl2-2b (the
+enc-dec and VLM families) are checked here where no decoder-only model is
+needed: configs equal the reference's, they load, and every leaf of their
+reference trees loads strict.  The qwen2 configs run with nonzero seeded
 q / k / v biases (the reference initialises them to zeros).  Everything
 runs in fp32 on the CPU, where the ops take their plain versions and no
 kernel launches.
@@ -50,6 +53,10 @@ BATCH, PROMPT, STEPS = 2, 8, 6
 
 ARCHS = ("qwen2-7b", "qwen2.5-14b", "granite-3-2b", "deepseek-v3-671b",
          "zamba2-2.7b")
+# the enc-dec and VLM configs: checked here where a test needs no
+# decoder-only model (tests/test_torch_encdec.py and
+# tests/test_torch_multimodal.py hold their models)
+ITEM5_ARCHS = ("whisper-base", "internvl2-2b")
 RAGGED = dict(ragged_dropless=True, inference_capacity_factor=0.0)
 DENSE = dict(ragged_dropless=False, inference_capacity_factor=0.0)
 
@@ -112,11 +119,12 @@ def _configs(arch, route):
 @functools.lru_cache(maxsize=None)
 def _weights(arch):
     """The reference's ``init_params(SMOKE)`` (qwen2: with nonzero seeded
-    q / k / v biases), as (JAX params, numpy tree, port model)."""
-    from repro.models import transformer as jax_tf
+    q / k / v biases), as (JAX params, numpy tree, port model); the
+    family's own init through the reference's ``models.model``."""
+    from repro.models import model as jax_model
     jcfg = _ref_module(arch).SMOKE
     tree = jax.tree.map(np.asarray,
-                        jax_tf.init_params(jcfg, jax.random.PRNGKey(0)))
+                        jax_model.init_params(jcfg, jax.random.PRNGKey(0)))
     if jcfg.qkv_bias:
         rng = np.random.default_rng(11)
         for name in ("wq", "wk", "wv"):
@@ -156,7 +164,7 @@ def _as_dict(v):
 
 
 # ------------------------------------------------------------------ config --
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ITEM5_ARCHS)
 def test_config_mirrors_reference(arch):
     port, ref = _port_module(arch), _ref_module(arch)
     for name in ("CONFIG", "SMOKE"):
@@ -174,14 +182,20 @@ def test_config_mirrors_reference(arch):
     assert port.SMOKE.activation_dtype == torch.float32
 
 
-@pytest.mark.parametrize("arch", ["whisper-base", "internvl2-2b"])
-def test_load_arch_raises_only_for_item_5(arch):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        load_arch(arch)
+@pytest.mark.parametrize("arch", ITEM5_ARCHS)
+def test_load_arch_loads_the_enc_dec_and_vlm_configs(arch):
+    cfg = load_arch(arch)
+    assert cfg is _port_module(arch).CONFIG
+    assert cfg.family == {"whisper-base": "encdec",
+                          "internvl2-2b": "vlm"}[arch]
+    model = port_model.build(load_arch(arch, smoke=True))
+    assert sum(p.numel() for p in model.parameters()) > 0
+    with pytest.raises(ModuleNotFoundError, match="no_such_arch"):
+        load_arch("no-such-arch")
 
 
 # ------------------------------------------------------------------ params --
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ITEM5_ARCHS)
 def test_from_jax_params_loads_every_leaf(arch):
     params, tree, model = _weights(arch)
     n_ref = sum(int(np.prod(x.shape)) for x in jax.tree.leaves(params))

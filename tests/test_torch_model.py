@@ -147,12 +147,30 @@ def test_chunked_attention_matches(valid, causal, block):
                                rtol=5e-6, atol=5e-6)
 
 
-@pytest.mark.parametrize("family,item", [("encdec", "item 5"),
-                                         ("vlm", "item 5")])
-def test_unported_family_names_roadmap_item(family, item):
-    cfg = dataclasses.replace(port_qwen3.SMOKE, family=family)
-    with pytest.raises(NotImplementedError, match=item):
-        port_model.build(cfg)
+@pytest.mark.parametrize("arch,family", [("whisper-base", "encdec"),
+                                         ("internvl2-2b", "vlm")])
+def test_every_family_builds_and_loads(arch, family):
+    """The enc-dec and VLM families build (``model.build``) and load the
+    reference's own ``init_params`` tree strictly, leaf for leaf; a family
+    the reference lacks raises."""
+    import importlib
+    from repro.models import model as jax_model
+    from repro_torch.configs.base import load_arch
+    from repro_torch.models import encdec, multimodal
+    cfg = load_arch(arch, smoke=True)
+    assert cfg.family == family
+    built = port_model.build(cfg)
+    assert isinstance(built, {"encdec": encdec.EncDec,
+                              "vlm": multimodal.VLM}[family])
+    jcfg = importlib.import_module(
+        f"repro.configs.{arch.replace('-', '_')}").SMOKE
+    tree = jax.tree.map(np.asarray,
+                        jax_model.init_params(jcfg, jax.random.PRNGKey(1)))
+    model = convert.from_jax_params(cfg, tree)
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        int(np.prod(x.shape)) for x in jax.tree.leaves(tree))
+    with pytest.raises(ValueError, match="unknown family"):
+        port_model.build(dataclasses.replace(cfg, family="audio"))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla_chunked"])

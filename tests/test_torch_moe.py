@@ -91,13 +91,16 @@ def test_config_mirrors_reference():
 
 
 def test_load_arch_names_the_missing_families():
-    from repro_torch.configs import zamba2_2_7b
+    """No family is missing any more: the MoE, hybrid, enc-dec and VLM
+    configs all load."""
+    from repro_torch.configs import internvl2_2b, whisper_base, zamba2_2_7b
     from repro_torch.configs.base import load_arch
     assert load_arch("deepseek-v2-lite-16b") is port_ds.CONFIG
     assert load_arch("zamba2-2.7b") is zamba2_2_7b.CONFIG
-    with pytest.raises(NotImplementedError,
-                       match="whisper-base and internvl2-2b.*item 5"):
-        load_arch("whisper-base")
+    assert load_arch("whisper-base") is whisper_base.CONFIG
+    assert load_arch("internvl2-2b") is internvl2_2b.CONFIG
+    assert load_arch("whisper-base", smoke=True) is whisper_base.SMOKE
+    assert load_arch("internvl2-2b", smoke=True) is internvl2_2b.SMOKE
 
 
 # ------------------------------------------------------- the grouped GEMM --
