@@ -176,12 +176,31 @@ Phases, in order; any failure exits non-zero:
 6. the paper-table path: ``repro_torch.launch.paper --mode all`` at the
    card sizes, in this process, every row held to its plain version;
    launch counts of the four paper kernels are read around that run.
-7. a ``{"kernels": [...]}`` line (each kernel's launches summed over the
-   paths, and per path under ``launches_by_path``; the streams of qwen3
-   and mamba2 are the ``stream`` path, whisper-base's counts its encoder,
-   prefill and steps, internvl2-2b's its generate and image-prefixed
-   forward), then the last line
-   ``{"ok": true, "device": {...}}``.  Each phase prints its seconds.
+7. a ``{"robustness": {...}}`` line (phase 8's counters and launches, and
+   each serving phase's guard deltas), a ``{"kernels": [...]}`` line
+   (each kernel's launches summed over the paths, and per path under
+   ``launches_by_path``; the streams of qwen3 and mamba2 are the
+   ``stream`` path, whisper-base's counts its encoder, prefill and steps,
+   internvl2-2b's its generate and image-prefixed forward, phase 8's is
+   ``robustness``), then the last line ``{"ok": true, "device":
+   {...}}``.  Each phase prints its seconds.
+8. robustness, after mamba2's path and before zamba2's, on the qwen3 and
+   mamba2 weights already on the card (``phase_robustness``): qwen3's
+   ``generate`` traced (``repro_torch.obs``; the Chrome trace written to
+   ``build/robustness_trace.json``, its ``serve.*`` spans, histograms and
+   launches checked); the decode step's instrumentation cost (the raw
+   ``model.decode_step`` loop against ``Engine.decode_token`` with tracing
+   off and on, interleaved step by step, 3 x 64 steps each; off at most
+   1.05x the raw loop);
+   a decode fault at step 11 re-run on the plain route; NaN injected into
+   mamba2's SSD decode plans at two steps, caught by the NaN guard and
+   re-run; qwen3's registry warmed under a measurement timeout and a
+   garbage cache file.  Every serving phase (qwen3, mamba2, zamba2, the
+   registry and its replay, deepseek-v2-lite, qwen2.5-14b, whisper-base,
+   internvl2-2b, deepseek-v3 cut, both streams) runs inside ``guarded``:
+   its ``engine.degraded``, ``degrade.compile`` and
+   ``registry.spotcheck_failed`` deltas must be 0, so no rung of the
+   degradation ladder quietly stands in for a kernel on the card.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
 """
@@ -2708,10 +2727,17 @@ def phase_registry(ctx, per_prefill: dict, per_step: dict, atol: float,
             us_reg, us_op = (min(v) for v in zip(*[
                 (host_us(lambda: call(*args)),
                  host_us(lambda: op(*args, pump=spec))) for _ in range(5)]))
+            # the warm hit alone: ``_spec`` on a resident key of this
+            # kernel (one dict lookup and the hit count), no op
+            lk = next(k for k in reg._lookup if k[0] == name)
+            us_hit = min(host_us(lambda: reg._spec(lk, name, None, None,
+                                                   None), iters=5000)
+                         for _ in range(5))
         print(f"[registry] host time of one warm {name} call (least of 5 "
               f"interleaved samples of 200 calls): registry {us_reg:.2f} us, "
-              f"the op at its spec {us_op:.2f} us; the lookup "
-              f"{us_reg - us_op:.2f} us")
+              f"the op at its spec {us_op:.2f} us, the difference "
+              f"{us_reg - us_op:.2f} us; the warm hit alone (least of 5 "
+              f"samples of 5000) {us_hit:.3f} us")
         return eng.warmup_report
     finally:
         set_default_registry(old)
@@ -3247,6 +3273,313 @@ def phase_vlm_forward(ctx, plain_route, atol: float) -> dict:
     return {"flash_attention": n}
 
 
+# --------------------------------------------------------------- robustness --
+# the counters that must not move in any serving phase: a rung standing in
+# for a kernel on the card is a failure there, not a quiet fallback
+GUARD_COUNTERS = ("engine.degraded", "degrade.compile",
+                  "registry.spotcheck_failed")
+# the robustness phase's counters, printed on its {"robustness": ...} line
+ROBUSTNESS_COUNTERS = ("faults.injected", "engine.degraded",
+                       "engine.fallback_build", "serve.degraded_request",
+                       "compile.measure_failed", "cache.corrupt",
+                       "degrade.compile", "registry.spotcheck_failed")
+
+
+def obs_counters(names) -> dict:
+    """The process-wide ``obs`` counters ``names``, from a snapshot."""
+    from repro_torch import obs
+    snap = obs.snapshot(include_views=False)["counters"]
+    return {k: snap.get(k, 0) for k in names}
+
+
+@contextlib.contextmanager
+def guarded(label: str, record: dict):
+    """Around one serving phase: ``GUARD_COUNTERS`` must not move (read as
+    deltas of ``obs.snapshot()``); the deltas go into ``record[label]``."""
+    before = obs_counters(GUARD_COUNTERS)
+    yield
+    after = obs_counters(GUARD_COUNTERS)
+    delta = {k: after[k] - before[k] for k in GUARD_COUNTERS}
+    record[label] = delta
+    check(not any(delta.values()),
+          f"{label}: a rung stood in for a kernel on the card: {delta}")
+
+
+def held_rows(toks, logits) -> dict:
+    """generate's (B, n) tokens and (n, B, V) logits as
+    ``hold_first_difference``'s rows: row -> (tokens, logits)."""
+    return {b: (toks[b].cpu().numpy(), logits[:, b].float().cpu().numpy())
+            for b in range(toks.shape[0])}
+
+
+def phase_robustness(q_ctx, m_ctx) -> tuple:
+    """The obs spine, the fault harness and the degradation ladder on the
+    card, on the e2e phases' qwen3-0.6b and mamba2-1.3b weights: (1) qwen3
+    ``generate`` traced (a Chrome trace under ``build/``, one
+    ``serve.generate`` span holding one ``serve.prefill`` and 64
+    ``serve.decode``; ``serve.ttft_s`` 1 sample and ``serve.decode_step_s``
+    64; 28 flash and 1792 decode attention launches; no degraded step);
+    (2) the instrumentation's cost: the raw ``model.decode_step`` loop,
+    ``Engine.decode_token`` with tracing off and with it on, each step
+    synchronized, interleaved step by step over three rounds of 64 steps
+    (the engine's tracing-off median step at most 1.05x the raw loop's);
+    (3) a decode
+    fault at the 11th step (``engine.decode``), re-run on the plain route:
+    28 flash and 63 x 28 decode attention launches, the logits within
+    ``ATOL_E2E_LOGITS`` of (1)'s and the tokens identical up to a near-tie
+    (``hold_first_difference``); (4) NaN from the ``ssd_decode`` plans of
+    a fresh registry for mamba2 (``kernel_plan='measure'``, replaying from
+    a copy of the registry phase's cache with 0 measurements, installed
+    under the rules) at decode steps 6 and 7: both degraded
+    (``FloatingPointError``), every logit finite, each row within
+    ``ATOL_E2E_SSM_LOGITS`` of the direct route's up to a near-tie;
+    (5) qwen3 warmed on a fresh registry and private cache under a
+    measurement timeout and a garbage cache file: both counted, every plan
+    at the ``hopper`` tier, ``generate`` within ``ATOL_E2E_LOGITS`` of the
+    direct route's.  Returns the phase's launches and counter deltas."""
+    import shutil
+    from repro_torch import compiler, obs
+    from repro_torch.compiler import CompileCache
+    from repro_torch.compiler.registry import (PlanRegistry,
+                                               set_default_registry)
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_decode as sd
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import Engine
+    from repro_torch.testing import faults
+    mods = {"flash_attention": fa, "decode_attention": da, "ssd_scan": ss,
+            "ssd_decode": sd}
+    launches = dict.fromkeys(mods, 0)
+
+    def counted(fn):
+        for mod in mods.values():
+            mod.launches = 0
+        out = fn()
+        got = {name: mod.launches for name, mod in mods.items()}
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    cfg, model, scfg = q_ctx["cfg"], q_ctx["model"], q_ctx["scfg"]
+    prompts, n_new = q_ctx["prompts"], q_ctx["toks"].shape[1]
+    layers = cfg.n_layers
+    c0 = obs_counters(ROBUSTNESS_COUNTERS)
+
+    # (1) qwen3 traced
+    eng = Engine(cfg, model, scfg)
+    tr = obs.Tracer(enabled=True)
+    old_tr = obs.set_tracer(tr)
+    hist = obs.default_metrics().histogram
+    h0 = (hist("serve.ttft_s").count, hist("serve.decode_step_s").count)
+    d0 = obs_counters(GUARD_COUNTERS)
+    try:
+        (toks, logits), got = counted(
+            lambda: eng.generate(prompts, n_new, return_logits=True))
+    finally:
+        obs.set_tracer(old_tr)
+    path = BUILD_CACHE.parent / "robustness_trace.json"
+    tr.write(path, metadata={"arch": cfg.name, "batch": scfg.batch,
+                             "prompt_len": prompts.shape[1],
+                             "n_new": n_new})
+    trace = json.loads(path.read_text())
+    gens = tr.spans("serve.generate")
+    pre = [r for r in tr.spans("serve.prefill")
+           if r["parent"] == "serve.generate"]
+    dec = [r for r in tr.spans("serve.decode")
+           if r["parent"] == "serve.generate"]
+    n_ttft = hist("serve.ttft_s").count - h0[0]
+    n_step = hist("serve.decode_step_s").count - h0[1]
+    degraded = obs_counters(GUARD_COUNTERS)["engine.degraded"] \
+        - d0["engine.degraded"]
+    print(f"[robustness] qwen3 traced: {len(trace['traceEvents'])} trace "
+          f"events in {path.relative_to(BUILD_CACHE.parents[1])}; spans "
+          f"serve.generate {len(gens)}, serve.prefill {len(pre)}, "
+          f"serve.decode {len(dec)}; serve.ttft_s +{n_ttft}, "
+          f"serve.decode_step_s +{n_step}; launches {got}; engine.degraded "
+          f"+{degraded}")
+    check(len(gens) == 1 and len(pre) == 1 and len(dec) == n_new,
+          "traced generate's spans")
+    check(n_ttft == 1 and n_step == n_new, "traced generate's histograms")
+    check(got["flash_attention"] == layers
+          and got["decode_attention"] == layers * n_new,
+          f"traced generate's launches {got}")
+    check(degraded == 0, "the traced generate degraded a step")
+
+    # (2) the instrumentation's cost: raw loop, engine off, engine on,
+    # interleaved step by step (each on its own cache, the order rotated
+    # every step), so the host's drift reaches all three alike
+    def raw(cache, cur):
+        return model_mod.decode_step(cfg, model, {"tokens": cur}, cache)
+
+    steps = {"raw": raw, "off": eng.decode_token, "on": eng.decode_token}
+    tracers = {"raw": obs.Tracer(), "off": obs.Tracer(),
+               "on": obs.Tracer(enabled=True)}
+    samples = {label: [] for label in steps}
+
+    def interleaved():
+        labels = list(steps)
+        for _ in range(3):
+            state = {}
+            for label in labels:
+                cache, last = eng.prefill(prompts)
+                state[label] = (cache, last.argmax(-1)[:, None])
+            for i in range(n_new):
+                for label in labels[i % 3:] + labels[:i % 3]:
+                    cache, cur = state[label]
+                    old_tr = obs.set_tracer(tracers[label])
+                    try:
+                        t0 = time.perf_counter()
+                        logits, cache = steps[label](cache, cur)
+                        torch.cuda.synchronize()
+                        samples[label].append(time.perf_counter() - t0)
+                    finally:
+                        obs.set_tracer(old_tr)
+                    state[label] = (cache, logits[:, -1].argmax(-1)[:, None])
+
+    with torch.no_grad():
+        counted(interleaved)
+    ms = {k: statistics.median(v) * 1e3 for k, v in samples.items()}
+    mean = {k: statistics.fmean(v) * 1e3 for k, v in samples.items()}
+    print(f"[robustness] decode step, qwen3 B 8 (median of 3 x {n_new} "
+          f"synchronized steps each, interleaved): raw model.decode_step "
+          f"{ms['raw']:.3f} ms, Engine.decode_token tracing off "
+          f"{ms['off']:.3f} ms ({ms['off'] / ms['raw']:.4f}x), tracing on "
+          f"{ms['on']:.3f} ms ({ms['on'] / ms['raw']:.4f}x); means "
+          f"{mean['raw']:.3f} / {mean['off']:.3f} / {mean['on']:.3f} ms; "
+          f"{len(tracers['on'].spans('serve.decode'))} serve.decode spans "
+          f"traced")
+    check(ms["off"] <= 1.05 * ms["raw"],
+          f"tracing-off engine step {ms['off']:.3f} ms > 1.05 x the raw "
+          f"loop's {ms['raw']:.3f} ms")
+
+    # (3) a mid-request decode fault
+    rule = faults.FaultRule("engine.decode", "error", after=10, times=1)
+    f0 = obs_counters(ROBUSTNESS_COUNTERS)
+    with faults.inject(rule):
+        (f_toks, f_logits), got = counted(
+            lambda: eng.generate(prompts, n_new, return_logits=True))
+    f1 = obs_counters(ROBUSTNESS_COUNTERS)
+    fd = {k: f1[k] - f0[k] for k in ROBUSTNESS_COUNTERS}
+    step_ms = [x * 1e3 for x in eng.timer.steady["decode"][-n_new:]]
+    clean_ms = statistics.median(step_ms[:10] + step_ms[11:])
+    print(f"[robustness] qwen3 decode fault at step 11: {fd}; launches "
+          f"{got}; degraded requests {eng.degraded_requests}; the degraded "
+          f"step {step_ms[10]:.3f} ms (plain route, NaN guard on) against "
+          f"{clean_ms:.3f} ms median of the other steps")
+    check(rule.fired == 1 and fd["faults.injected"] == 1
+          and fd["engine.degraded"] == 1 and fd["engine.fallback_build"] == 1
+          and eng.degraded_requests == 1, f"decode fault counters {fd}")
+    check(got["flash_attention"] == layers
+          and got["decode_attention"] == layers * (n_new - 1),
+          f"decode fault launches {got}")
+    step_err = err(f_logits[11], logits[11])
+    same, worst = hold_first_difference(
+        "qwen3 decode fault vs fault-free", held_rows(f_toks, f_logits),
+        held_rows(toks, logits), ATOL_E2E_LOGITS)
+    print(f"[robustness] the degraded step's logits within {step_err:.4g} "
+          f"of the fault-free run's (atol {ATOL_E2E_LOGITS}); {same}/"
+          f"{scfg.batch} rows' tokens identical, logits within {worst:.4g}")
+    check(step_err <= ATOL_E2E_LOGITS, "the degraded step's logits")
+
+    # (4) a poisoned kernel in mamba2's serving loop
+    mcfg = dataclasses.replace(m_ctx["cfg"], kernel_plan="measure")
+    m_layers = mcfg.n_layers
+    reg_copy = BUILD_CACHE / "robustness_registry_cache.json"
+    shutil.copyfile(REGISTRY_CACHE, reg_copy)
+    compiler.clear_memo()
+    reg = PlanRegistry(cache=CompileCache(reg_copy))
+    # decode steps 6 and 7 (each calls the SSD decode plan once a layer):
+    # the reference's after=5, times=2 counted in steps
+    rules = [faults.FaultRule("registry.exec", "nan",
+                              match={"kernel": "ssd_decode"},
+                              after=m_layers * k, times=1) for k in (5, 6)]
+    tr = obs.Tracer(enabled=True)
+    old_tr, old_reg = obs.set_tracer(tr), set_default_registry(reg)
+    f0 = obs_counters(ROBUSTNESS_COUNTERS)
+    try:
+        with faults.inject(*rules):
+            m_eng = Engine(mcfg, m_ctx["model"], m_ctx["scfg"])
+            (p_toks, p_logits), got = counted(lambda: m_eng.generate(
+                m_ctx["prompts"], n_new, return_logits=True))
+    finally:
+        obs.set_tracer(old_tr)
+        set_default_registry(old_reg)
+    f1 = obs_counters(ROBUSTNESS_COUNTERS)
+    fd = {k: f1[k] - f0[k] for k in ROBUSTNESS_COUNTERS}
+    st = m_eng.stats()
+    reasons = [r["args"].get("reason") for r in tr.records
+               if r["type"] == "event" and r["name"] == "engine.degraded"]
+    print(f"[robustness] mamba2 NaN ssd_decode plans at decode steps 6 and "
+          f"7: warmup {st['plans_warmed']} plans, {st['warmup_measured']} "
+          f"measured; {fd}; reasons {reasons}; launches {got} (each "
+          f"poisoned step launches its {m_layers} before the guard reads "
+          f"its logits; the re-runs launch none)")
+    check(st["warmup_measured"] == 0 and st["warmup_failed"] == 0,
+          "the mamba2 registry did not replay")
+    check(all(r.fired == 1 for r in rules) and fd["engine.degraded"] == 2
+          and reasons == ["FloatingPointError"] * 2
+          and m_eng.degraded_requests == 1, f"poisoned-kernel counters {fd}")
+    check(bool(torch.isfinite(p_logits).all()), "a NaN reached the logits")
+    check(got["ssd_scan"] == m_layers
+          and got["ssd_decode"] == m_layers * n_new,
+          f"poisoned-kernel launches {got}")
+    same, worst = hold_first_difference(
+        "mamba2 poisoned vs fault-free", held_rows(p_toks, p_logits),
+        held_rows(m_ctx["toks"], m_ctx["logits"]), ATOL_E2E_SSM_LOGITS)
+    print(f"[robustness] mamba2 poisoned vs the direct route: {same}/"
+          f"{scfg.batch} rows' tokens identical, logits within {worst:.4g} "
+          f"(atol {ATOL_E2E_SSM_LOGITS})")
+
+    # (5) a compile-side fault
+    priv = BUILD_CACHE / "robustness_compile_cache.json"
+    priv.unlink(missing_ok=True)
+    compiler.clear_memo()
+    reg = PlanRegistry(cache=CompileCache(priv))
+    old_reg = set_default_registry(reg)
+    f0 = obs_counters(ROBUSTNESS_COUNTERS)
+    try:
+        with faults.inject(
+                faults.FaultRule("compile.measure", "timeout", times=1),
+                faults.FaultRule("cache.json", "garbage")):
+            c_eng = Engine(dataclasses.replace(cfg, kernel_plan="measure"),
+                           model, scfg)
+            (c_toks, c_logits), got = counted(lambda: c_eng.generate(
+                prompts, n_new, return_logits=True))
+    finally:
+        set_default_registry(old_reg)
+    f1 = obs_counters(ROBUSTNESS_COUNTERS)
+    fd = {k: f1[k] - f0[k] for k in ROBUSTNESS_COUNTERS}
+    tiers = {k.backend for k in reg._plans.values()}
+    print(f"[robustness] qwen3 registry under a measurement timeout and a "
+          f"garbage cache file: {fd}; {len(reg._plans)} plans, backends "
+          f"{sorted(tiers)}, launches {got}")
+    check(fd["compile.measure_failed"] >= 1 and fd["cache.corrupt"] >= 1,
+          f"compile-side fault counters {fd}")
+    check(tiers == {"hopper"} and all(
+        r["tiers"] == ["hopper"] for r in c_eng.warmup_report),
+        "a plan left the hopper tier")
+    check(fd["degrade.compile"] == 0 and fd["engine.degraded"] == 0,
+          f"compile-side fault degraded {fd}")
+    check(got["flash_attention"] == layers
+          and got["decode_attention"] == layers * n_new,
+          f"compile-side fault launches {got}")
+    same, worst = hold_first_difference(
+        "qwen3 registry under compile faults vs direct",
+        held_rows(c_toks, c_logits), held_rows(toks, logits),
+        ATOL_E2E_LOGITS)
+    print(f"[robustness] qwen3 registry under compile faults vs the direct "
+          f"route: {same}/{scfg.batch} rows' tokens identical, logits "
+          f"within {worst:.4g} (atol {ATOL_E2E_LOGITS})")
+
+    c1 = obs_counters(ROBUSTNESS_COUNTERS)
+    counters = {k: c1[k] - c0[k] for k in ROBUSTNESS_COUNTERS}
+    print(f"[robustness] the phase's counters: {counters}; launches "
+          f"{launches}")
+    return {k: n for k, n in launches.items() if n}, counters
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3291,35 +3624,44 @@ def main() -> int:
     qwen3 = ({"flash_attention": 28}, {"decode_attention": 28},
              ATOL_E2E_LOGITS)
     qwen3_plain = set_field(attention_impl="xla_chunked")
+    # each serving phase's engine.degraded, degrade.compile and
+    # registry.spotcheck_failed deltas: all must be 0
+    guard = {}
     with timed("qwen3-0.6b"):
-        paths["qwen3-0.6b"], ctx = phase_e2e(
-            "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
-            ("xla_chunked", qwen3_plain), *qwen3)
-        phase_registry(ctx, *qwen3, registry)
-        served = [(ctx["cfg"], ctx["scfg"])]
-        with timed("qwen3-0.6b stream"):
-            stream = phase_stream_qwen3(ctx, qwen3_plain)
-        del ctx
+        with guarded("qwen3-0.6b", guard):
+            paths["qwen3-0.6b"], q_ctx = phase_e2e(
+                "qwen3-0.6b", ("pallas", set_field(attention_impl="pallas")),
+                ("xla_chunked", qwen3_plain), *qwen3)
+        with guarded("qwen3-0.6b registry", guard):
+            phase_registry(q_ctx, *qwen3, registry)
+        served = [(q_ctx["cfg"], q_ctx["scfg"])]
+        with timed("qwen3-0.6b stream"), guarded("qwen3-0.6b stream", guard):
+            stream = phase_stream_qwen3(q_ctx, qwen3_plain)
         phase_decode_loop()
     mamba2 = ({"ssd_scan": 48}, {"ssd_decode": 48}, ATOL_E2E_SSM_LOGITS)
     mamba2_plain = set_field(ssm_impl="xla")
     with timed("mamba2-1.3b"):
-        paths["mamba2-1.3b"], ctx = phase_e2e(
-            "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
-            ("xla", mamba2_plain), *mamba2)
-        phase_registry(ctx, *mamba2, registry)
-        served.append((ctx["cfg"], ctx["scfg"]))
-        with timed("mamba2-1.3b stream"):
-            stream.update(phase_stream_mamba2(ctx, mamba2_plain))
+        with guarded("mamba2-1.3b", guard):
+            paths["mamba2-1.3b"], m_ctx = phase_e2e(
+                "mamba2-1.3b", ("pallas", set_field(ssm_impl="pallas")),
+                ("xla", mamba2_plain), *mamba2)
+        with guarded("mamba2-1.3b registry", guard):
+            phase_registry(m_ctx, *mamba2, registry)
+        served.append((m_ctx["cfg"], m_ctx["scfg"]))
+        with timed("mamba2-1.3b stream"), \
+                guarded("mamba2-1.3b stream", guard):
+            stream.update(phase_stream_mamba2(m_ctx, mamba2_plain))
         paths["stream"] = stream
-        del ctx
+    with timed("robustness (8)"):
+        paths["robustness"], robust = phase_robustness(q_ctx, m_ctx)
+    del q_ctx, m_ctx
     # zamba2: 54 Mamba-2 blocks in 9 groups of 6, each group followed by
     # the one shared attention block: 54 scans and 9 flash launches a
     # prefill, 54 SSD decode steps and 9 decode attentions a step
     zamba2 = ({"ssd_scan": 54, "flash_attention": 9},
               {"ssd_decode": 54, "decode_attention": 9},
               ATOL_E2E_HYBRID_LOGITS)
-    with timed("zamba2-2.7b"):
+    with timed("zamba2-2.7b"), guarded("zamba2-2.7b", guard):
         paths["zamba2-2.7b"], ctx = phase_e2e(
             "zamba2-2.7b",
             ("pallas", set_field(attention_impl="pallas", ssm_impl="pallas")),
@@ -3329,24 +3671,25 @@ def main() -> int:
         phase_registry(ctx, *zamba2, registry)
         served.append((ctx["cfg"], ctx["scfg"]))
         del ctx
-    with timed("registry replay"):
+    with timed("registry replay"), guarded("registry replay", guard):
         phase_registry_replay(served, lambda: CompileCache(REGISTRY_CACHE))
-    with timed("deepseek-v2-lite-16b"):
+    with timed("deepseek-v2-lite-16b"), \
+            guarded("deepseek-v2-lite-16b", guard):
         paths["deepseek-v2-lite-16b"], _ctx = phase_e2e(
             "deepseek-v2-lite-16b", ("ragged grouped GEMM", moe_ragged),
             ("dense dropless", plain_moe),
             {"grouped_gemm": 78}, {"grouped_gemm": 78}, ATOL_E2E_MOE_LOGITS)
         del _ctx
-    with timed("qwen2.5-14b"):
+    with timed("qwen2.5-14b"), guarded("qwen2.5-14b", guard):
         paths["qwen2.5-14b"], _ctx = phase_e2e(
             "qwen2.5-14b", ("pallas", set_field(attention_impl="pallas")),
             ("xla_chunked", set_field(attention_impl="xla_chunked")),
             {"flash_attention": 48}, {"decode_attention": 48},
             ATOL_E2E_QWEN25_LOGITS, profile=True)
         del _ctx
-    with timed("whisper-base"):
+    with timed("whisper-base"), guarded("whisper-base", guard):
         paths["whisper-base"] = phase_whisper(ATOL_E2E_WHISPER_LOGITS)
-    with timed("internvl2-2b"):
+    with timed("internvl2-2b"), guarded("internvl2-2b", guard):
         vlm_plain = set_field(attention_impl="xla_chunked")
         paths["internvl2-2b"], ctx = phase_e2e(
             "internvl2-2b", ("pallas", set_field(attention_impl="pallas")),
@@ -3359,7 +3702,8 @@ def main() -> int:
             paths["internvl2-2b"][name] = paths["internvl2-2b"].get(
                 name, 0) + n
         del ctx
-    with timed("deepseek-v3-671b, cut depth"):
+    with timed("deepseek-v3-671b, cut depth"), \
+            guarded("deepseek-v3-671b cut", guard):
         print(f"[e2e] deepseek-v3-671b at full width, cut from 61 layers to "
               f"{DSV3_LAYERS} (its 3 dense layers and {DSV3_LAYERS - 3} MoE "
               f"layers; 671 B parameters do not fit one card); the plain "
@@ -3374,6 +3718,9 @@ def main() -> int:
     with timed("paper tables"):
         paths["paper"] = phase_paper()
     paths["compiler"] = compiler_launches
+    print(json.dumps({"robustness": {
+        "counters": robust, "launches": paths["robustness"],
+        "guard": guard}}))
     for entry in kernels:
         by_path = {path: n[entry["name"]] for path, n in paths.items()
                    if n.get(entry["name"])}

@@ -19,6 +19,14 @@ the compiled kernel across calls and processes (:mod:`.cache`).
 returns the compiled kernel outright, and the JSON disk cache replays the
 pipeline plan (chosen pump factor — including a measured-runtime autotune
 winner from ``autotune='measure'``) in fresh processes.
+
+Every request is observable through :mod:`repro_torch.obs`, under the
+reference's names: a ``compiler.compile`` span (``compiler.autotune`` and
+one ``compiler.autotune.candidate`` under it when measuring) and how it
+was served (``compile.memo_hit`` / ``compile.replay`` / ``compile.measure``
+/ ``compile.build``).  ``compile.measure`` is a fault-injection site, once
+per candidate.  :func:`compile_degraded` walks the cross-backend rungs of
+:data:`DEGRADATION_LADDER` instead of raising.
 """
 from __future__ import annotations
 
@@ -31,18 +39,32 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .. import device as device_mod
+from .. import obs
 from ..core.ir import Graph, NodeKind, PumpSpec
 from ..core.pump_plan import SMEM_BYTES, plan_kernel_pump
 from .cache import (CompileCache, QuarantinePolicy, default_cache,
                     graph_fingerprint, request_key)
+from .cache import resolve as resolve_cache
 from .hopper_backend import lower_hopper, partition_regions
 from .lowering import CompiledKernel, LoweringError, lower, torch_dtype
 from .passes import (PASS_REGISTRY, FifoDepthPass, FusionReport, GraphPass,
                      MultipumpPass, StreamFusionPass, StreamingPass,
                      make_pass, register_pass)
 from .pipeline import PassRecord, Pipeline, PipelineReport
+from ..testing import faults
 
 BACKENDS = ("torch", "hopper", "reference", "none")
+
+# The degradation ladder, the reference's with the port's rungs.  The first
+# three are emission tiers inside the hopper backend: lower_hopper picks per
+# region and falls through hopper -> blockloop / carryloop -> gather when a
+# region has no hand-written kernel.  The cross-layer rungs are what this
+# module and the plan registry own: a hopper-backend failure degrades to the
+# per-node PyTorch lowering (compile_degraded), and below that the serving
+# engine re-runs a failing step on the plain route (``engine.degraded``).
+# Every step down is counted with its reason (``degrade.compile`` /
+# ``registry.fallback.*`` / ``engine.degraded``), never silent.
+DEGRADATION_LADDER = ("hopper", "blockloop", "gather", "torch", "direct")
 
 
 class PlanQuarantined(RuntimeError):
@@ -74,6 +96,18 @@ def clear_memo() -> None:
     """Drop all in-process compiled kernels (test isolation hook)."""
     _KERNEL_MEMO.clear()
     _MEMO_HITS.clear()
+
+
+def forget(cache_key: str) -> int:
+    """Purge every in-process memo entry compiled under ``cache_key`` (all
+    backends and devices).  The memo is filled before post-compile
+    validation runs, so a kernel that fails the registry's spot check must
+    not be memo-served to the retry; validation failures call this."""
+    stale = [mk for mk in _KERNEL_MEMO if mk[0] == cache_key]
+    for mk in stale:
+        _KERNEL_MEMO.pop(mk, None)
+        _MEMO_HITS.pop(mk, None)
+    return len(stale)
 
 
 def _cell_sig(value) -> str:
@@ -203,14 +237,15 @@ def _measure_inputs(graph: Graph, device: torch.device
             if n.kind == NodeKind.MEMORY and not graph.in_edges(n.name)}
 
 
-def _lost_tiers(kern: CompiledKernel, first: Dict[str, str]) -> str:
+def _lost_tiers(kern: CompiledKernel, hopper: set) -> str:
     """Why an autotune candidate is no candidate, or ``''``: each region
-    that the first candidate emitted at the ``hopper`` tier and this one,
-    at another pump, keeps below it (the hand-written kernel is not built
-    for that pump), with the reason the backend gave."""
+    that some candidate emitted at the ``hopper`` tier (``hopper``, a set of
+    region names) and this one, at another pump, keeps below it (the
+    hand-written kernel is not built for that pump), with the reason the
+    backend gave."""
     out = []
     for region, em in (kern.report.emission or {}).items():
-        if first.get(region) == "hopper" and em["tier"] != "hopper":
+        if region in hopper and em["tier"] != "hopper":
             why = em["why"][-1] if em["why"] else em["tier"]
             out.append(f"{region} at tier {em['tier']}: {why}")
     return "; ".join(out)
@@ -234,6 +269,7 @@ def _time_kernel(fn, inputs, timer, budget_s: Optional[float] = None
         fn(inputs)
         best = min(best, (time.perf_counter() - t0) * 1e6)
         if budget_s is not None and time.perf_counter() - t_start > budget_s:
+            obs.count("compile.measure_budget_hit")
             break
     return best
 
@@ -273,10 +309,7 @@ def compile(graph: Graph, *, factor="auto", mode: str = "T",
                          "('torch' or 'hopper')")
     dev = device_mod.resolve(device) if backend in ("torch", "hopper") \
         else None
-    if cache is None:
-        cache = default_cache()
-    elif cache is False:
-        cache = None
+    cache = resolve_cache(cache)
 
     # the plan (chosen factor) is backend-independent, so the backend stays
     # out of the persistent key — autopump's backend='none' plans are reused
@@ -293,6 +326,8 @@ def compile(graph: Graph, *, factor="auto", mode: str = "T",
         qkey = f"{key}:{backend}"
         q = cache.quarantined(qkey)
         if q is not None:
+            obs.count("cache.quarantine_skip", graph=graph.name,
+                      backend=backend, reason=q.get("reason", ""))
             raise PlanQuarantined(
                 f"plan {key[:12]}… backend={backend} is quarantined "
                 f"({q.get('reason', 'unknown')}, fail #{q.get('fails', 0)}) — "
@@ -303,32 +338,37 @@ def compile(graph: Graph, *, factor="auto", mode: str = "T",
         if cache is not None and key not in cache:
             cache.put(key, plan)   # write-through to a fresh persistent cache
         _MEMO_HITS[memo_key] = _MEMO_HITS.get(memo_key, 0) + 1
+        obs.count("compile.memo_hit", graph=graph.name, backend=backend)
         # fresh report view per hit: the original compile's provenance
         # record must not be rewritten retroactively
         report = dataclasses.replace(kern.report, served_from="memory",
                                      cache_hits=_MEMO_HITS[memo_key])
         return dataclasses.replace(kern, report=report)
-    try:
-        return _compile_cold(graph, factor=factor, mode=mode,
-                             smem_budget=smem_budget, max_factor=max_factor,
-                             estimate=estimate, backend=backend,
-                             autotune=autotune, cache=cache, memoize=memoize,
-                             key=key, memo_key=memo_key, device=dev)
-    except Exception as e:
-        # stamp the request identity so a caller can quarantine / forget
-        # the exact failing plan without recomputing the key
+    with obs.span("compiler.compile", cat="compile", graph=graph.name,
+                  backend=backend, autotune=autotune or "none",
+                  factor=str(factor), mode=mode) as cspan:
         try:
-            e.compile_cache_key = key
-            e.compile_backend = backend
-        except Exception:
-            pass
-        raise
+            return _compile_cold(graph, factor=factor, mode=mode,
+                                 smem_budget=smem_budget,
+                                 max_factor=max_factor, estimate=estimate,
+                                 backend=backend, autotune=autotune,
+                                 cache=cache, memoize=memoize, key=key,
+                                 memo_key=memo_key, device=dev, cspan=cspan)
+        except Exception as e:
+            # stamp the request identity so a caller can quarantine /
+            # forget the exact failing plan without recomputing the key
+            try:
+                e.compile_cache_key = key
+                e.compile_backend = backend
+            except Exception:
+                pass
+            raise
 
 
 def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
                   estimate, backend, autotune, cache, memoize, key, memo_key,
-                  device) -> CompiledKernel:
-    """The non-memo-hit path of :func:`compile`."""
+                  device, cspan) -> CompiledKernel:
+    """The non-memo-hit path of :func:`compile` (span-bracketed)."""
 
     def build(f, est=estimate):
         return _build(graph, factor=f, mode=mode, smem_budget=smem_budget,
@@ -337,16 +377,20 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
 
     plan = cache.get(key) if cache is not None else None
     if plan is not None and not _valid_plan(plan):
+        obs.count("cache.corrupt", key=key, graph=graph.name)
         plan = None         # corrupted entry: fall back to a cold compile
     measured = 0
     if plan is not None:
         # replay the cached decision: no autotune search, no factor probing,
         # no re-measurement
+        obs.count("compile.replay", graph=graph.name, backend=backend,
+                  factor=int(plan["factor"]))
         kern = build(int(plan["factor"]), est=None)
         served = "disk"
         if plan.get("autotune"):
             kern.report.autotune = dict(plan["autotune"], replayed=True)
     elif autotune == "measure":
+        obs.count("compile.measure", graph=graph.name, backend=backend)
         inputs = _measure_inputs(graph, device)
         timer = None
         if device.type == "cuda":
@@ -355,36 +399,56 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
         timings: Dict[int, float] = {}
         kernels: Dict[int, CompiledKernel] = {}
         failures: Dict[int, str] = {}
-        first_tiers: Optional[Dict[str, str]] = None
-        for cand in AUTOTUNE_CANDIDATES:
-            if cand > max_factor:
-                continue
-            # one candidate failing (bad lowering at that factor) must not
-            # sink the search — the surviving candidates still yield a
-            # valid winner
-            try:
-                k = build(cand)
-                achieved = k.spec.factor  # legality may clamp it
-                if achieved in timings:
+        # regions some candidate emitted at the hopper tier: a candidate
+        # that keeps one of them below it is no candidate (wherever it
+        # comes in the order: an injected failure may take the first)
+        hopper: set = set()
+        with obs.span("compiler.autotune", cat="compile", graph=graph.name,
+                      backend=backend) as aspan:
+            for cand in AUTOTUNE_CANDIDATES:
+                if cand > max_factor:
                     continue
-                tiers = {r: em["tier"]
-                         for r, em in (k.report.emission or {}).items()}
-                if first_tiers is None:
-                    first_tiers = tiers
-                lost = _lost_tiers(k, first_tiers)
-                if lost:
-                    # a kernel not built for this pump: the region would
-                    # run a PyTorch loop in its place, which is no
-                    # candidate for the kernel's pump
-                    failures[cand] = lost
-                    continue
-                t = _time_kernel(k.fn, inputs, timer,
-                                 budget_s=AUTOTUNE_CANDIDATE_BUDGET_S)
-                measured += 1
-                kernels[achieved] = k
-                timings[achieved] = t
-            except Exception as e:
-                failures[cand] = repr(e)
+                with obs.span("compiler.autotune.candidate", cat="compile",
+                              graph=graph.name, factor=cand) as csp:
+                    # one candidate failing (bad lowering at that factor, a
+                    # measurement timeout) must not sink the search — the
+                    # surviving candidates still yield a valid winner
+                    try:
+                        faults.check("compile.measure", graph=graph.name,
+                                     factor=cand)
+                        k = build(cand)
+                        achieved = k.spec.factor  # legality may clamp it
+                        if achieved in timings:
+                            csp.set(achieved=achieved, skipped="duplicate")
+                            continue
+                        hopper |= {r for r, em
+                                   in (k.report.emission or {}).items()
+                                   if em["tier"] == "hopper"}
+                        lost = _lost_tiers(k, hopper)
+                        if lost:
+                            # a kernel not built for this pump: the region
+                            # would run a PyTorch loop in its place, which
+                            # is no candidate for the kernel's pump
+                            failures[cand] = lost
+                            csp.set(achieved=achieved, skipped="tier")
+                            continue
+                        t = _time_kernel(k.fn, inputs, timer,
+                                         budget_s=AUTOTUNE_CANDIDATE_BUDGET_S)
+                        measured += 1
+                        kernels[achieved] = k
+                        timings[achieved] = t
+                        csp.set(achieved=achieved, best_us=round(t, 1))
+                    except Exception as e:
+                        failures[cand] = repr(e)
+                        obs.count("compile.measure_failed", graph=graph.name,
+                                  factor=str(cand), error=type(e).__name__)
+                        csp.set(failed=type(e).__name__)
+            for f in list(timings):
+                lost = _lost_tiers(kernels[f], hopper)
+                if lost:        # timed before a later candidate reached it
+                    failures[f] = lost
+                    del timings[f], kernels[f]
+            aspan.set(failed_candidates=len(failures))
         del timer, inputs
         if not timings:
             raise AutotuneError(
@@ -410,6 +474,7 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
                 f"autotune: {len(failures)} candidate(s) failed "
                 f"measurement and were excluded from the search")
     else:
+        obs.count("compile.build", graph=graph.name, backend=backend)
         kern = build(factor)
         served = None
 
@@ -418,6 +483,7 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
     report.served_from = served
     report.cache_hits = 1 if served else 0
     report.measurements = measured
+    cspan.set(served=served or "build", achieved_factor=kern.spec.factor)
 
     if plan is None:
         plan = {"factor": kern.spec.factor, "mode": mode,
@@ -433,6 +499,58 @@ def _compile_cold(graph: Graph, *, factor, mode, smem_budget, max_factor,
     return kern
 
 
+def compile_degraded(graph: Graph, *, backend: str = "hopper",
+                     autotune=None, cache=None, **kw) -> CompiledKernel:
+    """:func:`compile`, walking the cross-backend rungs of
+    :data:`DEGRADATION_LADDER` instead of raising.
+
+    Tries the requested backend first; on failure (or an open quarantine
+    window) records the failing rung in the quarantine ledger, counts
+    ``degrade.compile`` with the reason, and steps down: hopper → per-node
+    PyTorch lowering → the same without measured autotune.  The
+    intra-backend tiers (blockloop / carryloop / gather) degrade inside
+    :func:`~.hopper_backend.lower_hopper` before any of this triggers.
+    Raises only when every rung fails; the serving engine's plain route is
+    the rung below this function.
+    """
+    store = resolve_cache(cache)
+    rungs = [(backend, autotune)]
+    if backend != "torch":
+        rungs.append(("torch", autotune))
+    if autotune is not None:
+        rungs.append(("torch", None))
+    last = None
+    degraded_from = None
+    for b, at in rungs:
+        try:
+            kern = compile(graph, backend=b, autotune=at, cache=cache, **kw)
+        except PlanQuarantined as e:
+            # already quarantined: skip the rung without re-recording it
+            last = e
+            degraded_from = (b, "quarantined")
+            obs.count("degrade.compile", graph=graph.name, frm=b,
+                      reason="quarantined")
+            continue
+        except Exception as e:
+            last = e
+            reason = type(e).__name__
+            degraded_from = (b, reason)
+            obs.count("degrade.compile", graph=graph.name, frm=b,
+                      reason=reason)
+            qkey = getattr(e, "compile_cache_key", None)
+            if store is not None and qkey:
+                store.record_failure(f"{qkey}:{b}", reason)
+            continue
+        if degraded_from is not None:
+            frm, why = degraded_from
+            kern.report.warn(
+                f"degraded compile: backend={frm} failed ({why}); "
+                f"served by backend={b}"
+                + ("" if at == autotune else " without measured autotune"))
+        return kern
+    raise last
+
+
 def plan_pump(block_bytes_in: int, block_bytes_out: int,
               flops_per_block: float, mode: str = "T", max_factor: int = 16,
               smem_budget: int = SMEM_BYTES, axis: int = 0,
@@ -443,10 +561,7 @@ def plan_pump(block_bytes_in: int, block_bytes_out: int,
     but the chosen factor is stored in the compile cache so every process
     after the first skips the capacity-model search.
     """
-    if cache is None:
-        cache = default_cache()
-    elif cache is False:
-        cache = None
+    cache = resolve_cache(cache)
     key = None
     if cache is not None:
         key = "pump:" + hashlib.sha256(json.dumps(
@@ -467,7 +582,8 @@ def plan_pump(block_bytes_in: int, block_bytes_out: int,
 
 
 __all__ = [
-    "compile", "plan_pump", "clear_memo", "BACKENDS",
+    "compile", "compile_degraded", "plan_pump", "clear_memo", "forget",
+    "BACKENDS", "DEGRADATION_LADDER",
     "AUTOTUNE_CANDIDATES", "AUTOTUNE_CANDIDATE_BUDGET_S", "AUTOTUNE_REPEATS",
     "PlanQuarantined", "AutotuneError",
     "Pipeline", "PipelineReport", "PassRecord",

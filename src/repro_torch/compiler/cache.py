@@ -35,8 +35,16 @@ Self-healing store semantics:
   each failure doubles the backoff window (``base_s · 2^(fails-1)``, capped
   at ``cap_s`` once ``budget`` failures are spent), and
   :func:`repro_torch.compiler.compile` raises ``PlanQuarantined`` for a
-  quarantined rung inside its window, so the hot path stops re-paying a
-  known-bad plan.  A later success clears the entry.
+  quarantined rung inside its window (``cache.quarantine_skip``), so the
+  hot path stops re-paying a known-bad plan.  A later success clears the
+  entry.
+* **Fault injection** — the read / parse / write seams are injection sites
+  (``cache.load`` / ``cache.json`` / ``cache.save``; see
+  :mod:`repro_torch.testing.faults`), and every degrade they trigger is a
+  counted health event (``cache.corrupt``).  Entries stamped under another
+  toolchain are counted once per load as ``cache.stale_env`` (the
+  reference's ``cache.stale_jax_version``: the port's fingerprint is the
+  card and the toolchain, ``_env_fingerprint``).
 """
 from __future__ import annotations
 
@@ -57,8 +65,10 @@ try:
 except ImportError:  # pragma: no cover — non-POSIX: lockless best effort
     fcntl = None
 
+from .. import obs
 from ..core.ir import Graph
 from ..core.symbolic import AccessPattern, Affine
+from ..testing import faults
 
 REGION_KERNEL = Path(__file__).resolve().parent.parent / "csrc" \
     / "region_map_reduce.cu"
@@ -168,14 +178,16 @@ class QuarantinePolicy:
 
 
 class CompileCache:
-    """JSON-on-disk key→plan store with cross-process merge-on-write
-    locking and a quarantine ledger (schema version 2; a version-1 file
-    reads as an empty quarantine)."""
+    """JSON-on-disk key→plan store with hit/miss accounting, cross-process
+    merge-on-write locking and a quarantine ledger (schema version 2; a
+    version-1 file reads as an empty quarantine)."""
 
     def __init__(self, path: Optional[os.PathLike | str] = None,
                  quarantine: Optional[QuarantinePolicy] = None):
         self.path = Path(path) if path is not None else _default_path()
         self.quarantine_policy = quarantine or QuarantinePolicy()
+        self.hits = 0
+        self.misses = 0
         self._entries: Optional[Dict[str, dict]] = None
         self._quarantine: Dict[str, dict] = {}
         # keys whose quarantine entries this process cleared; the merge in
@@ -210,23 +222,38 @@ class CompileCache:
     def _read_disk(self):
         """Fresh read of the on-disk store → (entries, quarantine).  All
         failure modes (missing file, torn write, bitrot, IO error) degrade
-        to an empty store."""
+        to an empty store; corruption is counted."""
         try:
+            faults.check("cache.load", path=str(self.path))
             with open(self.path) as f:
                 text = f.read()
+            text = faults.mangle("cache.json", text, path=str(self.path))
             data = json.loads(text)
             entries = dict(data.get("entries", {}))
             quarantine = dict(data.get("quarantine", {}))
         except FileNotFoundError:
             return {}, {}            # cold store: expected, not a health event
-        except (OSError, ValueError, AttributeError, TypeError):
-            # truncated/corrupted/wrong-schema JSON: cold-compile path
+        except (OSError, ValueError, AttributeError, TypeError) as e:
+            # truncated/corrupted/wrong-schema JSON: cold-compile path.  The
+            # degrade is the contract; the event must still be visible
+            obs.count("cache.corrupt", path=str(self.path), error=repr(e))
             return {}, {}
         return entries, quarantine
 
     def _load(self) -> Dict[str, dict]:
         if self._entries is None:
             self._entries, self._quarantine = self._read_disk()
+            if self._entries:
+                # entries stamped under another toolchain can never match a
+                # current request key (the fingerprint is folded into the
+                # key): count them once per load for cache health
+                env = _env_fingerprint()
+                stale = sum(1 for v in self._entries.values()
+                            if isinstance(v, dict)
+                            and v.get("env") not in (None, env))
+                if stale:
+                    obs.count("cache.stale_env", stale,
+                              path=str(self.path), env=env)
         return self._entries
 
     def _save(self, merge: bool = True) -> None:
@@ -244,6 +271,7 @@ class CompileCache:
                     for key in self._quarantine_cleared:
                         quarantine.pop(key, None)
                     self._entries, self._quarantine = entries, quarantine
+                faults.check("cache.save", path=str(self.path))
                 self.path.parent.mkdir(parents=True, exist_ok=True)
                 fd, tmp = tempfile.mkstemp(dir=self.path.parent,
                                            prefix=self.path.name,
@@ -257,9 +285,16 @@ class CompileCache:
 
     # -- store API -----------------------------------------------------------
     def get(self, key: str) -> Optional[dict]:
-        entry = self._load().get(key)
+        entries = self._load()
+        entry = entries.get(key)
         if not isinstance(entry, dict):   # absent or corrupted value
+            if key in entries:            # present but wrong type: corrupted
+                obs.count("cache.corrupt", key=key)
+            self.misses += 1
+            obs.count("cache.miss")
             return None
+        self.hits += 1
+        obs.count("cache.hit")
         return dict(entry)
 
     def put(self, key: str, value: dict) -> None:
@@ -283,8 +318,8 @@ class CompileCache:
         repeat failures back off harder — but an operator-invoked prune is
         the explicit "forgive history" point).  The whole read-evict-write
         cycle runs inside :meth:`_lock`, so a concurrent writer's fresh
-        entries are never lost; evictions are counted per category and
-        returned."""
+        entries are never lost; evictions are counted via ``obs``
+        (``cache.pruned`` per category) and returned."""
         now = now if now is not None else time.time()
         evicted = {"stale_env": 0, "aged": 0, "corrupt": 0, "quarantine": 0}
         env = _env_fingerprint()
@@ -310,6 +345,7 @@ class CompileCache:
                     else:   # window expired (or row corrupt): GC it
                         evicted["quarantine"] += 1
                 if sum(evicted.values()):
+                    faults.check("cache.save", path=str(self.path))
                     self.path.parent.mkdir(parents=True, exist_ok=True)
                     fd, tmp = tempfile.mkstemp(dir=self.path.parent,
                                                prefix=self.path.name,
@@ -321,6 +357,9 @@ class CompileCache:
                 self._entries, self._quarantine = keep, q_keep
         except OSError:
             return evicted    # read-only store: nothing evicted, no crash
+        for kind, n in evicted.items():
+            if n:
+                obs.count("cache.pruned", n, kind=kind, path=str(self.path))
         return evicted
 
     # -- quarantine ledger ---------------------------------------------------
@@ -350,6 +389,8 @@ class CompileCache:
                  "last": now}
         self._quarantine[key] = entry
         self._quarantine_cleared.discard(key)
+        obs.count("cache.quarantine", key=key, reason=reason,
+                  fails=str(fails))
         self._save()
         return dict(entry)
 
@@ -364,6 +405,12 @@ class CompileCache:
         self._load()
         return {k: dict(v) for k, v in self._quarantine.items()
                 if isinstance(v, dict)}
+
+    @property
+    def stats(self) -> Dict[str, int]:
+        return {"hits": self.hits, "misses": self.misses,
+                "entries": len(self._load()),
+                "quarantined": len(self._quarantine)}
 
     def __len__(self) -> int:
         return len(self._load())
@@ -382,3 +429,12 @@ def default_cache() -> CompileCache:
     if path not in _DEFAULT_CACHES:
         _DEFAULT_CACHES[path] = CompileCache(path)
     return _DEFAULT_CACHES[path]
+
+
+def resolve(cache) -> Optional[CompileCache]:
+    """A ``cache=`` argument as the store it names: None the default
+    cache, False none, else the given :class:`CompileCache` (tested with
+    ``is``: a store with no entries is falsy)."""
+    if cache is None:
+        return default_cache()
+    return None if cache is False else cache

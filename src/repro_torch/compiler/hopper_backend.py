@@ -69,12 +69,14 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.executor import _toposort
 from ..core.ir import CarrySpec, Graph, NodeKind
 from ..core.symbolic import (Affine, BlockedAccess, blocked_access,
                              narrow_block, split_temporal)
 from ..kernels import ops
 from ..kernels.region_map_reduce import RegionDesc, describe
+from ..testing import faults
 from .lowering import (IndexCache, LoweringError, _indices,
                        carry_sequence_apply, gather, init_memories,
                        scatter, scatter_indices, torch_dtype)
@@ -989,7 +991,12 @@ def lower_hopper(g: Graph, warn: Optional[Callable[[str], None]] = None,
     per-region provenance with the reference's keys: tier, pump, mode,
     grid, reduce, carry, outputs and ``why`` (every note that kept the
     region below ``hopper``).  The returned function runs on its inputs'
-    device (``device`` when no input is a tensor)."""
+    device (``device`` when no input is a tensor).  Each region's tier is
+    counted (``emission.tier.<tier>``), and each region kept below
+    ``hopper`` as ``emission.degraded`` with the reason.  ``emission.lower``
+    (raising) and ``emission.exec`` (wrapping the returned function) are
+    fault-injection sites."""
+    faults.check("emission.lower", graph=g.name)
     g.validate()
     warn = warn or (lambda msg: None)
     device = torch.device("cpu") if device is None else device
@@ -1019,6 +1026,12 @@ def lower_hopper(g: Graph, warn: Optional[Callable[[str], None]] = None,
                 else emit_gather(g, region)
         for n in notes:
             warn(n)
+        # the tier mix is an observable: a serving-path drop to a lower
+        # tier is attributable from the metrics alone, with its reason
+        obs.count(f"emission.tier.{tier}", graph=g.name, region=region.name)
+        if notes:
+            obs.count("emission.degraded", graph=g.name,
+                      region=region.name, tier=tier, why="; ".join(notes))
         if emission is not None:
             emission[region.name] = {
                 "tier": tier,
@@ -1046,5 +1059,8 @@ def lower_hopper(g: Graph, warn: Optional[Callable[[str], None]] = None,
             mems.update(fn(mems))
         return mems
 
+    # chaos seam: a compiled graph that runs but yields garbage (NaNs) or
+    # dies at execution; the original run_fn unless rules are installed
+    run_fn = faults.wrap("emission.exec", run_fn, graph=g.name)
     run_fn.regions = emitted   # (region, tier, region function) in order
     return run_fn

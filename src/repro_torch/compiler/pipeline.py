@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional, Sequence, Tuple
 
+from .. import obs
 from ..core.ir import Graph
 from ..core.pump_plan import SMEM_BYTES
 
@@ -113,14 +114,21 @@ class Pipeline:
     def run(self, g: Graph) -> Tuple[Graph, PipelineReport]:
         report = PipelineReport(graph=g.name)
         cur = g
-        for p in self.passes:
-            ok, why = p.can_apply(cur)
-            if not ok:
-                report.records.append(PassRecord(p.name, False, why))
-                continue
-            cur, prep = p.apply(cur)
-            applied = bool(getattr(prep, "applied", True))
-            reason = getattr(prep, "reason", "ok") or "ok"
-            report.records.append(PassRecord(p.name, applied, reason, prep,
-                                             cur.resources()))
+        with obs.span("compiler.pipeline", cat="compile", graph=g.name,
+                      nodes=len(g.nodes), edges=len(g.edges)) as pspan:
+            for p in self.passes:
+                with obs.span("compiler.pass", cat="compile", graph=g.name,
+                              **{"pass": p.name}) as sp:
+                    ok, why = p.can_apply(cur)
+                    if not ok:
+                        sp.set(applied=False, reason=why)
+                        report.records.append(PassRecord(p.name, False, why))
+                        continue
+                    cur, prep = p.apply(cur)
+                    applied = bool(getattr(prep, "applied", True))
+                    reason = getattr(prep, "reason", "ok") or "ok"
+                    sp.set(applied=applied, reason=reason)
+                    report.records.append(PassRecord(p.name, applied, reason,
+                                                     prep, cur.resources()))
+            pspan.set(factor=report.factor, mode=report.mode)
         return cur, report

@@ -37,8 +37,9 @@ How a plan runs, and where this departs from the reference:
   slice padded up to the bucket: the reference copies about twice the
   cache per layer and step there, while the kernel reads only slots
   ``0..pos``.  The ragged grouped GEMM runs its compiled graph (the region
-  kernel), as in the reference, but only where every region of that graph
-  was emitted at the ``hopper`` tier: a lower tier (``blockloop``,
+  kernel), as in the reference, but only where the plan was compiled by
+  the ``hopper`` backend and every region of its graph was emitted at the
+  ``hopper`` tier: a ``torch``-rung plan or a lower tier (``blockloop``,
   ``gather``) would run plain PyTorch, so such a plan is refused and the
   call falls back, counted, to ``csrc/grouped_gemm.cu``.
 * **A tensor ``pos`` is the traced position**: it keys one plan on the
@@ -60,11 +61,28 @@ How a plan runs, and where this departs from the reference:
   hand-written kernel; on a CPU tensor, its plain version), counted in
   ``stats.fallbacks``.  Where that raises too, the call raises.
 
-Not ported: the ``obs`` counters, spans and snapshot view and the
-``faults`` seam (ROADMAP.md queue 1 item 6), ``compile_degraded`` (a plan
-failing its spot check is not installed, and the call falls back as
-above), and ``preload_artifact`` (item 7).  ``RegistryStats`` is the
-registry's own view.
+Robustness, as in the reference: plans compile through
+``compiler.compile_degraded`` (hopper, then the per-node PyTorch lowering,
+each step down counted as ``degrade.compile``); a plan that fails its spot
+check is purged from the compile memo, quarantined and recompiled once
+(``registry.spotcheck_failed``), and a second failure refuses it (the call
+falls back as above).  The spot check runs the compiled graph itself
+(where ``emission.exec`` wraps it), not the direct op.  On a CPU tensor
+a plan degraded to the ``torch`` rung runs as the direct op (the plain
+version) at its pump.  On a CUDA tensor the direct op is the
+hand-written kernel, and only a ``hopper`` plan's spot check ran it: a
+plan of any other rung (the recompile of a plan that failed its spot
+check among them) is refused, once for the process, and its calls fall
+back as above.  Plans installed while fault rules are active get the
+``registry.exec`` seam around the call their wrapper really makes (the
+direct op at ``launch_spec``; the compiled graph for the ragged route);
+a plan installed before a rule is never wrapped.  A warm hit makes no
+``obs`` call: hits count in ``RegistryStats``, which the active default
+registry publishes as the ``plan_registry`` snapshot view; misses,
+fallbacks and each plan's compile (``registry.compile`` span;
+``registry.measure`` / ``registry.replay`` / ``registry.plan_compile``)
+count through ``obs``.  Not ported: ``preload_artifact`` (ROADMAP.md
+queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -77,6 +95,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from .. import device as device_mod
+from .. import obs
+from ..testing import faults
+from .cache import resolve as resolve_cache
 
 
 def _next_pow2(n: int) -> int:
@@ -165,7 +186,10 @@ def _phase_of(kernel: str) -> str:
 
 @dataclasses.dataclass
 class RegistryStats:
-    """Hit / miss / fallback accounting, split by serving phase."""
+    """Hit / miss / fallback accounting, split by serving phase.  Misses
+    and fallbacks also count through ``obs`` (``registry.{phase}.miss``,
+    ``registry.fallback.{phase}``); hits do not, so a warm call stays one
+    dict lookup (the ``plan_registry`` view publishes them)."""
     hits: int = 0
     misses: int = 0
     measure_s: float = 0.0    # cold measured-autotune compiles
@@ -184,10 +208,13 @@ class RegistryStats:
         else:
             self.misses += 1
             bucket["misses"] += 1
+            obs.count(f"registry.{_phase_of(kernel)}.miss", kernel=kernel)
 
-    def fallback(self, kernel: str) -> None:
+    def fallback(self, kernel: str, why: str = "") -> None:
+        ph = _phase_of(kernel)
         self.fallbacks += 1
-        self.phase[_phase_of(kernel)]["fallbacks"] += 1
+        self.phase[ph]["fallbacks"] += 1
+        obs.count(f"registry.fallback.{ph}", kernel=kernel, why=why)
 
     @property
     def hit_rate(self) -> float:
@@ -271,6 +298,12 @@ class PlanRegistry:
         self._lookup: Dict[Tuple, Any] = {}
         # capacity-model plans served to cold misses during graph capture
         self._capture_memo: Dict[Tuple, Any] = {}
+        # ids of the plans installed while fault rules were active: their
+        # wrapper calls go through the ``registry.exec`` seam
+        self._seamed: set = set()
+        # plan key -> why the plan is refused on the card (``_runs_kernel``):
+        # its calls fall back without compiling it again
+        self._refused: Dict[Tuple, str] = {}
         self.stats = RegistryStats()
 
     # ------------------------------------------------------------- lookup --
@@ -324,25 +357,74 @@ class PlanRegistry:
                                max_factor=max_factor)
             self._capture_memo[key] = kern
             return kern
+        if key in self._refused:
+            raise RuntimeError(self._refused[key])
         self.stats.count(kernel, hit=False)
         factor, mode, autotune = self._request(pump)
-        g, est = BUILDERS[kernel](*builder_args, **builder_kwargs)
-        t0 = time.perf_counter()
-        kern = compiler.compile(g, factor=factor, mode=mode, estimate=est,
-                                backend="hopper", autotune=autotune,
-                                cache=self._cache, max_factor=max_factor,
-                                device=dev)
-        bad = self._spot_check_reason(kern, dev)
-        if bad is not None:
-            raise RuntimeError(f"plan registry: {kernel}{tuple(builder_args)}"
-                               f" failed the {bad!r} spot check; the plan "
-                               f"is not installed")
-        dt = time.perf_counter() - t0
-        tuned = kern.report.autotune
-        if tuned and not tuned.get("replayed"):
-            self.stats.measure_s += dt   # paid the timing runs
-        else:
-            self.stats.compile_s += dt   # replayed plan / plain compile
+        with obs.span("registry.compile", cat="serve", kernel=kernel,
+                      args=list(builder_args), pump=str(pump)) as sp:
+            g, est = BUILDERS[kernel](*builder_args, **builder_kwargs)
+            t0 = time.perf_counter()
+
+            def build():
+                # hopper, then the per-node PyTorch lowering, each step
+                # down counted (``degrade.compile``)
+                return compiler.compile_degraded(
+                    g, factor=factor, mode=mode, estimate=est,
+                    backend="hopper", autotune=autotune, cache=self._cache,
+                    max_factor=max_factor, device=dev)
+
+            kern = build()
+            bad = self._spot_check_reason(kern, dev)
+            if bad is not None:
+                # a poisoned plan (it compiles, and computes garbage): purge
+                # the memo so the retry is not served the same artifact,
+                # quarantine the rung that made it, recompile once
+                obs.count("registry.spotcheck_failed", kernel=kernel,
+                          backend=kern.backend, reason=bad)
+                ckey = kern.report.cache_key
+                if ckey:
+                    compiler.forget(ckey)
+                store = resolve_cache(self._cache)
+                if store is not None and ckey:
+                    store.record_failure(f"{ckey}:{kern.backend}", bad)
+                kern = build()
+                bad2 = self._spot_check_reason(kern, dev)
+                if bad2 is not None:
+                    raise RuntimeError(
+                        f"plan registry: {kernel}{tuple(builder_args)} "
+                        f"failed the {bad!r} spot check and its recompile "
+                        f"failed {bad2!r}; the plan is not installed")
+                kern.report.warn(
+                    f"spot check rejected the first compile ({bad}); "
+                    f"serving the recompile (backend={kern.backend})")
+            if kern.backend != "hopper" and _runs_kernel(dev):
+                # the wrappers would launch the hand-written kernel at this
+                # plan's spec, which no spot check of this plan ran
+                self._refused[key] = (
+                    f"plan registry: {kernel}{tuple(builder_args)} compiled "
+                    f"at backend={kern.backend}, whose spot check ran no "
+                    f"kernel; refused on {dev}")
+                raise RuntimeError(self._refused[key])
+            dt = time.perf_counter() - t0
+            tuned = kern.report.autotune
+            if tuned and not tuned.get("replayed"):
+                self.stats.measure_s += dt   # paid the timing runs
+                obs.count("registry.measure", kernel=kernel)
+            else:
+                self.stats.compile_s += dt   # replayed plan / plain compile
+                obs.count("registry.replay" if tuned
+                          else "registry.plan_compile", kernel=kernel)
+            sp.set(factor=kern.spec.factor, backend=kern.backend,
+                   measured=bool(tuned and not tuned.get("replayed")))
+        if faults.active():
+            # chaos seam: a plan that fails or corrupts on the serving path
+            # after installation (never taken without rules).  The compiled
+            # graph is wrapped (the ragged route runs it); the other
+            # wrappers wrap their direct op (``_spec``)
+            kern = dataclasses.replace(kern, fn=faults.wrap(
+                "registry.exec", kern.fn, kernel=kernel))
+            self._seamed.add(id(kern))
         self._plans[key] = kern
         return kern
 
@@ -398,6 +480,8 @@ class PlanRegistry:
         self._plans.clear()
         self._lookup.clear()
         self._capture_memo.clear()
+        self._seamed.clear()
+        self._refused.clear()
         self.stats = RegistryStats()
 
     # ----------------------------------------------------------- requests --
@@ -468,28 +552,35 @@ class PlanRegistry:
                   direct: Callable[[], Any]):
         """The one fallback rung: the direct op at pump 1 (the kernel on a
         CUDA tensor, the plain version on a CPU one), counted."""
-        self.stats.fallback(kernel)
+        self.stats.fallback(kernel, why=type(err).__name__)
         warnings.warn(f"plan registry: {kernel} fell back to the direct op "
                       f"at pump 1 ({err})", stacklevel=3)
         return direct()
 
     def _spec(self, lk: Tuple, kernel: str, request: Callable[[], Tuple],
-              device: torch.device, kv_dtype: Optional[str] = None):
-        """The plan's PumpSpec for call signature ``lk``: one dict lookup
-        when warm, else the bucketed request through :meth:`kernel`."""
-        spec = self._lookup.get(lk)
-        if spec is not None:
+              device: torch.device, op: Callable,
+              kv_dtype: Optional[str] = None):
+        """``(spec, run)`` for call signature ``lk``: the plan's PumpSpec
+        and the call to make at it, ``op`` (or ``op`` behind the
+        ``registry.exec`` seam, for a plan installed under fault rules).
+        One dict lookup when warm, else the bucketed request through
+        :meth:`kernel`."""
+        hit = self._lookup.get(lk)
+        if hit is not None:
             self.stats.count(kernel, hit=True)
-            return spec
+            return hit
         args, kwargs, _pads = request()
-        spec = launch_spec(self.kernel(
-            kernel, args, kwargs, device=device,
-            max_factor=_max_factor(kernel, args, kwargs, kv_dtype)))
+        kern = self.kernel(kernel, args, kwargs, device=device,
+                           max_factor=_max_factor(kernel, args, kwargs,
+                                                  kv_dtype))
+        run = faults.wrap("registry.exec", op, kernel=kernel) \
+            if id(kern) in self._seamed else op
+        hit = (launch_spec(kern), run)
         if not _capturing():
             # a capture-time plan is the capacity model's: never freeze it
             # into the fast path ahead of the measured one
-            self._lookup[lk] = spec
-        return spec
+            self._lookup[lk] = hit
+        return hit
 
     def flash_attention(self, q, k, v, *, causal: bool = False,
                         bq: int = 128, bkv: int = 128):
@@ -500,11 +591,12 @@ class PlanRegistry:
         lk = ("flash_attention", b, h, hkv, s, t, d, causal, q.dtype,
               q.device, bq, bkv)
         try:
-            spec = self._spec(
+            spec, run = self._spec(
                 lk, "flash_attention", lambda: self.flash_request(
                     b=b, h=h, hkv=hkv, s=s, t=t, d=d, causal=causal,
-                    dtype=_dtype_name(q.dtype), bq=bq, bkv=bkv), q.device)
-            return ops.flash_attention(q, k, v, causal=causal, pump=spec)
+                    dtype=_dtype_name(q.dtype), bq=bq, bkv=bkv), q.device,
+                ops.flash_attention)
+            return run(q, k, v, causal=causal, pump=spec)
         except Exception as e:  # noqa: BLE001 — serving must not die
             return self._fallback("flash_attention", e,
                                   lambda: ops.flash_attention(
@@ -521,13 +613,13 @@ class PlanRegistry:
         lk = ("ssd_scan", b, l, h, p, n, grp, chunk, final_state, x.dtype,
               x.device)
         try:
-            spec = self._spec(lk, "ssd_scan", lambda: self.ssd_request(
+            spec, run = self._spec(lk, "ssd_scan", lambda: self.ssd_request(
                 b=b, l=l, h=h, p=p, n=n, chunk=chunk, n_groups=grp,
                 dtype=_dtype_name(x.dtype), final_state=final_state),
-                x.device)
+                x.device, ops.ssd_scan)
             chunk_e = _fit_block(chunk, self.policy.bucket_seq(l))
-            return ops.ssd_scan(x, dt, A, B, C, chunk=chunk_e,
-                                final_state=final_state, pump=spec)
+            return run(x, dt, A, B, C, chunk=chunk_e,
+                       final_state=final_state, pump=spec)
         except Exception as e:  # noqa: BLE001
             return self._fallback("ssd_scan", e, lambda: ops.ssd_scan(
                 x, dt, A, B, C, chunk=chunk, final_state=final_state))
@@ -555,12 +647,13 @@ class PlanRegistry:
                                       device=q.device)
             lk = ("decode_attention", b, h, hkv, t_req, d, q.dtype,
                   k_cache.dtype, q.device, bkv)
-            spec = self._spec(lk, "decode_attention",
-                              lambda: self.decode_request(
-                                  b=b, h=h, hkv=hkv, t=t_req, d=d,
-                                  dtype=_dtype_name(q.dtype), bkv=bkv),
-                              q.device, _dtype_name(k_cache.dtype))
-            return ops.decode_attention(q, k_cache, v_cache, pos, pump=spec)
+            spec, run = self._spec(lk, "decode_attention",
+                                   lambda: self.decode_request(
+                                       b=b, h=h, hkv=hkv, t=t_req, d=d,
+                                       dtype=_dtype_name(q.dtype), bkv=bkv),
+                                   q.device, ops.decode_attention,
+                                   _dtype_name(k_cache.dtype))
+            return run(q, k_cache, v_cache, pos, pump=spec)
         except Exception as e:  # noqa: BLE001 — serving must not die
             return self._fallback("decode_attention", e,
                                   lambda: ops.decode_attention(
@@ -575,11 +668,12 @@ class PlanRegistry:
         grp = B.shape[1]
         lk = ("ssd_decode", b, h, p, n, grp, x.dtype, x.device)
         try:
-            spec = self._spec(lk, "ssd_decode",
-                              lambda: self.ssd_decode_request(
-                                  b=b, h=h, p=p, n=n, n_groups=grp,
-                                  dtype=_dtype_name(x.dtype)), x.device)
-            return ops.ssd_decode(state, x, dt, A, B, C, pump=spec)
+            spec, run = self._spec(lk, "ssd_decode",
+                                   lambda: self.ssd_decode_request(
+                                       b=b, h=h, p=p, n=n, n_groups=grp,
+                                       dtype=_dtype_name(x.dtype)), x.device,
+                                   ops.ssd_decode)
+            return run(state, x, dt, A, B, C, pump=spec)
         except Exception as e:  # noqa: BLE001
             return self._fallback("ssd_decode", e, lambda: ops.ssd_decode(
                 state, x, dt, A, B, C))
@@ -624,8 +718,21 @@ class PlanRegistry:
                  "decode_attention": self.decode_request,
                  "ssd_decode": self.ssd_decode_request}
         dev = device_mod.resolve(device)
+        requests = list(requests)
         report: List[Dict[str, Any]] = []
         surfaced: List[str] = []
+        with obs.span("registry.warmup", cat="serve",
+                      requests=len(requests)) as wspan:
+            self._warmup(requests, canon, dev, report, surfaced)
+            wspan.set(failed=sum(1 for r in report if "error" in r))
+        # each unique compile warning once per sweep, not once per bucket
+        for msg in surfaced:
+            warnings.warn(f"plan warmup: {msg}", stacklevel=2)
+        return report
+
+    def _warmup(self, requests, canon, dev, report, surfaced) -> None:
+        """:meth:`warmup`'s loop: one record per request into ``report``,
+        each new compile warning into ``surfaced``."""
         for kernel, spec in requests:
             t0 = time.perf_counter()
             spec = dict(spec)
@@ -641,6 +748,8 @@ class PlanRegistry:
                                    max_factor=_max_factor(kernel, args,
                                                           kwargs, kv_dtype))
             except Exception as e:  # noqa: BLE001
+                obs.count("registry.warmup_failed", kernel=kernel,
+                          error=type(e).__name__)
                 report.append({
                     "kernel": kernel, "args": list(spec.values()),
                     "factor": None, "mode": None, "launch": None,
@@ -665,21 +774,29 @@ class PlanRegistry:
                 "time_s": round(time.perf_counter() - t0, 4),
                 "tiers": sorted({v["tier"] for v in emission.values()}),
             })
-        # each unique compile warning once per sweep, not once per bucket
-        for msg in surfaced:
-            warnings.warn(f"plan warmup: {msg}", stacklevel=2)
-        return report
 
 
 def _hopper_plan(kern):
-    """``kern`` if every region of it was emitted at the ``hopper`` tier
-    (the hand-written kernels); else raise, since a lower tier runs the
-    region as plain PyTorch."""
-    low = {r: e["tier"] for r, e in (kern.report.emission or {}).items()
+    """``kern`` if the ``hopper`` backend compiled it and emitted every
+    region of it at the ``hopper`` tier (the hand-written kernels); else
+    raise, since a ``torch``-rung plan or a lower tier runs the regions as
+    plain PyTorch."""
+    emission = kern.report.emission or {}
+    if kern.backend != "hopper" or not emission:
+        raise RuntimeError(f"plan compiled at backend={kern.backend}, "
+                           f"not emitted by the hopper backend")
+    low = {r: e["tier"] for r, e in emission.items()
            if e["tier"] != "hopper"}
     if low:
         raise RuntimeError(f"plan emitted below the hopper tier: {low}")
     return kern
+
+
+def _runs_kernel(device: torch.device) -> bool:
+    """True where a wrapper's direct op is the hand-written kernel (a CUDA
+    tensor: ``kernels.ops._route``), so that a plan serves there only if
+    its spot check ran that kernel."""
+    return device.type == "cuda"
 
 
 def launch_spec(kern):
@@ -713,6 +830,12 @@ def _probe_inputs(g, device: torch.device) -> Dict[str, torch.Tensor]:
 
 # --------------------------------------------------------------- singleton --
 _DEFAULT: Optional[PlanRegistry] = None
+
+# the active default registry's stats in every metrics snapshot (a view,
+# not a copy: it follows whichever instance is installed)
+obs.register_view(
+    "plan_registry",
+    lambda: _DEFAULT.stats.as_dict() if _DEFAULT is not None else None)
 
 
 def default_registry() -> PlanRegistry:

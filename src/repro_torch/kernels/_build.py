@@ -5,7 +5,11 @@ Each source becomes its own shared library with a plain C interface
 on a hash of the source, the ``csrc/*.cuh`` headers it includes and the
 flags, so an edit rebuilds and an unchanged source loads at once.  The sources include no PyTorch header,
 so a build takes seconds.  Builds run at first use; ``build_all`` starts
-one nvcc per missing source, all in parallel.  A failed build raises.
+one nvcc per missing source, all in parallel.  A failed build, or a
+missing nvcc, raises :class:`KernelBuildError`; every refusal of the kernel
+layer (no build, no case for the inputs, a failed launch) is a
+:class:`KernelError`, which no rung of the serving engine's degradation
+ladder stands in for.
 """
 from __future__ import annotations
 
@@ -30,6 +34,27 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+class KernelError(RuntimeError):
+    """The kernel layer cannot serve a call on the card: its library does
+    not build, it has no case for the tensors it was given, or its launch
+    failed.  The serving engine re-raises it instead of degrading the step
+    to plain PyTorch, so no rung quietly stands in for a missing kernel."""
+
+
+class KernelBuildError(KernelError):
+    """A kernel library could not be built (no nvcc, or nvcc failed): the
+    machine's setup, not a transient fault of one step."""
+
+
+class InputError(KernelError, ValueError):
+    """A kernel has no case for its inputs' shape, layout, device or pump
+    (a ``ValueError`` too, as the wrappers raised before)."""
+
+
+class DtypeError(KernelError, TypeError):
+    """A kernel has no case for its inputs' dtype (a ``TypeError`` too)."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -37,8 +62,8 @@ def _nvcc() -> str:
     default = Path("/usr/local/cuda/bin/nvcc")
     if default.exists():
         return str(default)
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
-                       "the port's kernels")
+    raise KernelBuildError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
 
 
 def _headers(src: bytes) -> List[str]:
@@ -88,7 +113,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     return report
 
 

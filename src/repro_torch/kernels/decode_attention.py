@@ -22,6 +22,7 @@ import torch
 from ..core.ir import PumpSpec
 from ..core.pump_plan import SMEM_BYTES, SMS
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 from .ref import pos_vector
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -123,40 +124,40 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
     walks the keys, never the values; a case outside ``built`` raises."""
     global launches
     if q.dim() != 3 or k_cache.dim() != 4:
-        raise ValueError(f"decode_attention: q {tuple(q.shape)} must be 3-D "
+        raise InputError(f"decode_attention: q {tuple(q.shape)} must be 3-D "
                          f"and the cache {tuple(k_cache.shape)} 4-D")
     b, h, d = q.shape
     hkv, t = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape != (b, hkv, t, d) or v_cache.shape != k_cache.shape:
-        raise ValueError(f"decode_attention: caches {tuple(k_cache.shape)} / "
+        raise InputError(f"decode_attention: caches {tuple(k_cache.shape)} / "
                          f"{tuple(v_cache.shape)} do not match q "
                          f"{tuple(q.shape)}")
     for name, x in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if not x.is_cuda:
-            raise ValueError(f"decode_attention: {name} is not a CUDA tensor")
+            raise InputError(f"decode_attention: {name} is not a CUDA tensor")
         if x.dtype not in DTYPES:
-            raise TypeError(f"decode_attention: {name} dtype {x.dtype} not "
-                            f"supported")
+            raise DtypeError(f"decode_attention: {name} dtype {x.dtype} not "
+                             f"supported")
         if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} must be contiguous "
+            raise InputError(f"decode_attention: {name} must be contiguous "
                              f"and 16-byte aligned")
     if v_cache.dtype != k_cache.dtype:
-        raise TypeError("decode_attention: k and v caches must share a dtype")
+        raise DtypeError("decode_attention: k and v caches must share a dtype")
     if not (q.device == k_cache.device == v_cache.device):
-        raise ValueError("decode_attention: inputs are on different devices")
+        raise InputError("decode_attention: inputs are on different devices")
     if hkv == 0 or h % hkv or d % 4 or d == 0 \
             or lane_slots(h // hkv, d) > MAX_LANE_SLOTS or t == 0:
-        raise ValueError(f"decode_attention: unsupported shape H={h} "
+        raise InputError(f"decode_attention: unsupported shape H={h} "
                          f"Hkv={hkv} T={t} D={d}")
     spec = PumpSpec.of(pump)
     if not built(spec.factor, spec.mode, h // hkv, d, k_cache.dtype):
-        raise ValueError(f"decode_attention: no kernel for M={spec.factor} "
+        raise InputError(f"decode_attention: no kernel for M={spec.factor} "
                          f"mode {spec.mode} at D {d}, group {h // hkv}, "
                          f"cache {k_cache.dtype}; built for {PUMPS} where "
                          f"the ring fits {SMEM_BYTES} B")
     posv = pos_vector(pos, b, q.device)
     if posv.shape != (b,) or posv.dtype != torch.int32:
-        raise ValueError(f"decode_attention: pos must be a scalar or ({b},) "
+        raise InputError(f"decode_attention: pos must be a scalar or ({b},) "
                          f"int32, got {tuple(posv.shape)} {posv.dtype}")
     out = torch.empty_like(q)
     if b == 0:
@@ -170,7 +171,7 @@ def decode_attention_cuda(q: torch.Tensor, k_cache: torch.Tensor,
             DTYPES[k_cache.dtype], b, h, hkv, t, d, float(scale),
             spec.factor, int(spec.mode == "R"), stream)
     if err:
-        raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise KernelError(f"decode_attention kernel launch failed: CUDA "
+                          f"error {err}")
     launches += 1
     return out

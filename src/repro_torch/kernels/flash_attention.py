@@ -20,6 +20,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 MAX_HEAD_DIM = 128             # D % 4 == 0, run in a padded width DP
 PADDED_DIMS = (16, 32, 64, 128)
@@ -78,13 +79,13 @@ def built(factor: int, mode: str, d: int, dtype: torch.dtype) -> bool:
 
 def _check(name: str, x: torch.Tensor) -> None:
     if not x.is_cuda:
-        raise ValueError(f"flash_attention: {name} is not a CUDA tensor")
+        raise InputError(f"flash_attention: {name} is not a CUDA tensor")
     if x.dtype not in DTYPES:
-        raise TypeError(f"flash_attention: {name} dtype {x.dtype} not in "
-                        f"{sorted(map(str, DTYPES))}")
+        raise DtypeError(f"flash_attention: {name} dtype {x.dtype} not in "
+                         f"{sorted(map(str, DTYPES))}")
     if x.stride(-1) != 1 or any(st % 4 for st in x.stride()[:3]) \
             or x.data_ptr() % 16:
-        raise ValueError(f"flash_attention: {name} needs a contiguous last "
+        raise InputError(f"flash_attention: {name} needs a contiguous last "
                          f"dim, strides that are multiples of 4 and a "
                          f"16-byte aligned start; got strides {x.stride()}")
 
@@ -101,28 +102,28 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     global launches
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.dim() != 4:
-            raise ValueError(f"flash_attention: {name} must be 4-D, "
+            raise InputError(f"flash_attention: {name} must be 4-D, "
                              f"got {tuple(x.shape)}")
         _check(name, x)
     b, h, s, d = q.shape
     hkv, t = k.shape[1], k.shape[2]
     if k.shape != (b, hkv, t, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k {tuple(k.shape)} / v "
+        raise InputError(f"flash_attention: k {tuple(k.shape)} / v "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention: q, k and v must share a dtype")
+        raise DtypeError("flash_attention: q, k and v must share a dtype")
     if not (q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k and v are on different devices")
+        raise InputError("flash_attention: q, k and v are on different devices")
     if hkv == 0 or h % hkv:
-        raise ValueError(f"flash_attention: H={h} not divisible by Hkv={hkv}")
+        raise InputError(f"flash_attention: H={h} not divisible by Hkv={hkv}")
     if d % 4 or not 4 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} is not a multiple "
+        raise InputError(f"flash_attention: head dim {d} is not a multiple "
                          f"of 4 in [4, {MAX_HEAD_DIM}]")
     if t == 0:
-        raise ValueError("flash_attention: empty key sequence")
+        raise InputError("flash_attention: empty key sequence")
     spec = PumpSpec.of(pump)
     if not built(spec.factor, spec.mode, d, q.dtype):
-        raise ValueError(f"flash_attention: no kernel for M={spec.factor} "
+        raise InputError(f"flash_attention: no kernel for M={spec.factor} "
                          f"mode {spec.mode} at D {d} in {q.dtype}; built "
                          f"for {PUMPS} where the panel fits "
                          f"{SMEM_BYTES} B")
@@ -145,7 +146,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         int(bool(causal)), spec.factor,
                         int(spec.mode == "R"), stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise KernelError(f"flash_attention kernel launch failed: CUDA "
+                          f"error {err}")
     launches += 1
     return (out, m, l_) if stats else out

@@ -21,6 +21,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 PUMPS = (1, 2, 4, 8, 16)
 ROUND = 64                    # pivots a round (the kernel's constant)
@@ -59,15 +60,15 @@ def floyd_warshall_cuda(dist: torch.Tensor, *,
     m = _factor(pump)
     if dist.dim() != 2 or dist.shape[0] != dist.shape[1] \
             or not dist.is_cuda or not dist.is_contiguous():
-        raise ValueError(f"floyd_warshall: dist must be a contiguous square "
+        raise InputError(f"floyd_warshall: dist must be a contiguous square "
                          f"CUDA matrix, got {tuple(dist.shape)} on "
                          f"{dist.device}")
     if dist.dtype != torch.float32:
-        raise TypeError(f"floyd_warshall: dtype {dist.dtype} not supported "
-                        f"(fp32)")
+        raise DtypeError(f"floyd_warshall: dtype {dist.dtype} not supported "
+                         f"(fp32)")
     n = dist.shape[0]
     if m not in PUMPS or n % m:
-        raise ValueError(f"floyd_warshall: n={n} with M={m}: the kernel takes "
+        raise InputError(f"floyd_warshall: n={n} with M={m}: the kernel takes "
                          f"M in {PUMPS} dividing n")
     if n == 0:
         return dist.clone()
@@ -80,8 +81,8 @@ def floyd_warshall_cuda(dist: torch.Tensor, *,
         err = _kernel()(dist.data_ptr(), out.data_ptr(), rbuf.data_ptr(),
                         cbuf.data_ptr(), n, m, stream)
     if err:
-        raise RuntimeError(f"floyd_warshall kernel launch failed: CUDA error "
-                           f"{err}")
+        raise KernelError(f"floyd_warshall kernel launch failed: CUDA error "
+                          f"{err}")
     launches += launches_per_call(n, m)
     return out
 

@@ -22,6 +22,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # (bc, bf, bd) instantiated per dtype: the 128-row tile only in bf16 (its
@@ -86,24 +87,24 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor,
     pump = PumpSpec.of(pump)
     for name, t, dim in (("x", x, 2), ("w", w, 3), ("tiles", tiles, 2)):
         if t.dim() != dim:
-            raise ValueError(f"grouped_gemm: {name} must be {dim}-D, got "
+            raise InputError(f"grouped_gemm: {name} must be {dim}-D, got "
                              f"{tuple(t.shape)}")
         if not t.is_cuda:
-            raise ValueError(f"grouped_gemm: {name} is not a CUDA tensor")
+            raise InputError(f"grouped_gemm: {name} is not a CUDA tensor")
         if not t.is_contiguous():
-            raise ValueError(f"grouped_gemm: {name} must be contiguous")
+            raise InputError(f"grouped_gemm: {name} must be contiguous")
     if x.shape[1] != w.shape[1] or x.dtype != w.dtype \
             or len({x.device, w.device, tiles.device}) != 1:
-        raise ValueError(f"grouped_gemm: x {tuple(x.shape)} {x.dtype} and w "
+        raise InputError(f"grouped_gemm: x {tuple(x.shape)} {x.dtype} and w "
                          f"{tuple(w.shape)} {w.dtype} do not match")
     if tiles.dtype != torch.int32 or tiles.shape[1] != 3:
-        raise ValueError(f"grouped_gemm: tiles must be (n, 3) int32, got "
+        raise InputError(f"grouped_gemm: tiles must be (n, 3) int32, got "
                          f"{tuple(tiles.shape)} {tiles.dtype}")
     if x.dtype not in DTYPES:
-        raise TypeError(f"grouped_gemm: dtype {x.dtype} not supported")
+        raise DtypeError(f"grouped_gemm: dtype {x.dtype} not supported")
     if (bc, bf, bd) not in TILES[x.dtype] \
             or (pump.factor, pump.mode) not in PUMPS:
-        raise ValueError(f"grouped_gemm: no kernel for tile {(bc, bf, bd)} "
+        raise InputError(f"grouped_gemm: no kernel for tile {(bc, bf, bd)} "
                          f"with M={pump.factor} mode {pump.mode} in "
                          f"{x.dtype}; built for tiles {TILES[x.dtype]} and "
                          f"pumps {PUMPS}")
@@ -120,8 +121,8 @@ def grouped_gemm_cuda(x: torch.Tensor, w: torch.Tensor, tiles: torch.Tensor,
                         int(pump.mode == "R"), int(_vec(x)), int(_vec(w)),
                         int(out.data_ptr() % 16 == 0 and f % 4 == 0), stream)
     if err:
-        raise RuntimeError(f"grouped_gemm kernel launch failed: CUDA error "
-                           f"{err}")
+        raise KernelError(f"grouped_gemm kernel launch failed: CUDA error "
+                          f"{err}")
     launches += 1
     return out
 

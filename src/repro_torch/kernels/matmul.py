@@ -17,6 +17,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILES = ((64, 64, 32), (64, 128, 32))       # (bm, bn, bk) instantiated
@@ -51,16 +52,16 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64,
     pump = PumpSpec.of(pump)
     for name, t in (("a", a), ("b", b)):
         if t.dim() != 2 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"matmul: {name} must be a contiguous 2-D CUDA "
+            raise InputError(f"matmul: {name} must be a contiguous 2-D CUDA "
                              f"tensor, got {tuple(t.shape)} on {t.device}")
     if a.shape[1] != b.shape[0] or a.dtype != b.dtype \
             or a.device != b.device:
-        raise ValueError(f"matmul: a {tuple(a.shape)} {a.dtype} and b "
+        raise InputError(f"matmul: a {tuple(a.shape)} {a.dtype} and b "
                          f"{tuple(b.shape)} {b.dtype} do not match")
     if a.dtype not in DTYPES:
-        raise TypeError(f"matmul: dtype {a.dtype} not supported")
+        raise DtypeError(f"matmul: dtype {a.dtype} not supported")
     if (bm, bn, bk) not in TILES or (pump.factor, pump.mode) not in PUMPS:
-        raise ValueError(f"matmul: no kernel for tile {(bm, bn, bk)} with "
+        raise InputError(f"matmul: no kernel for tile {(bm, bn, bk)} with "
                          f"M={pump.factor} mode {pump.mode}; built for tiles "
                          f"{TILES} and pumps {PUMPS}")
     m, k = a.shape
@@ -75,7 +76,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64,
                         int(pump.mode == "R"), int(_vec(a)), int(_vec(b)),
                         int(_vec(c)), stream)
     if err:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
+        raise KernelError(f"matmul kernel launch failed: CUDA error {err}")
     launches += 1
     return c.to(out_dtype or a.dtype)
 

@@ -1,11 +1,13 @@
 """Public kernel wrappers: the port's ``repro.kernels.ops``.
 
-A CUDA tensor launches the hand-written kernel or raises; a CPU tensor
-takes the plain PyTorch version in ``ref``.  Nothing falls back from the
-card to the plain version.  The launch counts live on the kernel modules
-(``flash_attention.launches``, ``decode_attention.launches``,
-``ssd_scan.launches``, ``ssd_decode.launches``, ``vecadd.launches``,
-``matmul.launches``, ``stencil.launches``, ``floyd_warshall.launches``,
+A CUDA tensor launches the hand-written kernel or raises a
+``_build.KernelError`` (no build, no case for its inputs, a failed
+launch); a CPU tensor takes the plain PyTorch version in ``ref``.
+Nothing falls back from the card to the plain version.  The launch
+counts live on the kernel modules (``flash_attention.launches``,
+``decode_attention.launches``, ``ssd_scan.launches``,
+``ssd_decode.launches``, ``vecadd.launches``, ``matmul.launches``,
+``stencil.launches``, ``floyd_warshall.launches``,
 ``grouped_gemm.launches``, ``region_map_reduce.launches``).
 
 The paper's four kernels take ``pump`` as a factor or a ``PumpSpec`` and
@@ -48,6 +50,7 @@ from . import ssd_decode as _sd
 from . import ssd_scan as _ss
 from . import stencil as _st
 from . import vecadd as _va
+from ._build import InputError
 
 
 def _pow2_floor(n: int) -> int:
@@ -60,7 +63,7 @@ def _route(x: torch.Tensor, name: str) -> bool:
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"{name}: unsupported device {x.device}")
+    raise InputError(f"{name}: unsupported device {x.device}")
 
 
 Pump = Union[PumpSpec, int, Tuple[int, str], str]

@@ -35,6 +35,7 @@ import torch
 
 from ..core.pump_plan import SMEM_BYTES, STAGE_K
 from . import _build
+from ._build import InputError, KernelError
 
 MAXG = 8            # grid axes the kernel takes
 MAXT = 4            # table terms per operand
@@ -304,18 +305,18 @@ def region_map_reduce_cuda(desc: RegionDesc,
     dtype; returns the output memory (every element written)."""
     global launches
     if len(operands) != 2:
-        raise ValueError("region_map_reduce: two operands")
+        raise InputError("region_map_reduce: two operands")
     dt = getattr(torch, desc.dtype)
     for k, (t, o) in enumerate(zip(operands, desc.ins)):
         if not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"region_map_reduce: operand {k} must be a "
+            raise InputError(f"region_map_reduce: operand {k} must be a "
                              f"contiguous CUDA tensor")
         if tuple(t.shape) != o.shape or t.dtype != dt:
-            raise ValueError(f"region_map_reduce: operand {k} is "
+            raise InputError(f"region_map_reduce: operand {k} is "
                              f"{tuple(t.shape)} {t.dtype}, the descriptor "
                              f"says {o.shape} {desc.dtype}")
     if operands[0].device != operands[1].device:
-        raise ValueError("region_map_reduce: operands on different devices")
+        raise InputError("region_map_reduce: operands on different devices")
     a, b = operands
     out = torch.empty(desc.out.shape, dtype=dt, device=a.device)
     packed = desc.packed().clone()
@@ -335,7 +336,7 @@ def region_map_reduce_cuda(desc: RegionDesc,
         err = _kernel()(packed.data_ptr(), a.data_ptr(), b.data_ptr(),
                         out.data_ptr(), tables.data_ptr(), stream)
     if err:
-        raise RuntimeError(f"region_map_reduce kernel launch failed: CUDA "
-                           f"error {err}")
+        raise KernelError(f"region_map_reduce kernel launch failed: CUDA "
+                          f"error {err}")
     launches += 1
     return out

@@ -19,6 +19,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                 # a block; P / 4 must divide it
@@ -51,41 +52,41 @@ def ssd_decode_cuda(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
     for name, t, dim in (("state", state, 4), ("x", x, 3), ("dt", dt, 2),
                          ("A", A, 1), ("B", B, 3), ("C", C, 3)):
         if t.dim() != dim:
-            raise ValueError(f"ssd_decode: {name} must be {dim}-D, got "
+            raise InputError(f"ssd_decode: {name} must be {dim}-D, got "
                              f"{tuple(t.shape)}")
         if not t.is_cuda:
-            raise ValueError(f"ssd_decode: {name} is not a CUDA tensor")
+            raise InputError(f"ssd_decode: {name} is not a CUDA tensor")
         if t.dtype not in DTYPES:
-            raise TypeError(f"ssd_decode: {name} dtype {t.dtype} not "
-                            f"supported")
+            raise DtypeError(f"ssd_decode: {name} dtype {t.dtype} not "
+                             f"supported")
     b, h, n, p = state.shape
     g = B.shape[1]
     if x.shape != (b, h, p) or dt.shape != (b, h) or A.shape != (h,) \
             or B.shape != (b, g, n) or C.shape != B.shape:
-        raise ValueError(f"ssd_decode: shapes state {tuple(state.shape)}, x "
+        raise InputError(f"ssd_decode: shapes state {tuple(state.shape)}, x "
                          f"{tuple(x.shape)}, dt {tuple(dt.shape)}, A "
                          f"{tuple(A.shape)}, B {tuple(B.shape)}, C "
                          f"{tuple(C.shape)} do not match")
     if state.dtype != torch.float32 or A.dtype != torch.float32:
-        raise TypeError("ssd_decode: state and A must be float32")
+        raise DtypeError("ssd_decode: state and A must be float32")
     if not state.is_contiguous() or state.data_ptr() % 16 \
             or not A.is_contiguous():
-        raise ValueError("ssd_decode: state must be contiguous and 16-byte "
+        raise InputError("ssd_decode: state must be contiguous and 16-byte "
                          "aligned, A contiguous")
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(-1) != 1 and t.shape[-1] > 1:
-            raise ValueError(f"ssd_decode: {name} needs a contiguous last "
+            raise InputError(f"ssd_decode: {name} needs a contiguous last "
                              f"dim, got strides {t.stride()}")
     if len({state.device, x.device, dt.device, A.device, B.device,
             C.device}) != 1:
-        raise ValueError("ssd_decode: inputs are on different devices")
+        raise InputError("ssd_decode: inputs are on different devices")
     if g == 0 or h % g or n == 0 or p == 0 or p > 4 * THREADS:
-        raise ValueError(f"ssd_decode: unsupported shape H={h} G={g} N={n} "
+        raise InputError(f"ssd_decode: unsupported shape H={h} G={g} N={n} "
                          f"P={p} (P at most {4 * THREADS})")
     sub = factor if mode == "R" else 1
     heads = factor if mode == "T" else 1
     if factor < 1 or mode not in ("T", "R") or p % sub or h % heads:
-        raise ValueError(f"ssd_decode: pump M={factor} mode {mode} does not "
+        raise InputError(f"ssd_decode: pump M={factor} mode {mode} does not "
                          f"divide P={p} (mode R) or H={h} (mode T)")
     y = torch.empty((b, h, p), dtype=torch.float32, device=x.device)
     out = torch.empty_like(state)
@@ -101,7 +102,7 @@ def ssd_decode_cuda(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
                         DTYPES[dt.dtype], DTYPES[B.dtype], DTYPES[C.dtype],
                         b, h, g, n, p, sub, heads, strides, stream)
     if err:
-        raise RuntimeError(f"ssd_decode kernel launch failed: CUDA error "
-                           f"{err}")
+        raise KernelError(f"ssd_decode kernel launch failed: CUDA error "
+                          f"{err}")
     launches += 1
     return y, out

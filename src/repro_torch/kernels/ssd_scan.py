@@ -27,6 +27,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK, MAX_STATE, MAX_HEAD_DIM = 64, 128, 64   # the kernel's shared memory
@@ -57,12 +58,12 @@ def _lib():
 def _check(name: str, t: torch.Tensor, dim: int, dtypes=DTYPES,
            cuda: bool = True) -> None:
     if t.dim() != dim:
-        raise ValueError(f"ssd_scan: {name} must be {dim}-D, got "
+        raise InputError(f"ssd_scan: {name} must be {dim}-D, got "
                          f"{tuple(t.shape)}")
     if cuda and not t.is_cuda:
-        raise ValueError(f"ssd_scan: {name} is not a CUDA tensor")
+        raise InputError(f"ssd_scan: {name} is not a CUDA tensor")
     if t.dtype not in dtypes:
-        raise TypeError(f"ssd_scan: {name} dtype {t.dtype} not supported")
+        raise DtypeError(f"ssd_scan: {name} dtype {t.dtype} not supported")
 
 
 def smem_bytes(factor: int, mode: str, tensor_cores: bool = True) -> int:
@@ -104,14 +105,14 @@ def blocks_per_sm(factor: int, mode: str, tensor_cores: bool = True) -> int:
     memory (needs the card): the tensor-core body as built for mamba2's
     widths, or the CUDA-core body."""
     if not built(factor, mode):
-        raise ValueError(f"ssd_scan: no kernel for M={factor} mode {mode}")
+        raise InputError(f"ssd_scan: no kernel for M={factor} mode {mode}")
     out = ctypes.c_int(0)
     err = _lib().ssd_scan_blocks_per_sm(int(tensor_cores), factor,
                                         int(mode == "R" and factor > 1),
                                         ctypes.byref(out))
     if err:
-        raise RuntimeError(f"ssd_scan occupancy query failed: CUDA error "
-                           f"{err}")
+        raise KernelError(f"ssd_scan occupancy query failed: CUDA error "
+                          f"{err}")
     return out.value
 
 
@@ -132,20 +133,20 @@ def check_inputs(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     g, n = B.shape[2], B.shape[3]
     if dt.shape != (b, l, h) or A.shape != (h,) or B.shape != (b, l, g, n) \
             or C.shape != B.shape:
-        raise ValueError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
+        raise InputError(f"ssd_scan: shapes x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)} do not match")
     if len({x.device, dt.device, A.device, B.device, C.device}) != 1:
-        raise ValueError("ssd_scan: inputs are on different devices")
+        raise InputError("ssd_scan: inputs are on different devices")
     for name, t in (("x", x), ("B", B), ("C", C)):
         if t.stride(-1) != 1 and t.shape[-1] > 1:
-            raise ValueError(f"ssd_scan: {name} needs a contiguous last dim, "
+            raise InputError(f"ssd_scan: {name} needs a contiguous last dim, "
                              f"got strides {t.stride()}")
     if not A.is_contiguous():
-        raise ValueError("ssd_scan: A must be contiguous")
+        raise InputError("ssd_scan: A must be contiguous")
     if g == 0 or h % g or not 1 <= chunk <= MAX_CHUNK \
             or not 1 <= n <= MAX_STATE or not 1 <= p <= MAX_HEAD_DIM:
-        raise ValueError(f"ssd_scan: unsupported shape H={h} G={g} N={n} "
+        raise InputError(f"ssd_scan: unsupported shape H={h} G={g} N={n} "
                          f"P={p} chunk={chunk} (chunk <= {MAX_CHUNK}, N <= "
                          f"{MAX_STATE}, P <= {MAX_HEAD_DIM})")
 
@@ -166,7 +167,7 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     g, n = B.shape[2], B.shape[3]
     spec = PumpSpec.of(pump)
     if not built(spec.factor, spec.mode):
-        raise ValueError(f"ssd_scan: no kernel for M={spec.factor} mode "
+        raise InputError(f"ssd_scan: no kernel for M={spec.factor} mode "
                          f"{spec.mode}; built for {PUMPS} where the panel "
                          f"fits {SMEM_BYTES} B")
     y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
@@ -185,8 +186,8 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 DTYPES[C.dtype], b, l, h, g, n, p, chunk, strides,
                 spec.factor, int(spec.mode == "R"), stream)
         if err:
-            raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error "
-                               f"{err}")
+            raise KernelError(f"ssd_scan kernel launch failed: CUDA error "
+                              f"{err}")
         launches += 1
     elif state is not None:
         state.zero_()

@@ -24,6 +24,7 @@ import torch
 from ..core.ir import PumpSpec
 from ..core.pump_plan import SMEM_BYTES, SMS
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 KINDS = ("jacobi", "diffusion")
 TILE_X = 256             # the d2 extent of a block's tile
@@ -108,15 +109,15 @@ def launch_rows(d0: int, d1: int, d2: int,
     grid's y extent."""
     m = _factor(pump)
     if d0 < 2 or (d0 - 2) % m:
-        raise ValueError(f"stencil: {d0 - 2} interior planes not divisible "
+        raise InputError(f"stencil: {d0 - 2} interior planes not divisible "
                          f"by M={m}")
     rows = tile_rows(m)
     if not rows:
-        raise ValueError(f"stencil: a ring of {RING} x M={m} planes of "
+        raise InputError(f"stencil: a ring of {RING} x M={m} planes of "
                          f"{TILE_ROWS[-1]}-row tiles ({smem_bytes(m, 8)} B) "
                          f"exceeds {SMEM_BYTES} bytes of shared memory")
     if -(-d1 // rows) > MAX_GRID_Y:
-        raise ValueError(f"stencil: {-(-d1 // rows)} tile rows exceed the "
+        raise InputError(f"stencil: {-(-d1 // rows)} tile rows exceed the "
                          f"grid's {MAX_GRID_Y}")
     return rows
 
@@ -130,8 +131,8 @@ def blocks_per_sm(device: torch.device, pump: int) -> int:
         with torch.cuda.device(device):
             err = _lib().stencil_blocks_per_sm(pump, ctypes.byref(out))
         if err or out.value < 1:
-            raise RuntimeError(f"stencil: no block of M={pump} fits an SM "
-                               f"(CUDA error {err})")
+            raise KernelError(f"stencil: no block of M={pump} fits an SM "
+                              f"(CUDA error {err})")
         _occupancy[key] = out.value
     return _occupancy[key]
 
@@ -144,12 +145,12 @@ def stencil_chain_cuda(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
     global launches
     m = _factor(pump)
     if x.dim() != 3 or not x.is_cuda or not x.is_contiguous():
-        raise ValueError(f"stencil: x must be a contiguous 3-D CUDA tensor, "
+        raise InputError(f"stencil: x must be a contiguous 3-D CUDA tensor, "
                          f"got {tuple(x.shape)} on {x.device}")
     if x.dtype != torch.float32:
-        raise TypeError(f"stencil: dtype {x.dtype} not supported (fp32)")
+        raise DtypeError(f"stencil: dtype {x.dtype} not supported (fp32)")
     if kind not in KINDS:
-        raise ValueError(f"stencil: kind {kind!r} not in {KINDS}")
+        raise InputError(f"stencil: kind {kind!r} not in {KINDS}")
     d0, d1, d2 = x.shape
     launch_rows(d0, d1, d2, m)
     src = x
@@ -168,8 +169,8 @@ def stencil_chain_cuda(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
                                          int(kind == "diffusion"), coef,
                                          1.0 / 7.0, stream)
             if err:
-                raise RuntimeError(f"stencil kernel launch failed: CUDA "
-                                   f"error {err}")
+                raise KernelError(f"stencil kernel launch failed: CUDA "
+                                  f"error {err}")
             launches += 1
         src = dst
     return src if stages else x.clone()

@@ -17,6 +17,7 @@ import torch
 
 from ..core.ir import PumpSpec
 from . import _build
+from ._build import DtypeError, InputError, KernelError
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 THREADS = 256                 # a block
@@ -55,32 +56,32 @@ def vecadd_cuda(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
     pump = PumpSpec.of(pump)
     for name, t in (("x", x), ("y", y)):
         if t.dim() != 1 or not t.is_cuda or not t.is_contiguous():
-            raise ValueError(f"vecadd: {name} must be a contiguous 1-D CUDA "
+            raise InputError(f"vecadd: {name} must be a contiguous 1-D CUDA "
                              f"tensor, got {tuple(t.shape)} on {t.device}")
     if x.shape != y.shape or x.dtype != y.dtype or x.device != y.device:
-        raise ValueError(f"vecadd: x {tuple(x.shape)} {x.dtype} {x.device} "
+        raise InputError(f"vecadd: x {tuple(x.shape)} {x.dtype} {x.device} "
                          f"and y {tuple(y.shape)} {y.dtype} {y.device} differ")
     if x.dtype not in DTYPES:
-        raise TypeError(f"vecadd: dtype {x.dtype} not supported")
+        raise DtypeError(f"vecadd: dtype {x.dtype} not supported")
     width, lanes = transaction(vector_width, pump)
     tx_bytes = width * x.element_size()
     if width not in LANE_COUNTS or lanes not in LANE_COUNTS \
             or width % lanes or tx_bytes > MAX_TX_BYTES:
-        raise ValueError(f"vecadd: V={vector_width}, M={pump.factor} mode "
+        raise InputError(f"vecadd: V={vector_width}, M={pump.factor} mode "
                          f"{pump.mode} gives a transaction of {width} and "
                          f"beats of {lanes}; the kernel takes powers of two "
                          f"up to {MAX_TX_BYTES} bytes")
     z = torch.empty_like(x)
     for name, t in (("x", x), ("y", y), ("z", z)):
         if t.data_ptr() % min(16, tx_bytes):
-            raise ValueError(f"vecadd: {name} is not aligned to the "
+            raise InputError(f"vecadd: {name} is not aligned to the "
                              f"{min(16, tx_bytes)}-byte vector access")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(x.data_ptr(), y.data_ptr(), z.data_ptr(), x.numel(),
                         DTYPES[x.dtype], width, lanes, stream)
     if err:
-        raise RuntimeError(f"vecadd kernel launch failed: CUDA error {err}")
+        raise KernelError(f"vecadd kernel launch failed: CUDA error {err}")
     launches += 1
     return z
 

@@ -34,10 +34,21 @@ controls; a shed request is reported on a ``[serve] SHED:`` line.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
         --smoke --device cpu --arrival-rate 0.5 --max-slots 4 \
         --requests 8 --prompt-len 8 --new 4
+
+Observability, as the reference's: ``--trace PATH`` enables tracing and
+writes the run's Chrome trace to PATH (open at ui.perfetto.dev),
+``--metrics`` prints the metrics snapshot after the run, and ``--profile
+DIR`` brackets ``generate`` (or the stream) in ``obs.profile``, a
+``torch.profiler`` capture written to DIR.  A run that degraded a step or
+quarantined a plan prints a ``[serve] DEGRADED:`` line.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \
+        --trace build/t.json --metrics
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -45,6 +56,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
 from repro_torch.configs.base import load_arch
 from repro_torch.models import convert
 from repro_torch.serve.engine import Engine, ServeConfig
@@ -124,7 +136,16 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
                     help="give every request a MS deadline and shed the "
                          "ones no admission could meet")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="write a Chrome-trace JSON of the run to PATH")
+    ap.add_argument("--metrics", action="store_true",
+                    help="print the metrics snapshot after the run")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="capture a torch.profiler trace of generate() "
+                         "(or the stream) to DIR")
     args = ap.parse_args(argv)
+    if args.trace:
+        obs.enable()
 
     cfg = load_arch(args.arch, smoke=args.smoke)
     if args.attention_impl:
@@ -146,8 +167,13 @@ def main(argv: Optional[Sequence[str]] = None):
         ap.error("--arrival-rate mode needs a decoder cache "
                  "(encdec archs are not supported by the scheduler)")
     eng = Engine(cfg, model, scfg, device=dev)
+    prof = (obs.profile("serve.generate", logdir=args.profile)
+            if args.profile else contextlib.nullcontext())
     if args.arrival_rate is not None:
-        return stream(args, cfg, eng)
+        with prof:
+            results = stream(args, cfg, eng)
+        report(args, eng)
+        return results
     enc_out = None
     if cfg.family == "encdec":
         from repro_torch.models import encdec
@@ -157,7 +183,8 @@ def main(argv: Optional[Sequence[str]] = None):
         with torch.no_grad():
             enc_out = encdec.encode(eng.cfg, eng.model, frames)
     t0 = time.perf_counter()
-    out = eng.generate(prompts, args.new, enc_out=enc_out)
+    with prof:
+        out = eng.generate(prompts, args.new, enc_out=enc_out)
     dt = time.perf_counter() - t0
 
     stats = eng.stats()
@@ -178,7 +205,34 @@ def main(argv: Optional[Sequence[str]] = None):
               f"prefill {r['prefill']} | decode {r['decode']} | hit_rate "
               f"{r['hit_rate']} fallbacks {r['fallbacks']}")
     print("[serve] first sequence:", out[0][:16].tolist())
+    report(args, eng)
     return out
+
+
+def report(args, eng) -> None:
+    """The robustness line (degraded requests, failed warmup buckets,
+    quarantined plans; only when any), ``--metrics`` and ``--trace``."""
+    from repro_torch.compiler import default_cache
+    stats = eng.stats()
+    quarantined = default_cache().quarantine_entries()
+    if stats["degraded_requests"] or stats["warmup_failed"] or quarantined:
+        print(f"[serve] DEGRADED: {stats['degraded_requests']} request(s) "
+              f"served off the planned path, {stats['warmup_failed']} "
+              f"warmup bucket(s) failed, {len(quarantined)} plan(s) "
+              f"quarantined")
+        for key, q in sorted(quarantined.items()):
+            print(f"[serve]   quarantine {key[:20]}…: {q['reason']} "
+                  f"(fail #{q['fails']})")
+    if args.metrics:
+        for line in obs.format_snapshot(obs.snapshot()).splitlines():
+            print(f"[metrics] {line}")
+    if args.trace:
+        obs.write_trace(args.trace,
+                        metadata={"arch": args.arch, "batch": args.batch,
+                                  "prompt_len": args.prompt_len,
+                                  "n_new": args.new})
+        print(f"[serve] trace written to {args.trace} "
+              f"(open at https://ui.perfetto.dev)")
 
 
 def stream(args, cfg, eng):

@@ -43,10 +43,36 @@ config with ``prefill_continuation=True`` and ``fresh_prefill_kernel=False``
 that attends over the whole written prefix and seeds the SSM scan from the
 cached state.
 
+**Robustness**, the reference's: every prefill, continuation chunk and
+decode step goes through ``_run_step``, the ``engine.{phase}`` fault seam,
+and, when ``ServeConfig.nan_guard`` is on or fault rules are installed, a
+host check that the step's logits are finite (a sync).  On any failure the
+step re-runs on the bottom rung, ``_direct_cfg`` (``kernel_plan='direct'``,
+``attention_impl='xla_chunked'``, ``ssm_impl='xla'``: plain PyTorch, no
+kernel but an MoE model's grouped GEMM, which the reference leaves as it
+is; made at its first use), from the caller's cache, counted as
+``engine.degraded`` with the phase and reason; ``degraded_requests``
+counts the requests that needed one.
+The cache is written in place (K/V rows at ``[pos, pos + s)``; ``pos``, the
+SSM state and the conv window come back as new tensors), so the re-run
+from the caller's cache is exact: it rewrites those rows before it reads
+them, and nothing else was touched.  A ``KernelError`` is re-raised,
+never degraded: the kernel layer raises it where its library does not
+build (``KernelBuildError``), where it has no case for a CUDA tensor's
+shape, dtype or pump, or where a launch fails, and a rung of plain
+PyTorch standing in for such a kernel would hide it (the reference
+degrades on any exception).  A failure of the bottom rung itself raises.
+
+**Tracing and metrics** (:mod:`repro_torch.obs`): the spans
+``serve.warmup``, ``serve.generate``, ``serve.prefill``,
+``serve.prefill_chunk`` and ``serve.decode``; the histograms
+``serve.ttft_s`` and ``serve.decode_step_s``; ``serve.tokens``; and the
+engine's ``stats()`` as the ``serve.engine`` snapshot view.  With tracing
+off a decode step adds one enabled check, one ``perf_counter`` pair and
+one histogram append.
+
 Not ported yet (ROADMAP.md queue 1): plan artifacts (``plan_artifact``,
-item 7), the degradation ladder of ``_run_step``, the NaN guard and the
-scheduler's ``obs`` counters and fault seams (item 6), tracing, and
-sampling with ``temperature > 0`` (item 4).
+item 7) and sampling with ``temperature > 0`` (item 4).
 """
 from __future__ import annotations
 
@@ -54,13 +80,22 @@ import contextlib
 import dataclasses
 import statistics
 import time
+import weakref
 from typing import Any, Dict, List, Optional, Union
 
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch import obs
+from repro_torch.kernels._build import KernelError
 from repro_torch.launch.steps import StepTimer
 from repro_torch.models import model as model_mod
+from repro_torch.testing import faults
+
+# the bottom rung of the degradation ladder: plain PyTorch attention and
+# SSD, no plan registry
+_DIRECT = dict(kernel_plan="direct", attention_impl="xla_chunked",
+               ssm_impl="xla")
 
 
 @dataclasses.dataclass
@@ -74,6 +109,10 @@ class ServeConfig:
     warmup: bool = True
     # overrides cfg.kernel_plan for this engine ('measure' | 'direct')
     kernel_plan: Optional[str] = None
+    # host check that each step's logits are finite, degrading the step to
+    # the plain route instead of emitting garbage tokens; a sync a step, so
+    # opt-in (on implicitly while fault rules are installed)
+    nan_guard: bool = False
 
 
 class Engine:
@@ -94,6 +133,12 @@ class Engine:
         # fresh-prefill route off) and the SSM scan seeds from the cache
         self.cont_cfg = dataclasses.replace(
             cfg, prefill_continuation=True, fresh_prefill_kernel=False)
+        # the bottom rung of the degradation ladder and its continuation
+        # twin, made at their first use (``_fallback``)
+        self._direct_cfg = None
+        self._direct_cont_cfg = None
+        self.degraded_requests = 0
+        self._req_degraded = False
         self.device = device_mod.resolve(device)
         self.model = model.to(self.device)
         self.cache_dtype = getattr(torch, scfg.cache_dtype)
@@ -108,6 +153,15 @@ class Engine:
         if cfg.kernel_plan == "measure":
             from repro_torch.compiler.registry import default_registry
             self._reg = default_registry()
+        # this engine's stats in every metrics snapshot (a view; the most
+        # recently constructed engine owns the slot).  A weak reference:
+        # the view keeps no engine, and so no weights on the card, alive
+        stats = weakref.WeakMethod(self.stats)
+        obs.register_view("serve.engine",
+                          lambda: None if stats() is None else stats()())
+        # resolved once: a decode step appends to the histogram directly
+        self._step_hist = obs.default_metrics().histogram(
+            "serve.decode_step_s")
         if scfg.warmup:
             self.warmup()
 
@@ -124,11 +178,16 @@ class Engine:
             param.dtype if param is not None else torch.float32,
             self.cfg.activation_dtype)
         t0 = time.perf_counter()
-        reqs = transformer.plan_requests(
-            self.cfg, self.scfg.batch, self.scfg.max_len,
-            dtype=str(dtype).replace("torch.", ""), cached=True,
-            cache_dtype=self.cache_dtype)
-        self.warmup_report = self._reg.warmup(reqs, device=self.device)
+        with obs.span("serve.warmup", cat="serve", batch=self.scfg.batch,
+                      max_len=self.scfg.max_len) as sp:
+            reqs = transformer.plan_requests(
+                self.cfg, self.scfg.batch, self.scfg.max_len,
+                dtype=str(dtype).replace("torch.", ""), cached=True,
+                cache_dtype=self.cache_dtype)
+            self.warmup_report = self._reg.warmup(reqs, device=self.device)
+            sp.set(plans=len(self.warmup_report),
+                   failed=sum(1 for r in self.warmup_report
+                              if "error" in r))
         self.warmup_s += time.perf_counter() - t0
         return self.warmup_report
 
@@ -154,6 +213,55 @@ class Engine:
             batch["enc_out"] = enc_out.to(self.device)
         return batch
 
+    # ------------------------------------------------------------ serving --
+    def _fallback(self, cont: bool):
+        """The bottom rung's config (``_DIRECT`` over this engine's), or
+        for a chunk its continuation twin, which keeps the continuation
+        masking and state seeding.  Each is made at its first use,
+        counted as ``engine.fallback_build``."""
+        if cont:
+            if self._direct_cont_cfg is None:
+                obs.count("engine.fallback_build", phase="prefill_chunk")
+                self._direct_cont_cfg = dataclasses.replace(
+                    self.cont_cfg, **_DIRECT)
+            return self._direct_cont_cfg
+        if self._direct_cfg is None:
+            obs.count("engine.fallback_build")
+            self._direct_cfg = dataclasses.replace(self.cfg, **_DIRECT)
+        return self._direct_cfg
+
+    def _nan_guarded(self) -> bool:
+        return self.scfg.nan_guard or faults.active()
+
+    def _run_step(self, phase: str, cache, batch: Dict, **kw):
+        """One guarded model step: the planned route, re-run on the bottom
+        rung on any failure (an exception out of the step, an injected
+        ``engine.{phase}`` fault, or, guarded, non-finite logits), from
+        the caller's cache (exact: module docstring).  Re-raises a
+        ``KernelError``; raises if the bottom rung fails too."""
+        cont = phase == "prefill_chunk"
+        try:
+            faults.check(f"engine.{phase}")
+            with self._serving():
+                logits, new_cache = self.timer.run(
+                    phase, model_mod.decode_step,
+                    self.cont_cfg if cont else self.cfg, self.model, batch,
+                    cache, **kw)
+            if self._nan_guarded() and \
+                    not bool(torch.isfinite(logits[:, -1]).all()):
+                raise FloatingPointError(
+                    f"non-finite logits from the planned {phase} step")
+            return logits, new_cache
+        except KernelError:
+            raise
+        except Exception as e:  # noqa: BLE001 — serving must not die
+            obs.count("engine.degraded", phase=phase,
+                      reason=type(e).__name__)
+            self._req_degraded = True
+            return self.timer.run(phase, model_mod.decode_step,
+                                  self._fallback(cont), self.model, batch,
+                                  cache, **kw)
+
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, enc_out=None):
         """tokens (B, S_prompt) -> (cache, last-position logits (B, V)).
@@ -162,10 +270,12 @@ class Engine:
         cache = model_mod.init_cache(self.cfg, int(tokens.shape[0]),
                                      self.scfg.max_len, self.cache_dtype,
                                      self.device)
-        with self._serving():
-            logits, cache = self.timer.run(
-                "prefill", model_mod.decode_step, self.cfg, self.model,
-                self._batch(tokens, enc_out), cache, last_only=True)
+        with obs.span("serve.prefill", cat="serve",
+                      batch=int(tokens.shape[0]),
+                      prompt_len=int(tokens.shape[1])):
+            logits, cache = self._run_step(
+                "prefill", cache, self._batch(tokens, enc_out),
+                last_only=True)
         return cache, logits[:, -1]
 
     @torch.no_grad()
@@ -174,21 +284,31 @@ class Engine:
         already holding tokens) by one chunk of ``tokens`` (B, S_chunk).
         Returns (cache, last-position logits (B, V)).  At pos 0 this is the
         answer of ``prefill`` without the flash fresh-cache route."""
-        with self._serving():
-            logits, cache = self.timer.run(
-                "prefill_chunk", model_mod.decode_step, self.cont_cfg,
-                self.model, self._batch(tokens, enc_out), cache,
+        with obs.span("serve.prefill_chunk", cat="serve",
+                      batch=int(tokens.shape[0]),
+                      chunk_len=int(tokens.shape[1])):
+            obs.count("engine.prefill_chunk")
+            logits, cache = self._run_step(
+                "prefill_chunk", cache, self._batch(tokens, enc_out),
                 last_only=True)
         return cache, logits[:, -1]
 
     @torch.no_grad()
     def decode_token(self, cache, tokens: torch.Tensor, enc_out=None):
         """One decode step of every row of ``cache`` (int or per-slot pos):
-        tokens (B, 1) -> (logits (B, 1, V), cache)."""
-        with self._serving():
-            return self.timer.run("decode", model_mod.decode_step, self.cfg,
-                                  self.model, self._batch(tokens, enc_out),
-                                  cache)
+        tokens (B, 1) -> (logits (B, 1, V), cache).  The serving hot path:
+        with tracing off it adds one enabled check, one ``perf_counter``
+        pair and one histogram append to the step."""
+        t0 = time.perf_counter()
+        batch = self._batch(tokens, enc_out)
+        tr = obs.get_tracer()
+        if tr.enabled:
+            with tr.span("serve.decode", cat="serve"):
+                out = self._run_step("decode", cache, batch)
+        else:
+            out = self._run_step("decode", cache, batch)
+        self._step_hist.record(time.perf_counter() - t0)
+        return out
 
     @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, n_new: int,
@@ -196,21 +316,36 @@ class Engine:
         """Greedy generation: (B, n_new) tokens, or with ``return_logits``
         a (tokens, logits) pair where logits is the fp32 (n_new, B, V)
         stack of the distributions each token was chosen from.  An
-        enc-dec model's every step attends over ``enc_out``."""
+        enc-dec model's every step attends over ``enc_out``.  Completion
+        is the contract: a failing step degrades (``_run_step``), and a
+        request that needed a degraded step is counted in
+        ``degraded_requests``."""
         t_start = time.perf_counter()
+        self._req_degraded = False
         if enc_out is not None:
             enc_out = enc_out.to(self.device)
-        cache, last = self.prefill(prompt_tokens, enc_out)
-        cur = last.argmax(dim=-1)[:, None]
-        if self.device.type == "cuda":
-            torch.cuda.synchronize()
-        self.ttft_s = time.perf_counter() - t_start
-        toks, lgs = [], [last.float()]
-        for _ in range(n_new):
-            toks.append(cur)
-            logits, cache = self.decode_token(cache, cur, enc_out)
-            lgs.append(logits[:, -1].float())
-            cur = logits[:, -1].argmax(dim=-1)[:, None]
+        with obs.span("serve.generate", cat="serve",
+                      batch=int(prompt_tokens.shape[0]),
+                      prompt_len=int(prompt_tokens.shape[1]),
+                      n_new=n_new) as gspan:
+            cache, last = self.prefill(prompt_tokens, enc_out)
+            cur = last.argmax(dim=-1)[:, None]
+            if self.device.type == "cuda":
+                torch.cuda.synchronize()
+            self.ttft_s = time.perf_counter() - t_start
+            obs.observe("serve.ttft_s", self.ttft_s)
+            gspan.set(ttft_s=round(self.ttft_s, 6))
+            toks, lgs = [], [last.float()]
+            for _ in range(n_new):
+                toks.append(cur)
+                logits, cache = self.decode_token(cache, cur, enc_out)
+                lgs.append(logits[:, -1].float())
+                cur = logits[:, -1].argmax(dim=-1)[:, None]
+            obs.count("serve.tokens", n_new * int(prompt_tokens.shape[0]))
+            if self._req_degraded:
+                self.degraded_requests += 1
+                obs.count("serve.degraded_request")
+                gspan.set(degraded=True)
         out = torch.cat(toks, dim=1)
         if return_logits:
             return out, torch.stack(lgs[:n_new])
@@ -270,7 +405,11 @@ class Engine:
         falls back to 1.0."""
         from . import scheduler as sched_mod
         if step_time_ms is None:
-            step_time_ms = self.measured_step_time_ms() or 1.0
+            measured = self.measured_step_time_ms()
+            step_time_ms = measured or 1.0
+            obs.count("sched.step_time_seeded",
+                      source="measured" if measured else "constant",
+                      step_time_ms=round(step_time_ms, 4))
         sched = sched_mod.Scheduler(
             self, max_slots=max_slots, collect_logits=collect_logits,
             step_hook=step_hook, prefill_chunk_tokens=prefill_chunk_tokens,
@@ -285,7 +424,8 @@ class Engine:
     def stats(self) -> Dict[str, Any]:
         """Time to first token of the last ``generate``, the plan warmup,
         the per-phase cold / steady-state split and the registry's
-        hit / miss / fallback counts (None off the registry)."""
+        hit / miss / fallback counts (None off the registry), and the
+        requests served with a degraded step."""
         return {
             "ttft_s": self.ttft_s,
             "warmup_s": round(self.warmup_s, 4),
@@ -295,6 +435,7 @@ class Engine:
             "warmup_measured": sum(1 for r in self.warmup_report
                                    if r.get("measured")
                                    and not r.get("replayed")),
+            "degraded_requests": self.degraded_requests,
             "phases": self.timer.stats(),
             "registry": self._reg.stats.as_dict() if self._reg is not None
             else None,

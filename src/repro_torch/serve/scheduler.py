@@ -48,8 +48,20 @@ of per-layer dicts per segment (plus ``shared_attn``), which
 :func:`insert_rows` and the eviction walk, copying rows into the
 preallocated tensors in place; a request's ``ttft_s`` starts at its
 admission, before its prefill (the reference starts a grouped admission's
-after it, leaving the prefill out); there are no ``obs`` counters and no
-``faults`` seams (ROADMAP.md queue 1, item 6).
+after it, leaving the prefill out).
+
+Robustness and metrics, the reference's: the ``sched.slot_free``,
+``sched.preempt`` and ``sched.evict_rows`` fault seams each count their
+``*_fault`` counter and mark the request degraded, and the bookkeeping
+completes regardless (the lane is freed exactly once, the victim
+requeued, its rows zeroed), so no lane leaks.  A request whose prefill,
+chunk or decode step the engine degraded (``Engine._run_step``) completes
+with ``CompletedRequest.degraded`` and counts in the engine's
+``degraded_requests`` and ``serve.degraded_request``.  The stream runs in a
+``serve.stream`` span; sheds count ``sched.shed.<reason>``; each completion
+records ``serve.request_ttft_s``, ``serve.request_tpot_s`` and
+``sched.ttft_steps``, each admission ``sched.queue_wait_steps``, and each
+step sets the ``sched.slot_occupancy`` and ``sched.queue_depth`` gauges.
 """
 from __future__ import annotations
 
@@ -61,7 +73,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.models import model as model_mod
+from repro_torch.testing import faults
 
 PREEMPT_POLICIES = ("longest_remaining", "lowest_priority")
 
@@ -95,6 +109,7 @@ class CompletedRequest:
     queue_wait_steps: int                   # admitted_step - arrival
     ttft_s: float                           # admission -> first token (wall)
     tpot_s: float                           # mean inter-token wall time
+    degraded: bool = False                  # a step ran off the planned route
     logits: Optional[np.ndarray] = None     # (n_new, V) fp32 when collected
     preemptions: int = 0                    # times evicted and resumed
     ttft_steps: int = 0                     # arrival -> first token (steps)
@@ -239,6 +254,7 @@ class _Lane:
     first_tok_wall: float = 0.0
     first_tok_step: int = -1
     preemptions: int = 0
+    degraded: bool = False
     # chunked prefill: tokens still being written into the private side
     # cache; the lane holds its slot but does not decode until the side
     # cache is complete and copied in
@@ -380,25 +396,45 @@ class Scheduler:
         self.shed[r.rid] = ShedRequest(
             rid=r.rid, arrival=r.arrival, shed_step=self.step,
             reason=reason, prompt_len=r.prompt_len, n_new=r.n_new)
+        obs.count("sched.shed", reason=reason)
+        # counters carry no attrs into the snapshot, so the reason-named
+        # counter is a metric of its own
+        obs.count(f"sched.shed.{reason}")
 
     def _finish(self, slot: int, lane: _Lane) -> None:
-        """Complete the lane's request and free its slot."""
+        """Complete the lane's request and free its slot.  A fault at the
+        ``sched.slot_free`` site marks the request degraded; the slot is
+        freed regardless, so a lane never leaks."""
+        try:
+            faults.check("sched.slot_free", slot=slot, rid=lane.req.rid)
+        except Exception as e:  # noqa: BLE001 — serving must not die
+            obs.count("sched.slot_free_fault", reason=type(e).__name__)
+            lane.degraded = True
         self.slots.free(slot)
         del self.active[slot]
         now = time.perf_counter()
         r = lane.req
         n = len(lane.emitted)
         tpot = ((now - lane.first_tok_wall) / (n - 1)) if n > 1 else 0.0
+        if lane.degraded:
+            self.engine.degraded_requests += 1
+            obs.count("serve.degraded_request")
+        ttft_steps = lane.first_tok_step - r.arrival
+        obs.observe("serve.request_ttft_s",
+                    lane.first_tok_wall - lane.admit_wall)
+        obs.observe("serve.request_tpot_s", tpot)
+        obs.observe("sched.ttft_steps", float(ttft_steps))
+        obs.count("serve.stream_tokens", n)
         self.completed[r.rid] = CompletedRequest(
             rid=r.rid, tokens=np.asarray(lane.emitted, np.int32),
             arrival=r.arrival, admitted_step=lane.admitted_step,
             done_step=self.step,
             queue_wait_steps=lane.admitted_step - r.arrival,
             ttft_s=lane.first_tok_wall - lane.admit_wall, tpot_s=tpot,
+            degraded=lane.degraded,
             logits=(np.stack(lane.logits).astype(np.float32)
                     if self.collect_logits else None),
-            preemptions=lane.preemptions,
-            ttft_steps=lane.first_tok_step - r.arrival)
+            preemptions=lane.preemptions, ttft_steps=ttft_steps)
 
     def _first_token(self, slot: int, lane: _Lane, tok: int,
                      row: Optional[np.ndarray]) -> None:
@@ -414,6 +450,8 @@ class Scheduler:
         lane.first_tok_step = self.step
         if self.collect_logits:
             lane.logits.append(row)
+        obs.observe("sched.queue_wait_steps",
+                    lane.admitted_step - lane.req.arrival)
         if lane.req.n_new <= 1:
             self._finish(slot, lane)
 
@@ -461,7 +499,9 @@ class Scheduler:
                 toks = np.concatenate(
                     [toks, np.repeat(toks[-1:], pad_to - g, axis=0)])
             now = time.perf_counter()       # TTFT counts the prefill
+            eng._req_degraded = False
             small, last = eng.prefill(torch.from_numpy(toks))
+            degraded = eng._req_degraded
             slot_ids = [self.slots.alloc(it.req.rid) for it in grp]
             insert_rows(self.cache, small, slot_ids, g)
             first, rows = self._host_rows(last[:g])
@@ -470,6 +510,7 @@ class Scheduler:
                 if it.resume is None:
                     lane.admitted_step = self.step
                     lane.admit_wall = now
+                lane.degraded = lane.degraded or degraded
                 self.active[slot] = lane
                 self._first_token(slot, lane, first[i], rows[i])
 
@@ -482,6 +523,7 @@ class Scheduler:
         lanes = sorted(
             ((s, ln) for s, ln in self.active.items() if ln.prefilling),
             key=lambda sl: (sl[1].admitted_step, sl[0]))
+        eng = self.engine
         left = budget
         for slot, lane in lanes:
             total = len(lane.prefill_toks)
@@ -491,9 +533,12 @@ class Scheduler:
             left -= take
             seg = lane.prefill_toks[lane.prefill_done:
                                     lane.prefill_done + take]
-            lane.side, last = self.engine.prefill_chunk(
+            eng._req_degraded = False
+            lane.side, last = eng.prefill_chunk(
                 lane.side, torch.from_numpy(seg[None]))
+            lane.degraded = lane.degraded or eng._req_degraded
             lane.prefill_done += take
+            obs.count("sched.prefill_chunk")
             if lane.prefill_done == total:
                 insert_rows(self.cache, lane.side, [slot], 1)
                 lane.side = None
@@ -540,10 +585,16 @@ class Scheduler:
 
     def _preempt(self, slot: int, lane: _Lane) -> None:
         """Evict a lane: zero its rows (``pos`` included) in every cache
-        leaf, free its slot, park its state and requeue it for resume."""
-        for layer in _layers(self.cache):
-            for leaf in layer.values():
-                leaf[slot].zero_()
+        leaf, free its slot, park its state and requeue it for resume.
+        Both fault sites mark the request degraded and the bookkeeping
+        completes regardless: the slot is freed once and the request stays
+        in the system."""
+        try:
+            faults.check("sched.preempt", slot=slot, rid=lane.req.rid)
+        except Exception as e:  # noqa: BLE001 — serving must not die
+            obs.count("sched.preempt_fault", reason=type(e).__name__)
+            lane.degraded = True
+        self._evict_rows(slot, lane)
         self.slots.free(slot)
         del self.active[slot]
         lane.prefilling = False
@@ -552,7 +603,22 @@ class Scheduler:
         lane.side = None
         lane.preemptions += 1
         self.preempt_count += 1
+        obs.count("sched.preempt", policy=self.preempt_policy)
         self._enqueue(_QueueItem(req=lane.req, resume=lane))
+
+    def _evict_rows(self, slot: int, lane: _Lane) -> None:
+        """Zero the lane's rows (``pos`` included) across every cache leaf.
+        Correctness needs only the ``pos`` reset (a garbage row is never
+        read and an admission overwrites it whole); zeroing keeps the cache
+        honest for a post-mortem."""
+        try:
+            faults.check("sched.evict_rows", slot=slot, rid=lane.req.rid)
+        except Exception as e:  # noqa: BLE001 — serving must not die
+            obs.count("sched.evict_rows_fault", reason=type(e).__name__)
+            lane.degraded = True
+        for layer in _layers(self.cache):
+            for leaf in layer.values():
+                leaf[slot].zero_()
 
     # --------------------------------------------------------------- loop --
     def _decode(self) -> None:
@@ -565,10 +631,14 @@ class Scheduler:
         toks = np.zeros((self.max_slots, 1), np.int64)
         for slot, lane in decodable.items():
             toks[slot, 0] = lane.cur
-        logits, self.cache = self.engine.decode_token(
-            self.cache, torch.from_numpy(toks).to(self.engine.device))
+        eng = self.engine
+        eng._req_degraded = False
+        logits, self.cache = eng.decode_token(
+            self.cache, torch.from_numpy(toks).to(eng.device))
+        degraded = eng._req_degraded
         nxt, rows = self._host_rows(logits[:, -1])
         for slot, lane in list(decodable.items()):
+            lane.degraded = lane.degraded or degraded
             lane.emitted.append(nxt[slot])
             if self.collect_logits:
                 lane.logits.append(rows[slot])
@@ -622,6 +692,8 @@ class Scheduler:
         if self.prefill_chunk_tokens is not None:
             self._advance_chunks()
         self._decode()
+        obs.gauge("sched.slot_occupancy", self.slots.occupancy)
+        obs.gauge("sched.queue_depth", len(self.queue))
         # conservation: every submitted request is exactly one of
         # not-yet-arrived / queued / in flight / completed / shed
         accounted = (len(self.pending) + len(self.queue) + len(self.active)
@@ -664,11 +736,15 @@ class Scheduler:
             for r in reqs)
         bound = (max(r.arrival for r in reqs) + work
                  + len(reqs) + self.max_slots + 8)
-        while self.pending or self.queue or self.active:
-            if self.step > bound:
-                raise RuntimeError(
-                    f"scheduler stalled: step {self.step} exceeded "
-                    f"bound {bound} with {len(self.completed)}/"
-                    f"{self._total} completed")
-            self.run_step()
+        with obs.span("serve.stream", cat="serve", requests=self._total,
+                      max_slots=self.max_slots) as sp:
+            while self.pending or self.queue or self.active:
+                if self.step > bound:
+                    raise RuntimeError(
+                        f"scheduler stalled: step {self.step} exceeded "
+                        f"bound {bound} with {len(self.completed)}/"
+                        f"{self._total} completed")
+                self.run_step()
+            sp.set(steps=self.step, completed=len(self.completed),
+                   shed=len(self.shed), preemptions=self.preempt_count)
         return [self.completed[rid] for rid in sorted(self.completed)]
