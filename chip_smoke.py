@@ -201,6 +201,26 @@ Phases, in order; any failure exits non-zero:
    its ``engine.degraded``, ``degrade.compile`` and
    ``registry.spotcheck_failed`` deltas must be 0, so no rung of the
    degradation ladder quietly stands in for a kernel on the card.
+9. the offline tuner (``phase_tune``), after phase 8, on the same qwen3
+   and mamba2 weights: each model's grid at the engine's serving shape
+   (batch 8, ``max_len`` 577, fp32 cache) tuned by ``tune.run_fleet``
+   into a fresh store under ``build/chip_smoke/tune/`` and published as
+   an artifact; a cold replica (every plan measured) beside a fresh one
+   preloading the artifact after ``compiler.clear_memo()`` (0 measured,
+   every plan replayed), their warmup seconds printed; the preloaded
+   replica's ``generate`` with the path's launches, its logits within the
+   path's atol of the direct route's and its tokens identical where every
+   plan gives T1's bits; one entry's factor changed in a copy, rejected
+   alone as ``corrupt`` at the cost of one measurement; then two
+   ``launch.tune`` processes on one work directory and the card, whose
+   measurement intervals must never overlap.
+10. sampling (``phase_sampling``): qwen3 at temperature 0.7, seed 0,
+   batch 8, prompt 512, 64 new tokens through flash and decode
+   attention; the key chain and the raw bits of the (8, 151936) draw on
+   the card equal the host's, the card's tokens the host sampler's on the
+   same logits apart from counted near ties; the sampler's time and
+   kernels a step beside the argmax's; a sampled stream of 8 requests,
+   each held to its solo ``generate``.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
 """
@@ -3580,6 +3600,411 @@ def phase_robustness(q_ctx, m_ctx) -> tuple:
     return {k: n for k, n in launches.items() if n}, counters
 
 
+# ------------------------------------------------------- the offline tuner --
+# the tuner phase's fleet directories, emptied at its start, so every plan
+# of a fleet pass is measured there and every replica's store starts empty
+TUNE_DIR = BUILD_CACHE / "tune"
+# the two-worker drill's lease TTL: a few measurements long, so a worker
+# waiting on the card lock keeps its lease only by heartbeating
+DRILL_TTL_S = 10.0
+
+
+def tune_replica(ctx, store: Path, artifact=None):
+    """A fresh replica of ``ctx``'s model after ``compiler.clear_memo()``:
+    ``Engine(kernel_plan='measure')`` on a new registry over the empty
+    store ``store``, preloading ``artifact`` at warmup when given."""
+    from repro_torch import compiler
+    from repro_torch.compiler import CompileCache
+    from repro_torch.compiler.registry import (PlanRegistry,
+                                               set_default_registry)
+    from repro_torch.serve.engine import Engine
+    compiler.clear_memo()
+    store.unlink(missing_ok=True)
+    reg = PlanRegistry(cache=CompileCache(store))
+    old = set_default_registry(reg)
+    try:
+        eng = Engine(dataclasses.replace(ctx["cfg"], kernel_plan="measure"),
+                     ctx["model"], dataclasses.replace(
+                         ctx["scfg"], plan_artifact=artifact and
+                         str(artifact)))
+    finally:
+        set_default_registry(old)
+    st = eng.stats()
+    a = st["artifact"]
+    print(f"[tune]   replica {'from ' + Path(artifact).name if artifact else 'cold'}"
+          f": warmup {st['warmup_s']:.3f} s, {st['plans_warmed']} plans, "
+          f"{st['warmup_measured']} measured, "
+          f"{sum(1 for r in eng.warmup_report if r['replayed'])} replayed, "
+          f"{st['warmup_failed']} failed"
+          + (f"; artifact {a['verified']}/{a['total']} verified, "
+             f"{a['rejected']} rejected {a['reasons']}" if a else ""))
+    check(st["warmup_failed"] == 0, "a replica's warmup failed")
+    return eng, reg
+
+
+def phase_tune(cases) -> dict:
+    """The offline tuner (``repro_torch.tune``) on the card, for each
+    ``(ctx, per_prefill, per_step, atol)`` of ``cases`` (qwen3-0.6b and
+    mamba2-1.3b): a fleet pass over the engine's grid (batch 8, ``max_len``
+    577, fp32 cache) into a fresh store and an artifact (requests, deduped
+    groups, measured / replayed / failed, the fleet's wall); a cold replica
+    on an empty store (every plan measured) beside a fresh one that
+    preloads the artifact (0 measured, every plan replayed), their warmup
+    seconds side by side; the preloaded replica's ``generate`` with the
+    path's launches, its logits within ``atol`` of the direct route's and
+    its tokens identical where every plan gives T1's bits; a copy of the
+    artifact with one entry's factor changed, which the preload must
+    reject as ``corrupt`` alone, costing one measurement.  Then the
+    two-worker drill: two ``launch.tune`` processes on one work directory
+    and the card, lease TTL ``DRILL_TTL_S``, whose measurement intervals
+    must never overlap; each worker's card-lock wait is printed.  Returns
+    the replicas' launches."""
+    import shutil
+    from repro_torch.core.ir import PumpSpec
+    from repro_torch.tune import run_fleet
+    shutil.rmtree(TUNE_DIR, ignore_errors=True)
+    launches: dict = {}
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for ctx, per_prefill, per_step, atol in cases:
+        from repro_torch import compiler
+        cfg, scfg, mods = ctx["cfg"], ctx["scfg"], ctx["mods"]
+        n_new = ctx["toks"].shape[1]
+        work = TUNE_DIR / cfg.name
+        compiler.clear_memo()
+        out = run_fleet(cfg, scfg.batch, scfg.max_len,
+                        ledger_path=work / "ledger.json",
+                        store_path=work / "store.json",
+                        out_path=work / "plans.artifact.json",
+                        dtype=cfg.dtype, cache_dtype=scfg.cache_dtype,
+                        n_shards=4, worker_id="smoke-tuner")
+        w = out["worker"]
+        print(f"[tune] {cfg.name}: the engine's grid at batch {scfg.batch}, "
+              f"max_len {scfg.max_len}, {scfg.cache_dtype} cache: "
+              f"{out['work_items']} requests -> {out['groups']} groups "
+              f"({out['work_items'] - out['groups']} deduped); measured "
+              f"{w['measured']}, replayed {w['replayed']}, failed "
+              f"{len(w['failed'])}; fleet wall {out['wall_s']:.3f} s; "
+              f"artifact {out['artifact']['entries']} entries, complete "
+              f"{out['artifact']['complete']}")
+        check(out["artifact"]["complete"] and not w["failed"]
+              and w["measured"] == out["groups"],
+              f"{cfg.name}: the fleet pass {w}")
+        art = work / "plans.artifact.json"
+        doc = json.loads(art.read_text())
+        devices = {m["device"] for m in doc["manifest"].values()}
+        check(devices == {torch.cuda.get_device_name(0)},
+              f"manifest devices {devices}")
+
+        cold, _ = tune_replica(ctx, work / "cold.json")
+        eng, reg = tune_replica(ctx, work / "replica.json", art)
+        st, cst = eng.stats(), cold.stats()
+        print(f"[tune] {cfg.name}: warmup cold {cst['warmup_s']:.3f} s "
+              f"({cst['warmup_measured']} measured) against preloaded "
+              f"{st['warmup_s']:.3f} s (0 measured)")
+        check(cst["warmup_measured"] == cst["plans_warmed"],
+              "the cold replica did not measure its grid")
+        check(st["warmup_measured"] == 0
+              and all(r["replayed"] for r in eng.warmup_report)
+              and st["artifact"]["verified"] == st["artifact"]["total"]
+              == out["groups"] and st["artifact"]["rejected"] == 0,
+              f"{cfg.name}: the preloaded replica measured: {st}")
+        del cold
+        specs = {(p["kernel"], PumpSpec(int(p["launch"][1:]),
+                                        p["launch"][0]))
+                 for p in reg.plans()}
+        print(f"[tune]   plans launch at {sorted({str(k) + ' ' + s.mode + str(s.factor) for k, s in specs})}")
+        bits = all(t1_bits(k_, sp, cfg, scfg, gen) for k_, sp in specs
+                   if sp.factor > 1)
+        for mod in mods.values():
+            mod.launches = 0
+        toks, logits = eng.generate(ctx["prompts"], n_new,
+                                    return_logits=True)
+        got = {name: mod.launches for name, mod in mods.items()}
+        for name, n in got.items():
+            launches[name] = launches.get(name, 0) + n
+            want = per_prefill.get(name, 0) + n_new * per_step.get(name, 0)
+            check(n == want, f"{name} launches {n} != {want}")
+        diff = err(logits, ctx["logits"])
+        same = torch.equal(toks, ctx["toks"])
+        print(f"[tune] {cfg.name} preloaded replica vs direct route: "
+              f"launches {got}; logits max abs diff {diff:.4g} (atol "
+              f"{atol}); tokens identical {same}; every plan gives T1's "
+              f"bits: {bits}; registry {eng.stats()['registry']}")
+        check(diff <= atol, f"preloaded replica's logits differ by {diff}")
+        check(same or not bits, "tokens differ though every plan gives "
+                                "T1's bits")
+        check(reg.stats.fallbacks == 0, "the replica fell back")
+        del eng
+
+        # one entry's factor changed: that entry alone is rejected, and
+        # warmup measures exactly that one plan
+        key = sorted(doc["entries"])[0]
+        doc["entries"][key]["factor"] = int(doc["entries"][key]["factor"]) + 1
+        bad = work / "tampered.artifact.json"
+        bad.write_text(json.dumps(doc))
+        t_eng, _ = tune_replica(ctx, work / "tampered.json", bad)
+        tst = t_eng.stats()
+        check(tst["artifact"]["rejected"] == 1
+              and tst["artifact"]["reasons"] == {"corrupt": 1}
+              and tst["warmup_measured"] == 1,
+              f"{cfg.name}: the tampered artifact {tst['artifact']}, "
+              f"{tst['warmup_measured']} measured")
+        del t_eng
+    phase_tune_drill(cases[0][0])
+    return launches
+
+
+def phase_tune_drill(ctx) -> None:
+    """Two ``python -m repro_torch.launch.tune`` workers at once on one
+    work directory and the card (qwen3's grid): every measurement holds
+    the card lock, so no two measurement intervals overlap; together they
+    drain the grid, and the artifact the last one publishes is whole."""
+    cfg, scfg = ctx["cfg"], ctx["scfg"]
+    drill = TUNE_DIR / "drill"
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for i in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.tune", "--arch",
+                 "qwen3-0.6b", "--attention-impl", cfg.attention_impl,
+                 "--batch", str(scfg.batch), "--max-len", str(scfg.max_len),
+                 "--work-dir", str(drill), "--shards", "4", "--ttl",
+                 str(DRILL_TTL_S), "--device", "cuda", "--worker-id",
+                 f"drill-{i}"], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=root))
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    reps = []
+    for p, (so, se) in zip(procs, outs):
+        check(p.returncode == 0, f"a drill worker failed: {se[-2000:]}")
+        reps.append(json.loads(so.strip().splitlines()[-1]))
+    ivs = sorted((a, b, r["worker"]) for r in reps for a, b in r["intervals"])
+    overlaps = sum(1 for x, y in zip(ivs, ivs[1:]) if y[0] < x[1])
+    groups = reps[0]["groups"]
+    art = json.loads((drill / "plans.artifact.json").read_text())
+    for r in reps:
+        print(f"[tune] drill {r['worker']}: measured {r['measured']}, "
+              f"replayed {r['replayed']}, failed {r['failed']}, "
+              f"{len(r['intervals'])} measurement intervals, card lock "
+              f"waited {r['lock_wait_s']:.3f} s, wall {r['wall_s']:.3f} s")
+    print(f"[tune] drill: 2 workers, TTL {DRILL_TTL_S} s, {groups} groups, "
+          f"{len(ivs)} measurement intervals, {overlaps} overlapping; "
+          f"artifact complete {art['complete']} with "
+          f"{len(art['entries'])} entries; {wall:.1f} s wall with the "
+          f"processes' start")
+    check(overlaps == 0, "two drill workers measured on the card at once")
+    check(sum(r["measured"] for r in reps) == groups == len(ivs)
+          and not any(r["failed"] for r in reps),
+          f"the drill did not measure its grid once: {reps}")
+    check(art["complete"] and len(art["entries"]) == groups,
+          "the drill's artifact is not whole")
+
+
+# ------------------------------------------------------------- sampling --
+# the sampling phase's temperature and seed
+SAMPLE_TEMP, SAMPLE_SEED = 0.7, 0
+# a draw on the card may differ from the host's draw on the same logits
+# only where its top two perturbed scores lie this close (relative to the
+# larger): the card's logf and the host's differ by an ulp
+NEAR_TIE = 1e-5
+
+
+def key_chain(seed: int, n: int) -> list:
+    """``generate``'s draw keys: ``PRNGKey(seed)``, then the second half
+    of each split of the running key."""
+    from repro_torch.serve import prng
+    key, out = prng.PRNGKey(seed), [prng.PRNGKey(seed)]
+    for _ in range(n - 1):
+        key, sub = prng.split(key)
+        out.append(sub)
+    return out
+
+
+def launches_per_call(fn, reps: int = 10) -> tuple:
+    """The CUDA kernels and the top-level aten ops one call of ``fn``
+    issues, as ``torch.profiler`` records ``reps`` calls (after one call
+    outside it): (kernels, ops) a call."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = sum(1 for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    ops = sum(1 for e in events if e.cpu_parent is None
+              and e.device_type == torch.autograd.DeviceType.CPU
+              and e.name.startswith("aten::"))
+    return kernels / reps, ops / reps
+
+
+def hold_sampled(label, got, want, keys_of, atol):
+    """Each sampled request against another run of it (rid -> (tokens,
+    logits)), step by step up to the first differing token: the logits
+    within ``atol``, and that token only where ``want``'s top two
+    perturbed scores (gumbel noise with the step's key plus the logits
+    over the temperature) lie within ``2 e / T`` of each other, ``e`` the
+    step's largest logit difference (no smaller gap can swap).  Returns
+    (identical requests, near ties)."""
+    from repro_torch.serve import prng
+    same = ties = 0
+    for rid, (g_toks, g_lg) in sorted(got.items()):
+        w_toks, w_lg = want[rid]
+        keys = keys_of(len(w_toks))
+        for i in range(len(w_toks)):
+            e = float(np.abs(g_lg[i] - w_lg[i]).max())
+            check(e <= atol, f"{label} rid {rid} step {i}: logits differ "
+                             f"by {e} > {atol}")
+            if g_toks[i] != w_toks[i]:
+                row = prng.scaled(torch.from_numpy(w_lg[i])[None],
+                                  SAMPLE_TEMP)
+                z = prng.gumbel(keys[i], tuple(row.shape)) + row
+                top = z[0].topk(2).values
+                gap = float(top[0] - top[1])
+                check(gap <= 2 * e / SAMPLE_TEMP,
+                      f"{label} rid {rid} step {i}: token {g_toks[i]} != "
+                      f"{w_toks[i]} at a perturbed top-2 gap {gap}")
+                print(f"[sampling] {label} rid {rid}: near tie at step {i} "
+                      f"(perturbed top-2 gap {gap:.4g}, logits differ by "
+                      f"{e:.4g})")
+                ties += 1
+                break
+        else:
+            same += 1
+    return same, ties
+
+
+def phase_sampling(ctx, per_prefill: dict, per_step: dict) -> dict:
+    """qwen3-0.6b at full width sampled at temperature ``SAMPLE_TEMP``,
+    seed ``SAMPLE_SEED``, through flash and decode attention: B 8, prompt
+    512, 64 new tokens through ``Engine.generate`` (the path's launches).
+    The key chain computed on the card (each split's threefry on device
+    tensors) and the raw bits of the (8, 151936) draw at the first and last
+    step's keys equal the host's exactly; the card's tokens equal the host
+    sampler's on the same logits copied over, apart from near ties
+    (``NEAR_TIE``, counted).  The sampler's time a step (CUDA events) and
+    its kernels a step beside the greedy argmax's, and the decode step
+    beside the greedy route's.  Then a stream of 8 requests
+    (``Engine.serve_stream``, a key per lane) with its launches counted;
+    each request held to its solo ``generate`` on the card
+    (``hold_sampled``).  Returns the phase's launches."""
+    from repro_torch.launch.timing import Timer
+    from repro_torch.serve import prng
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.engine import Engine
+    cfg, model, prompts, mods = (ctx["cfg"], ctx["model"], ctx["prompts"],
+                                 ctx["mods"])
+    n_new = ctx["toks"].shape[1]
+    scfg = dataclasses.replace(ctx["scfg"], temperature=SAMPLE_TEMP,
+                               seed=SAMPLE_SEED)
+    eng = Engine(cfg, model, scfg)
+    for mod in mods.values():
+        mod.launches = 0
+    toks, logits = eng.generate(prompts, n_new, return_logits=True)
+    launches = {name: mod.launches for name, mod in mods.items()}
+    for name, n in launches.items():
+        want = per_prefill.get(name, 0) + n_new * per_step.get(name, 0)
+        check(n == want, f"{name} launches {n} != {want}")
+    check(tuple(toks.shape) == (scfg.batch, n_new)
+          and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
+          "sampled tokens")
+    keys = key_chain(SAMPLE_SEED, n_new)
+
+    # the key chain on the card: each split's threefry on device tensors
+    ctr = torch.arange(2, dtype=torch.int64, device="cuda")
+    for key in keys:
+        k0, k1 = (torch.tensor(k, dtype=torch.int64, device="cuda")
+                  for k in key)
+        a, b = prng.threefry2x32(k0, k1, torch.zeros_like(ctr), ctr)
+        check(list(zip(a.tolist(), b.tolist())) == prng.split(key),
+              f"the key chain on the card differs at {key}")
+    shape = (scfg.batch, cfg.vocab_size)
+    for key in (keys[0], keys[-1]):
+        check(torch.equal(prng.random_bits(key, shape, "cuda").cpu(),
+                          prng.random_bits(key, shape)),
+              f"raw bits of the {shape} draw differ on the card")
+
+    ties, other = 0, 0
+    for i in range(n_new):
+        host_lg = prng.scaled(logits[i].cpu(), SAMPLE_TEMP)
+        host = prng.categorical(keys[i], host_lg)
+        card = toks[:, i].cpu()
+        other += int((card != logits[i].argmax(-1).cpu()).sum())
+        diff = host != card
+        if diff.any():
+            z = prng.gumbel(keys[i], shape) + host_lg
+            top = z.topk(2, dim=-1).values
+            gap = (top[:, 0] - top[:, 1]) / top[:, 0].abs().clamp(min=1.0)
+            check(bool((gap[diff] <= NEAR_TIE).all()),
+                  f"step {i}: the card's tokens differ from the host's "
+                  f"away from a near tie: {gap[diff].tolist()}")
+            ties += int(diff.sum())
+    print(f"[sampling] qwen3-0.6b at temperature {SAMPLE_TEMP}, seed "
+          f"{SAMPLE_SEED}: launches {launches}; the key chain and the raw "
+          f"bits of the {shape} draw equal the host's; {toks.numel()} "
+          f"tokens, {ties} differing from the host sampler's on the same "
+          f"logits (near ties, relative gap <= {NEAR_TIE}); {other} drawn "
+          f"other than the argmax")
+    check(other > 0, "every sampled token was the argmax")
+
+    timer = Timer()
+    lg, key = logits[-1].contiguous(), keys[-1]
+    t_sample = timer.ms(lambda: eng._sample(lg, key))
+    t_greedy = timer.ms(lambda: lg.argmax(-1))
+    k_sample, o_sample = launches_per_call(lambda: eng._sample(lg, key))
+    k_greedy, o_greedy = launches_per_call(lambda: lg.argmax(-1))
+    del timer
+    dec = eng.stats()["phases"]["decode"]
+    print(f"[sampling] the sampler a step at {shape}: {t_sample:.4f} ms, "
+          f"{k_sample:g} CUDA kernels and {o_sample:g} aten ops a call; the "
+          f"greedy argmax {t_greedy:.4f} ms, {k_greedy:g} kernels, "
+          f"{o_greedy:g} ops; sampled decode {dec['steady_mean_s'] * 1e3:.3f}"
+          f" ms/step mean, {dec['steady_p50_s'] * 1e3:.3f} ms p50 against "
+          f"the greedy route's {ctx['step_ms']:.3f} / "
+          f"{ctx['step_p50_ms']:.3f} ms")
+
+    # a sampled stream: one key per lane, every lane drawn in one pass
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    reqs = sched.synthetic_workload(
+        8, seed=29, prompt_lens=(128, 256, 512), new_tokens=(16, 32),
+        arrival_rate=0.5, vocab=cfg.vocab_size)
+    fa.launches = da.launches = 0
+    done, snaps, wall, calls = stream_run(eng, reqs)
+    n_fa, n_da = fa.launches, da.launches
+    groups = admission_groups(snaps, reqs)
+    check(n_fa == cfg.n_layers * groups
+          and n_da == cfg.n_layers * calls["decode"],
+          f"sampled stream launches flash {n_fa}, decode {n_da}")
+    launches["flash_attention"] += n_fa
+    launches["decode_attention"] += n_da
+    stream_report("qwen3 sampled", done, snaps, wall, scfg.batch)
+    got = {rid: (r.tokens, r.logits) for rid, r in done.items()}
+    solo, _ = solo_runs(eng, reqs)
+    same, s_ties = hold_sampled("qwen3 sampled stream vs solo", got, solo,
+                                lambda n: key_chain(SAMPLE_SEED, n),
+                                ATOL_E2E_LOGITS)
+    drawn = sum(int((r.tokens != r.logits.argmax(-1)).sum())
+                for r in done.values())
+    print(f"[sampling] stream of {len(reqs)} requests: launches flash "
+          f"{n_fa} ({groups} admission groups), decode attention {n_da} "
+          f"({calls['decode']} steps); {same} of {len(reqs)} requests "
+          f"identical to their solo runs, {s_ties} near ties; {drawn} "
+          f"tokens drawn other than the argmax")
+    check(drawn > 0, "the stream drew only argmax tokens")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -3654,6 +4079,10 @@ def main() -> int:
         paths["stream"] = stream
     with timed("robustness (8)"):
         paths["robustness"], robust = phase_robustness(q_ctx, m_ctx)
+    with timed("offline tuner (9)"), guarded("tune", guard):
+        paths["tune"] = phase_tune([(q_ctx, *qwen3), (m_ctx, *mamba2)])
+    with timed("sampling (10)"), guarded("sampling", guard):
+        paths["sampling"] = phase_sampling(q_ctx, *qwen3[:2])
     del q_ctx, m_ctx
     # zamba2: 54 Mamba-2 blocks in 9 groups of 6, each group followed by
     # the one shared attention block: 54 scans and 9 flash launches a

@@ -169,6 +169,23 @@ def _estimate_sig(estimate) -> Optional[Tuple]:
             estimate.panel_bytes)
 
 
+def measure_request_key(graph: Graph, estimate=None, *, max_factor: int,
+                        factor="auto", mode: str = "T",
+                        autotune="measure") -> str:
+    """The persistent-cache key :func:`compile` assigns this request under
+    the plan registry's measured-autotune path (``factor='auto'``,
+    ``autotune='measure'``, the default shared-memory budget).  The offline
+    tuner (:mod:`repro_torch.tune`) keys and dedupes its work with it, and
+    keys the published artifact's entries, so a replica's replay compile
+    hits them without re-deriving anything.  ``max_factor`` is the cap the
+    registry passes for this request (``registry._max_factor``: the
+    kernel's built set at its head dim, dtype and, for decode attention,
+    the cache's dtype); the reference's is always 16."""
+    return request_key(graph, factor=factor, mode=mode,
+                       vmem_budget=SMEM_BYTES, max_factor=max_factor,
+                       estimate=_estimate_sig(estimate), autotune=autotune)
+
+
 def _valid_plan(plan) -> bool:
     """A usable cached plan must at least replay an integer pump factor —
     anything else (truncated write, hand-edited JSON, schema drift) is
@@ -583,6 +600,7 @@ def plan_pump(block_bytes_in: int, block_bytes_out: int,
 
 __all__ = [
     "compile", "compile_degraded", "plan_pump", "clear_memo", "forget",
+    "measure_request_key",
     "BACKENDS", "DEGRADATION_LADDER",
     "AUTOTUNE_CANDIDATES", "AUTOTUNE_CANDIDATE_BUDGET_S", "AUTOTUNE_REPEATS",
     "PlanQuarantined", "AutotuneError",

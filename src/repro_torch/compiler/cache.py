@@ -306,6 +306,21 @@ class CompileCache:
         self._load()[key] = value
         self._save()
 
+    def put_many(self, values: Dict[str, dict]) -> None:
+        """Install a batch of entries under one locked merge-write (the
+        artifact preload: N ``put`` calls would pay N read-merge-write
+        cycles on the shared file)."""
+        if not values:
+            return
+        entries = self._load()
+        now = time.time()
+        for key, value in values.items():
+            value = dict(value)
+            value.setdefault("env", _env_fingerprint())
+            value.setdefault("created", now)
+            entries[key] = value
+        self._save()
+
     def prune(self, max_age_s: Optional[float] = None,
               now: Optional[float] = None) -> Dict[str, int]:
         """Garbage-collect the persistent store under the fcntl lock.

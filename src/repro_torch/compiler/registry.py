@@ -81,8 +81,8 @@ a plan installed before a rule is never wrapped.  A warm hit makes no
 registry publishes as the ``plan_registry`` snapshot view; misses,
 fallbacks and each plan's compile (``registry.compile`` span;
 ``registry.measure`` / ``registry.replay`` / ``registry.plan_compile``)
-count through ``obs``.  Not ported: ``preload_artifact`` (ROADMAP.md
-queue 1 item 7).
+count through ``obs``.  :meth:`PlanRegistry.preload_artifact` installs
+a tuner fleet's verified plans (:mod:`repro_torch.tune`) before warmup.
 """
 from __future__ import annotations
 
@@ -702,6 +702,67 @@ class PlanRegistry:
             return self._fallback("grouped_gemm", err,
                                   lambda: ops.grouped_gemm(
                                       x, w, group_sizes=sizes, bc=16))
+
+    # ----------------------------------------------------------- artifact --
+    def preload_artifact(self, path, *, device=None) -> Dict[str, Any]:
+        """Warm-start from a published plan artifact (:mod:`repro_torch.
+        tune`): verify each manifest entry, install the verified plans into
+        this registry's backing store in one locked write, and let the
+        :meth:`warmup` that follows replay them, with zero autotune
+        measurements on the replica.  ``device`` (default the card) is
+        where this replica serves: an entry timed on another kind of
+        device is ``stale``.
+
+        Degrades per entry, never whole-artifact: a ``corrupt`` (hash
+        mismatch), ``stale`` (another toolchain or device), ``missing``
+        (no manifest row) or ``invalid`` entry is rejected
+        (``artifact.rejected``) and recorded in the store's quarantine
+        ledger under ``<key>:artifact``, a suffix ``compiler.compile``
+        never gates on, so the local re-measure proceeds and only the
+        artifact's provenance is marked bad.  An unreadable or
+        wrong-schema artifact degrades to an empty preload (a full local
+        warmup), counted ``artifact.load_failed``."""
+        from ..tune import artifact as artifact_mod
+        report: Dict[str, Any] = {"path": str(path), "total": 0,
+                                  "verified": 0, "rejected": 0,
+                                  "missing": 0, "reasons": {}}
+        try:
+            doc = artifact_mod.load(path)
+        except Exception as e:  # noqa: BLE001 — unreadable artifact: the
+            # replica tunes locally, as if no artifact existed
+            obs.count("artifact.load_failed", path=str(path),
+                      error=type(e).__name__)
+            report["error"] = repr(e)
+            return report
+        kind = artifact_mod.device_kind(device_mod.resolve(device))
+        store = resolve_cache(self._cache)
+        entries = doc["entries"]
+        manifest = doc["manifest"]
+        report["total"] = len(entries)
+        report["missing"] = len(doc.get("missing", []))
+        verified: Dict[str, dict] = {}
+        for key, plan in entries.items():
+            try:
+                reason = artifact_mod.verify_entry(
+                    key, plan, manifest.get(key), device=kind)
+            except Exception as e:  # noqa: BLE001 — an injected or exotic
+                # verification failure: a rejected entry
+                reason = f"verify-error:{type(e).__name__}"
+            if reason is None:
+                verified[key] = plan
+                obs.count("artifact.verified", key=key)
+            else:
+                report["rejected"] += 1
+                report["reasons"][reason] = \
+                    report["reasons"].get(reason, 0) + 1
+                obs.count("artifact.rejected", key=key, reason=reason)
+                if store is not None:
+                    store.record_failure(f"{key}:artifact",
+                                         f"artifact:{reason}")
+        report["verified"] = len(verified)
+        if store is not None and verified:
+            store.put_many(verified)
+        return report
 
     # ------------------------------------------------------------- warmup --
     def warmup(self, requests, *, device=None) -> List[Dict[str, Any]]:

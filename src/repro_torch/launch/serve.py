@@ -1,4 +1,5 @@
-"""Serving launcher: batched greedy generation with the Engine.
+"""Serving launcher: batched generation with the Engine, greedy or
+sampled (``--temperature T`` draws on the reference's threefry key chain).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b \\
         --batch 8 --prompt-len 512 --new 64 --attention-impl pallas
@@ -16,7 +17,10 @@ whisper-base`` draws seeded frames (batch, encoder_seq, d_model) for the
 stub frontend, encodes them outside the engine and generates over the
 encoder output; ``--arch internvl2-2b`` is served text-only (no patches),
 the dense backbone alone.  ``--kernel-plan measure`` serves those kernels through the plan registry at measured pump factors,
-after a warmup that plans the bucket grid;
+after a warmup that plans the bucket grid, and ``--plan-artifact PATH``
+warm-starts that warmup from a tuner fleet's artifact
+(``python -m repro_torch.launch.tune``): its verified plans replay with
+zero measurements;
 ``--smoke --device cpu``
 runs the SMOKE config on the CPU, where every op takes its plain version.
 Weights are seeded random draws with the reference init's distributions
@@ -97,6 +101,9 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 is greedy; above 0 samples with the "
+                         "reference's key chain from PRNGKey(0)")
     ap.add_argument("--attention-impl", default=None,
                     choices=("xla_chunked", "pallas"),
                     help="override cfg.attention_impl; 'pallas' runs the "
@@ -112,6 +119,11 @@ def main(argv: Optional[Sequence[str]] = None):
                     choices=("direct", "measure"),
                     help="override cfg.kernel_plan; 'measure' serves the "
                          "kernels through the plan registry")
+    ap.add_argument("--plan-artifact", default=None, metavar="PATH",
+                    help="warm-start from a published plan artifact "
+                         "(python -m repro_torch.launch.tune): verified "
+                         "entries replay with zero autotune measurements; "
+                         "rejected or missing entries re-measure locally")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--arrival-rate", type=float, default=None, metavar="R",
@@ -162,11 +174,24 @@ def main(argv: Optional[Sequence[str]] = None):
                             generator=torch.Generator().manual_seed(1))
     scfg = ServeConfig(batch=args.batch,
                        max_len=args.prompt_len + args.new + 1,
-                       kernel_plan=args.kernel_plan)
+                       temperature=args.temperature,
+                       kernel_plan=args.kernel_plan,
+                       plan_artifact=args.plan_artifact)
     if args.arrival_rate is not None and cfg.family == "encdec":
         ap.error("--arrival-rate mode needs a decoder cache "
                  "(encdec archs are not supported by the scheduler)")
     eng = Engine(cfg, model, scfg, device=dev)
+    if eng.artifact_report is not None:
+        a = eng.artifact_report
+        if "error" in a:
+            print(f"[serve] plan artifact UNREADABLE ({a['error']}); "
+                  f"tuning locally")
+        else:
+            print(f"[serve] plan artifact: {a['verified']}/{a['total']} "
+                  f"entr(ies) verified, {a['rejected']} rejected"
+                  + (f" ({a['reasons']})" if a["rejected"] else "")
+                  + (f", {a['missing']} unmeasured upstream"
+                     if a["missing"] else ""))
     prof = (obs.profile("serve.generate", logdir=args.profile)
             if args.profile else contextlib.nullcontext())
     if args.arrival_rate is not None:

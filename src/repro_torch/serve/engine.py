@@ -1,5 +1,5 @@
-"""Serving engine: batched prefill + greedy decode, the port of
-``repro.serve.engine``.
+"""Serving engine: batched prefill + decode, greedy or sampled, the port
+of ``repro.serve.engine``.
 
 ``Engine.generate`` is the main path: one fresh-cache prefill of the whole
 prompt batch, then one decode step per new token for every row together.
@@ -31,7 +31,19 @@ registry.  ``Engine.warmup`` (run at construction unless
 ``transformer.plan_requests(..., cached=True)`` on the engine's device:
 a cold bucket is measured there, a bucket in the persistent compile cache
 replays.  So every kernel call of ``generate`` after it is a registry hit;
-its cost is ``warmup_s``, never step time.
+its cost is ``warmup_s``, never step time.  With
+``ServeConfig.plan_artifact`` (a tuner fleet's artifact,
+:mod:`repro_torch.tune`) the warmup first preloads the artifact's verified
+plans (``PlanRegistry.preload_artifact``, reported as ``artifact_report``
+and ``stats()["artifact"]``), so every bucket it covers replays with zero
+measurements.
+
+**Sampling.**  ``temperature > 0`` draws each token with
+``jax.random.categorical``'s Gumbel-max on the reference's key chain
+(:mod:`.prng`, the port's threefry2x32): the first token with
+``PRNGKey(seed)`` itself, every later one with the second half of a split
+of the running key.  On a CUDA tensor the draw runs on the card; only the
+``(B,)`` token ids reach the host, as in the greedy step.
 
 **Continuous batching.**  ``Engine.serve_stream`` serves a stream of
 requests through ``serve.scheduler``: ``max_slots`` decode lanes over one
@@ -71,8 +83,6 @@ engine's ``stats()`` as the ``serve.engine`` snapshot view.  With tracing
 off a decode step adds one enabled check, one ``perf_counter`` pair and
 one histogram append.
 
-Not ported yet (ROADMAP.md queue 1): plan artifacts (``plan_artifact``,
-item 7) and sampling with ``temperature > 0`` (item 4).
 """
 from __future__ import annotations
 
@@ -92,6 +102,8 @@ from repro_torch.launch.steps import StepTimer
 from repro_torch.models import model as model_mod
 from repro_torch.testing import faults
 
+from . import prng
+
 # the bottom rung of the degradation ladder: plain PyTorch attention and
 # SSD, no plan registry
 _DIRECT = dict(kernel_plan="direct", attention_impl="xla_chunked",
@@ -102,13 +114,18 @@ _DIRECT = dict(kernel_plan="direct", attention_impl="xla_chunked",
 class ServeConfig:
     batch: int = 4
     max_len: int = 256
-    temperature: float = 0.0      # 0 = greedy, the only mode ported
+    temperature: float = 0.0      # 0 = greedy
+    seed: int = 0                 # the sampler's PRNGKey(seed)
     cache_dtype: str = "float32"
     # plan the registry's bucket grid at construction (a no-op unless the
     # model routes its kernels through the registry)
     warmup: bool = True
     # overrides cfg.kernel_plan for this engine ('measure' | 'direct')
     kernel_plan: Optional[str] = None
+    # a published plan artifact (repro_torch.tune): warmup verifies and
+    # installs its entries first, so every bucket it covers replays with
+    # zero measurements; None tunes locally at warmup
+    plan_artifact: Optional[str] = None
     # host check that each step's logits are finite, degrading the step to
     # the plain route instead of emitting garbage tokens; a sync a step, so
     # opt-in (on implicitly while fault rules are installed)
@@ -118,10 +135,6 @@ class ServeConfig:
 class Engine:
     def __init__(self, cfg, model, scfg: ServeConfig, *,
                  device: Optional[Union[str, torch.device]] = None):
-        if scfg.temperature > 0.0:
-            raise NotImplementedError(
-                "sampling with temperature > 0 needs the reference's "
-                "threefry key chains (ROADMAP.md queue 1, item 4)")
         model_mod.check_supported(cfg)
         if scfg.kernel_plan and scfg.kernel_plan != cfg.kernel_plan:
             cfg = dataclasses.replace(cfg, kernel_plan=scfg.kernel_plan)
@@ -146,6 +159,7 @@ class Engine:
         self.ttft_s: Optional[float] = None
         self.warmup_s = 0.0
         self.warmup_report: List[Dict[str, Any]] = []
+        self.artifact_report: Optional[Dict[str, Any]] = None
         # captured once: warmup(), stats() and the layers (through
         # _serving) use this registry, even if the process default is
         # swapped later
@@ -169,7 +183,9 @@ class Engine:
         """Plan the registry's bucket grid for this model and shape: one
         request per kernel and bucket up to ``max_len``
         (``transformer.plan_requests(..., cached=True)``), measured now or
-        replayed from the compile cache.  The time goes to ``warmup_s``."""
+        replayed from the compile cache, after preloading
+        ``ServeConfig.plan_artifact``'s verified plans into it.  The time
+        goes to ``warmup_s``."""
         if self._reg is None:
             return []
         from repro_torch.models import transformer
@@ -180,6 +196,13 @@ class Engine:
         t0 = time.perf_counter()
         with obs.span("serve.warmup", cat="serve", batch=self.scfg.batch,
                       max_len=self.scfg.max_len) as sp:
+            if self.scfg.plan_artifact:
+                # rejected or missing entries fall through to the local
+                # measured path below
+                self.artifact_report = self._reg.preload_artifact(
+                    self.scfg.plan_artifact, device=self.device)
+                sp.set(artifact_verified=self.artifact_report["verified"],
+                       artifact_rejected=self.artifact_report["rejected"])
             reqs = transformer.plan_requests(
                 self.cfg, self.scfg.batch, self.scfg.max_len,
                 dtype=str(dtype).replace("torch.", ""), cached=True,
@@ -310,12 +333,23 @@ class Engine:
         self._step_hist.record(time.perf_counter() - t0)
         return out
 
+    def _sample(self, logits: torch.Tensor, key: prng.Key) -> torch.Tensor:
+        """(B, V) logits -> (B,) token ids on their device: the argmax at
+        temperature 0, else ``categorical(key, logits / temperature)``."""
+        if self.scfg.temperature <= 0.0:
+            return logits.argmax(dim=-1)
+        return prng.categorical(
+            key, prng.scaled(logits, self.scfg.temperature))
+
     @torch.no_grad()
     def generate(self, prompt_tokens: torch.Tensor, n_new: int,
                  enc_out=None, return_logits: bool = False):
-        """Greedy generation: (B, n_new) tokens, or with ``return_logits``
-        a (tokens, logits) pair where logits is the fp32 (n_new, B, V)
-        stack of the distributions each token was chosen from.  An
+        """Greedy or sampled generation: (B, n_new) tokens, or with
+        ``return_logits`` a (tokens, logits) pair where logits is the fp32
+        (n_new, B, V) stack of the distributions each token was chosen
+        from.  Sampling keys follow the reference: ``PRNGKey(seed)`` draws
+        the first token, and each later step splits the running key and
+        draws with the second half.  An
         enc-dec model's every step attends over ``enc_out``.  Completion
         is the contract: a failing step degrades (``_run_step``), and a
         request that needed a degraded step is counted in
@@ -329,7 +363,8 @@ class Engine:
                       prompt_len=int(prompt_tokens.shape[1]),
                       n_new=n_new) as gspan:
             cache, last = self.prefill(prompt_tokens, enc_out)
-            cur = last.argmax(dim=-1)[:, None]
+            key = prng.PRNGKey(self.scfg.seed)
+            cur = self._sample(last, key)[:, None]
             if self.device.type == "cuda":
                 torch.cuda.synchronize()
             self.ttft_s = time.perf_counter() - t_start
@@ -340,7 +375,8 @@ class Engine:
                 toks.append(cur)
                 logits, cache = self.decode_token(cache, cur, enc_out)
                 lgs.append(logits[:, -1].float())
-                cur = logits[:, -1].argmax(dim=-1)[:, None]
+                key, sub = prng.split(key)
+                cur = self._sample(logits[:, -1], sub)[:, None]
             obs.count("serve.tokens", n_new * int(prompt_tokens.shape[0]))
             if self._req_degraded:
                 self.degraded_requests += 1
@@ -436,6 +472,7 @@ class Engine:
                                    if r.get("measured")
                                    and not r.get("replayed")),
             "degraded_requests": self.degraded_requests,
+            "artifact": self.artifact_report,
             "phases": self.timer.stats(),
             "registry": self._reg.stats.as_dict() if self._reg is not None
             else None,

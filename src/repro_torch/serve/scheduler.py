@@ -39,12 +39,21 @@ Time is virtual: arrivals are in scheduler steps, so a seeded
 :func:`synthetic_workload` replays exactly, and ``deadline_ms`` maps onto
 steps through ``step_time_ms``.
 
-Divergences from the reference, each for a reason: only greedy decoding is
-ported, so a lane carries no PRNG key and a step takes the argmax on the
-device and copies ``(max_slots,)`` token ids to the host (the same token as
-the reference's numpy argmax: both take the first maximum), the
-``(max_slots, V)`` logits only under ``collect_logits``; the cache is lists
-of per-layer dicts per segment (plus ``shared_attn``), which
+Sampling (``temperature > 0``) follows the reference's key chains: each
+lane carries its own key, ``PRNGKey(seed)`` at admission, kept across
+preemption and resume; the lane's first token is drawn with that key, and
+each decode step splits it and draws with the second half, so a streamed
+request samples the tokens of its solo ``generate``.
+
+Divergences from the reference, each for a reason: a step draws its tokens
+on the device and copies ``(max_slots,)`` token ids to the host, the
+``(max_slots, V)`` logits only under ``collect_logits`` (greedy: the
+argmax, the same token as the reference's numpy argmax, both taking the
+first maximum); a sampled step draws every lane at once, one ``(L, V)``
+draw with a key per row (``prng.categorical_rows``), where the reference
+draws one ``(1, V)`` categorical per lane: bit for bit the same draws,
+since a row's counters depend only on its place in ``(1, V)``; the cache
+is lists of per-layer dicts per segment (plus ``shared_attn``), which
 :func:`insert_rows` and the eviction walk, copying rows into the
 preallocated tensors in place; a request's ``ttft_s`` starts at its
 admission, before its prefill (the reference starts a grouped admission's
@@ -76,6 +85,8 @@ import torch
 from repro_torch import obs
 from repro_torch.models import model as model_mod
 from repro_torch.testing import faults
+
+from . import prng
 
 PREEMPT_POLICIES = ("longest_remaining", "lowest_priority")
 
@@ -246,6 +257,7 @@ def insert_rows(big_cache: Dict, small_cache: Dict, slots: Sequence[int],
 class _Lane:
     """In-flight state of one slot."""
     req: Request
+    key: prng.Key = (0, 0)          # the request's own PRNG chain
     cur: int = 0                    # last token: the next decode input
     emitted: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
@@ -294,10 +306,6 @@ class Scheduler:
             raise ValueError(
                 "continuous batching is not supported for the encdec "
                 "family (cross-attention caches are per-request)")
-        if engine.scfg.temperature > 0.0:
-            raise NotImplementedError(
-                "sampling with temperature > 0 needs the reference's "
-                "threefry key chains (ROADMAP.md queue 1, item 4)")
         if preempt_policy is not None and \
                 preempt_policy not in PREEMPT_POLICIES:
             raise ValueError(
@@ -348,7 +356,9 @@ class Scheduler:
         return base
 
     def _lane_for(self, it: _QueueItem) -> _Lane:
-        return it.resume if it.resume is not None else _Lane(req=it.req)
+        if it.resume is not None:
+            return it.resume
+        return _Lane(req=it.req, key=prng.PRNGKey(self.engine.scfg.seed))
 
     def _qkey(self, it: _QueueItem):
         r = it.req
@@ -455,10 +465,16 @@ class Scheduler:
         if lane.req.n_new <= 1:
             self._finish(slot, lane)
 
-    def _host_rows(self, logits: torch.Tensor):
-        """Greedy tokens of (B, V) logits, argmax on the device, and the
-        fp32 rows on the host only under ``collect_logits``."""
-        toks = logits.argmax(dim=-1).tolist()
+    def _host_rows(self, logits: torch.Tensor, keys):
+        """Tokens of (B, V) logits drawn on their device, row ``i`` with
+        ``keys[i]`` (the greedy argmax at temperature 0), and the fp32 rows
+        on the host only under ``collect_logits``."""
+        temp = self.engine.scfg.temperature
+        if temp <= 0.0:
+            toks = logits.argmax(dim=-1).tolist()
+        else:
+            toks = prng.categorical_rows(
+                keys, prng.scaled(logits, temp)).tolist()
         rows = (logits.float().cpu().numpy() if self.collect_logits
                 else [None] * len(toks))
         return toks, rows
@@ -504,9 +520,13 @@ class Scheduler:
             degraded = eng._req_degraded
             slot_ids = [self.slots.alloc(it.req.rid) for it in grp]
             insert_rows(self.cache, small, slot_ids, g)
-            first, rows = self._host_rows(last[:g])
+            lanes = [self._lane_for(it) for it in grp]
+            # a fresh lane's first token is drawn with its key itself; a
+            # resume's draw is discarded (its token was emitted already)
+            first, rows = self._host_rows(last[:g],
+                                          [ln.key for ln in lanes])
             for i, (it, slot) in enumerate(zip(grp, slot_ids)):
-                lane = self._lane_for(it)
+                lane = lanes[i]
                 if it.resume is None:
                     lane.admitted_step = self.step
                     lane.admit_wall = now
@@ -544,7 +564,7 @@ class Scheduler:
                 lane.side = None
                 lane.prefilling = False
                 lane.prefill_toks = None
-                first, rows = self._host_rows(last)
+                first, rows = self._host_rows(last, [lane.key])
                 self._first_token(slot, lane, first[0], rows[0])
 
     # --------------------------------------------------------- preemption --
@@ -636,7 +656,14 @@ class Scheduler:
         logits, self.cache = eng.decode_token(
             self.cache, torch.from_numpy(toks).to(eng.device))
         degraded = eng._req_degraded
-        nxt, rows = self._host_rows(logits[:, -1])
+        # each decodable lane splits its key and draws with the second
+        # half; a free or prefilling slot's row is drawn with a key nothing
+        # reads
+        keys = [(0, 0)] * self.max_slots
+        if eng.scfg.temperature > 0.0:
+            for slot, lane in decodable.items():
+                lane.key, keys[slot] = prng.split(lane.key)
+        nxt, rows = self._host_rows(logits[:, -1], keys)
         for slot, lane in list(decodable.items()):
             lane.degraded = lane.degraded or degraded
             lane.emitted.append(nxt[slot])

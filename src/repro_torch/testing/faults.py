@@ -62,10 +62,10 @@ its rung and counter):
 ``sched.slot_free``      scheduler lane reclamation at request completion
 ``sched.preempt``        scheduler slot preemption (park + requeue)
 ``sched.evict_rows``     cache-row eviction of a preempted lane
+``tune.lease``           every lease-ledger mutation of the offline tuner
+``artifact.load``        plan-artifact read and parse (check and mangle)
+``artifact.verify``      one artifact entry's verification
 =======================  ==================================================
-
-The reference's ``tune.lease``, ``artifact.load`` and ``artifact.verify``
-sites belong to the offline tuner and plan artifacts, not ported yet.
 """
 from __future__ import annotations
 

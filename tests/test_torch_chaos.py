@@ -29,8 +29,10 @@ serves plain PyTorch in place of a kernel: a ragged plan degraded below
 ``hopper`` falls back to the direct grouped GEMM, and where the direct op
 is the kernel (a CUDA tensor, simulated) a plan that failed its spot
 check is refused, not served through the kernel the check rejected.  The
-reference's checkpoint, trainer, artifact and tuner rows wait for ROADMAP
-queue 1 items 7-8.
+reference's artifact and tuner rows (``ARTIFACT_MATRIX``, the lease
+faults) run the port's tuner fleet and a replica warm-started from its
+artifact, each beside the JAX package's under the same rule.  The
+reference's checkpoint and trainer rows wait for ROADMAP queue 1 item 8.
 """
 import dataclasses
 import functools
@@ -800,3 +802,167 @@ def test_plan_failing_its_spot_check_is_refused_on_the_card(baseline,
     np.testing.assert_array_equal(toks2, toks)
     assert {k: _ctr(k) for k in again} == again
     assert eng.degraded_requests == 0
+
+
+# ------------------------------------------------------- artifact warm start --
+# The reference's offline-tuner chaos rows: the warm-start path degrades as
+# every other rung does: an unreadable or corrupt artifact costs
+# measurements, never correctness or availability.  Each row runs the JAX
+# package's fleet and replica under the same rule, and the counters below
+# move by the same amounts in both.
+ARTIFACT_MATRIX = [
+    pytest.param("artifact.load", "io_error", "artifact.load_failed",
+                 id="artifact-io-error"),
+    pytest.param("artifact.load", "garbage", "artifact.load_failed",
+                 id="artifact-garbage"),
+    pytest.param("artifact.verify", "error", "artifact.rejected",
+                 id="artifact-verify-error"),
+]
+ARTIFACT_COUNTERS = ("artifact.load_failed", "artifact.rejected",
+                     "artifact.verified", "registry.measure",
+                     "registry.replay", "faults.injected")
+TUNE_ARCH = "qwen3-0.6b"
+
+
+def _fleet(pkg, work, **kw):
+    """One fault-free (or, under rules, faulted) fleet pass of either
+    package over qwen3 SMOKE's grid, on private stores under ``work``."""
+    if pkg == "jax":
+        from repro.tune.worker import run_fleet
+        cfg = _params(TUNE_ARCH)[0]
+    else:
+        from repro_torch.tune.worker import run_fleet
+        cfg = _params(TUNE_ARCH)[2]
+        kw["device"] = "cpu"
+    return run_fleet(cfg, BATCH, MAXLEN, ledger_path=work / "ledger.json",
+                     store_path=work / "tuner_cache.json",
+                     out_path=work / "plans.artifact.json", n_shards=2,
+                     worker_id="chaos-tuner", **kw)
+
+
+@pytest.fixture(scope="module")
+def tuned_artifacts(tmp_path_factory):
+    """Fault-free fleet passes: each package's complete verified artifact,
+    which every artifact row warm-starts from."""
+    out = {}
+    for pkg, env in (("port", "REPRO_TORCH_CACHE_DIR"),
+                     ("jax", "REPRO_CACHE_DIR")):
+        work = tmp_path_factory.mktemp(f"tuner-{pkg}")
+        prev = os.environ.get(env)
+        os.environ[env] = str(work / "cache")
+        try:
+            assert _fleet(pkg, work)["artifact"]["complete"] is True
+        finally:
+            if prev is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = prev
+        out[pkg] = work / "plans.artifact.json"
+    return out
+
+
+def _warm_engine(artifact_path) -> Engine:
+    """``_fresh_engine`` with the plan artifact preloaded at warmup."""
+    compiler.clear_memo()
+    set_default_registry(PlanRegistry())
+    _jcfg, _p, pcfg, model = _params(TUNE_ARCH)
+    return Engine(pcfg, model, ServeConfig(
+        batch=BATCH, max_len=MAXLEN, plan_artifact=str(artifact_path)),
+        device="cpu")
+
+
+def _jax_warm_serve(artifact_path):
+    """The JAX replica on the same params, its artifact preloaded:
+    (tokens, logits, its engine)."""
+    from repro import compiler as jax_compiler
+    from repro.compiler import registry as jax_reg
+    from repro.serve.engine import Engine as JaxEngine
+    from repro.serve.engine import ServeConfig as JaxServeConfig
+    jax_compiler.clear_memo()
+    jax_reg.set_default_registry(jax_reg.PlanRegistry())
+    jcfg, params, _pcfg, _model = _params(TUNE_ARCH)
+    eng = JaxEngine(jcfg, params, JaxServeConfig(
+        batch=BATCH, max_len=MAXLEN, plan_artifact=str(artifact_path)))
+    toks, lgs = eng.generate(jax.numpy.asarray(_prompts(jcfg.vocab_size)),
+                             NEW, return_logits=True)
+    return np.asarray(toks), np.asarray(lgs), eng
+
+
+@pytest.mark.parametrize("site,action,counter", ARTIFACT_MATRIX)
+def test_serve_completes_under_artifact_fault(baseline, tuned_artifacts,
+                                              tmp_path, site, action,
+                                              counter):
+    """A faulted artifact load or verify degrades to local measurement:
+    the replica warms up the classic way, serves the fault-free tokens at
+    parity, and the degradation is counted, as the JAX replica's is."""
+    from repro import obs as jax_obs
+    from repro.testing import faults as jax_faults
+    before = _counters(obs, ARTIFACT_COUNTERS)
+    with faults.inject(faults.FaultRule(site, action)):
+        eng = _warm_engine(tuned_artifacts["port"])
+        toks, lgs = _serve(eng)
+    deltas = _delta(_counters(obs, ARTIFACT_COUNTERS), before)
+    _assert_parity(baseline[TUNE_ARCH], toks, lgs)
+    assert deltas["faults.injected"] > 0, "the fault never fired"
+    assert deltas[counter] > 0, \
+        f"{counter} did not move under a {site}/{action} fault"
+    stats = eng.stats()
+    assert stats["warmup_failed"] == 0
+    if site == "artifact.verify":
+        # per-entry degrade: every entry rejected, none preloaded, and the
+        # local re-measure served the whole grid anyway
+        assert stats["artifact"]["rejected"] == stats["artifact"]["total"] > 0
+        assert stats["artifact"]["verified"] == 0
+    else:
+        # whole-file degrade: the preload reports the load error and the
+        # warmup proceeds as if no artifact existed
+        assert "error" in stats["artifact"]
+        assert stats["artifact"]["verified"] == 0
+    assert stats["warmup_measured"] == stats["plans_warmed"]
+
+    os.environ["REPRO_CACHE_DIR"] = str(tmp_path / f"jax-{site}-{action}")
+    jbefore = _counters(jax_obs, ARTIFACT_COUNTERS)
+    with jax_faults.inject(jax_faults.FaultRule(site, action)):
+        jtoks, jlgs, jeng = _jax_warm_serve(tuned_artifacts["jax"])
+    _assert_parity((jtoks, jlgs), toks, lgs, JAX_TOL)
+    assert deltas == _delta(_counters(jax_obs, ARTIFACT_COUNTERS), jbefore)
+    jstats = jeng.stats()["artifact"]
+    assert {k: stats["artifact"][k] for k in ("total", "verified",
+                                              "rejected", "reasons")} == \
+        {k: jstats[k] for k in ("total", "verified", "rejected", "reasons")}
+
+
+def test_tuner_survives_lease_faults(baseline, tmp_path):
+    """Ledger I/O faults mid-fleet (``tune.lease`` io_error) cost bounded
+    retries, not the run: the fleet completes the grid, publishes a
+    complete artifact, and a replica warm-starts from it with zero
+    measurements at full parity; the JAX fleet under the same rule counts
+    the same lease errors."""
+    from repro import obs as jax_obs
+    from repro.testing import faults as jax_faults
+    names = ("tune.lease_error", "faults.injected", "tune.shard_done")
+    before = _counters(obs, names)
+    rule = faults.FaultRule("tune.lease", "io_error", times=2)
+    with faults.inject(rule):
+        out = _fleet("port", tmp_path / "port")
+    deltas = _delta(_counters(obs, names), before)
+    assert rule.fired >= 1, "the lease fault never fired"
+    assert out["artifact"]["complete"] is True
+    assert not out["worker"]["failed"]
+
+    jbefore = _counters(jax_obs, names)
+    jrule = jax_faults.FaultRule("tune.lease", "io_error", times=2)
+    with jax_faults.inject(jrule):
+        jout = _fleet("jax", tmp_path / "jax")
+    assert jout["artifact"]["complete"] is True
+    assert deltas == _delta(_counters(jax_obs, names), jbefore)
+    assert out["worker"]["lease_errors"] == jout["worker"]["lease_errors"]
+
+    # a warm-start replica in a cold cache dir: zero measurements
+    os.environ["REPRO_TORCH_CACHE_DIR"] = str(tmp_path / "replica-cache")
+    measured = _ctr("registry.measure")
+    eng = _warm_engine(tmp_path / "port" / "plans.artifact.json")
+    toks, lgs = _serve(eng)
+    _assert_parity(baseline[TUNE_ARCH], toks, lgs)
+    assert eng.stats()["warmup_measured"] == 0
+    assert _ctr("registry.measure") == measured

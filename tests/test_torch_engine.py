@@ -66,15 +66,6 @@ def test_return_logits_are_the_chosen_distributions():
     torch.testing.assert_close(logits.argmax(-1).T, toks)
 
 
-def test_sampling_is_not_ported():
-    model = convert.init_params(port_qwen3.SMOKE,
-                                torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="temperature"):
-        port_engine.Engine(port_qwen3.SMOKE, model,
-                           port_engine.ServeConfig(temperature=0.7),
-                           device="cpu")
-
-
 def test_serve_cli_runs_on_cpu(capsys):
     from repro_torch.launch import serve
     out = serve.main(["--arch", "qwen3-0.6b", "--smoke", "--device", "cpu",

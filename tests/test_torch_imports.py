@@ -91,3 +91,17 @@ def test_kernel_build_key_follows_source(tmp_path, monkeypatch):
     (src / "k.cu").write_text("// two\n")
     assert _build.lib_path("k") != first
     assert first.parent == _build.BUILD_DIR
+
+
+def test_tuner_defaults_to_cuda(monkeypatch, tmp_path):
+    """The tuner measures on the card unless asked for the CPU."""
+    from repro_torch.configs.qwen3_0_6b import SMOKE
+    from repro_torch.launch import tune
+    from repro_torch.tune.worker import run_fleet
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_fleet(SMOKE, 2, 16, ledger_path=tmp_path / "l.json",
+                  store_path=tmp_path / "s.json")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tune.main(["--arch", "qwen3-0.6b", "--smoke",
+                   "--work-dir", str(tmp_path / "w")])
