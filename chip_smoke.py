@@ -221,6 +221,28 @@ Phases, in order; any failure exits non-zero:
    same logits apart from counted near ties; the sampler's time and
    kernels a step beside the argmax's; a sampled stream of 8 requests,
    each held to its solo ``generate``.
+11. training (``phase_train``), after the paper tables: qwen3-0.6b at
+   full width and depth (bf16 params, fp32 master / m / v, remat, the
+   plain routes) on the n-gram stream at 8 x 2048 (``TRAIN_SEQ``,
+   ``TRAIN_BATCH``: cut from ``train_4k``'s 256 x 4096, a batch sized for
+   256 chips): (a) one M 1 and one M 4 step from the same params and
+   batch held to each other (``RTOL_TRAIN_*``, ``TRAIN_FLIP_SHARE``), then
+   ``TRAIN_STEADY`` more steps at each M with the cold step apart, the
+   median ms a step, tokens/s and the peak memory (reset between the
+   runs; M 4's must be below M 1's), and the loss falling over the M 4
+   run (``TRAIN_LOSS_GAP``); (b) no hand-written kernel launched during
+   (a) and (c); (c) one M 1 step under ``obs.profile``: the top 8 device
+   ops, busy against the steady step's wall, the idle share; (d) the five
+   serving kernels on CUDA inputs that require grad, each operand in
+   turn, refused with ``InputError``, and under ``no_grad`` their plain
+   versions' values; (e) the kill-and-restore drill (qwen3 cut to
+   ``DRILL_LAYERS`` layers, 8 x 512, 8 steps, a checkpoint every 4, each
+   process deterministic with ``CUBLAS_WORKSPACE_CONFIG``): process A
+   SIGKILLed once ``LATEST`` names step 4, B resuming on its root, C
+   uninterrupted beside A; B's params, optimizer state and losses equal
+   C's bit for bit; (f) ``python -m repro_torch.launch.train`` at 8 x 2048,
+   M 4, 2 steps, its last line printed.  A ``{"training": ...}`` line
+   holds the phase's numbers.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
 """
@@ -4005,6 +4027,482 @@ def phase_sampling(ctx, per_prefill: dict, per_step: dict) -> dict:
     return launches
 
 
+# ------------------------------------------------------ phase 11: training --
+TRAIN_ARCH = "qwen3-0.6b"
+# train_4k (configs.base.SHAPES) is 4096 tokens x 256 sequences, a batch the
+# reference sizes for 256 chips (its dry-run cell).  One card trains
+# qwen3-0.6b at full width and depth (28 layers, 596 M parameters, tied
+# embeddings) on 8 sequences of 2048: 1/64 of that batch's tokens
+TRAIN_SEQ, TRAIN_BATCH = 2048, 8
+TRAIN_PUMPS = (1, 4)
+TRAIN_STEADY = 10        # timed steps after the cold one, at each M
+TRAIN_LR = 3e-4
+# M 1 against M 4, one step from the same bf16 params and batch.  The two
+# run the same math on batches of 8 and of 2, so cuBLAS tiles each GEMM
+# otherwise and bf16 activations round differently (a bf16 ulp is 2^-8 of
+# its binade); the loss averages 16,376 tokens' losses, so it keeps far
+# less than one ulp of that (2^-8 relative leaves room), and the gradient
+# norm sums 596 M squares of bf16 gradients (M 1) or of fp32 sums of four
+# bf16 microbatch gradients (M 4): 2^-6.  A parameter moves by lr g /
+# (|g| + eps) at step 1, so an element whose gradient's sign differs
+# between the two (|g| within rounding of 0) moves 2 lr apart, and the
+# bf16 cast of the masters adds up to one ulp (at most 2^-7 of |p|):
+# every element within 2 lr + 2^-7 |p|, and no more than
+# TRAIN_FLIP_SHARE of them more than one ulp apart (a wrong gradient
+# would flip about half of them)
+RTOL_TRAIN_LOSS = 2.0 ** -8
+RTOL_TRAIN_GNORM = 2.0 ** -6
+TRAIN_FLIP_SHARE = 1e-2
+# the loss must fall over the M 4 run.  The stream's tokens are uniform
+# over the vocab but for the n-gram repeats inside each sequence, which
+# only in-context copying predicts and a few steps do not teach, so the
+# loss can fall only from the init's excess toward ln V (11.93), the
+# uniform predictor's: the last step's loss must be below the first's,
+# and the run's lowest must close at least TRAIN_LOSS_GAP of the gap
+# between the first and ln V
+TRAIN_LOSS_GAP = 0.5
+# the kill-and-restore drill: qwen3 at full width cut to 4 layers (218.5 M
+# parameters, a 3.1 GB checkpoint: the checkpoint I/O sets the drill's
+# time, not the card), 8 x 512 tokens, 8 steps, a checkpoint every 4
+DRILL_LAYERS, DRILL_SEQ, DRILL_BATCH = 4, 512, 8
+DRILL_STEPS, DRILL_EVERY = 8, 4
+TRAIN_DIR = BUILD_CACHE / "train"
+KERNEL_NAMES = ("flash_attention", "decode_attention", "ssd_scan",
+                "ssd_decode", "vecadd", "matmul", "stencil", "floyd_warshall",
+                "grouped_gemm", "region_map_reduce")
+
+
+def kernel_modules() -> dict:
+    import importlib
+    return {n: importlib.import_module(f"repro_torch.kernels.{n}")
+            for n in KERNEL_NAMES}
+
+
+def train_cfg(layers=None):
+    from repro_torch.configs.base import load_arch
+    cfg = load_arch(TRAIN_ARCH)
+    check(cfg.attention_impl == "xla_chunked" and cfg.remat
+          and cfg.dtype == "bfloat16", f"{TRAIN_ARCH} is not the trainer's "
+          f"config: {cfg}")
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          n_layers=layers)
+
+
+def bf16_ulp_bound(p: torch.Tensor) -> torch.Tensor:
+    """One bf16 spacing at |p| (2^-7 of |p| bounds it from above)."""
+    return p.float().abs() * 2.0 ** -7
+
+
+def hold_pumps(first: dict, lr: float) -> dict:
+    """(a)'s M 1 against M 4 after their first step: ``first[M]`` holds the
+    step's metrics and the params on the host."""
+    m1, m4 = first[1], first[4]
+    e_loss = abs(m4["loss"] - m1["loss"]) / abs(m1["loss"])
+    e_gn = abs(m4["grad_norm"] - m1["grad_norm"]) / m1["grad_norm"]
+    worst = far = total = diff = 0
+    for name, a in m1["params"].items():
+        a = a.cuda()
+        b = m4["params"][name].cuda()
+        d = (a.float() - b.float()).abs()
+        ulp = torch.maximum(bf16_ulp_bound(a), bf16_ulp_bound(b))
+        worst = max(worst, float((d - ulp).max()))
+        far += int((d > ulp).sum())
+        diff += int((d > 0).sum())
+        total += d.numel()
+        del a, b, d, ulp
+    out = {"loss_rel": e_loss, "grad_norm_rel": e_gn,
+           "max_excess_over_ulp": worst, "more_than_ulp_share": far / total,
+           "differ_share": diff / total}
+    print(f"[train] (a) M 1 vs M 4, one step from the same params and "
+          f"batch: loss {m1['loss']:.6f} / {m4['loss']:.6f} (rel "
+          f"{e_loss:.3g}, rtol {RTOL_TRAIN_LOSS:.3g}); grad norm "
+          f"{m1['grad_norm']:.6f} / {m4['grad_norm']:.6f} (rel {e_gn:.3g}, "
+          f"rtol {RTOL_TRAIN_GNORM:.3g}); params: {diff / total:.3%} of "
+          f"{total} differ, {far / total:.4%} by more than one bf16 ulp "
+          f"(at most {TRAIN_FLIP_SHARE:.0%}), largest excess over one ulp "
+          f"{worst:.3g} (at most 2 lr = {2 * lr:.3g})")
+    check(e_loss <= RTOL_TRAIN_LOSS, f"M 1 vs M 4 loss rel {e_loss}")
+    check(e_gn <= RTOL_TRAIN_GNORM, f"M 1 vs M 4 grad norm rel {e_gn}")
+    check(worst <= 2 * lr, f"M 1 vs M 4 params: {worst} over one ulp")
+    check(far / total <= TRAIN_FLIP_SHARE,
+          f"M 1 vs M 4 params: {far / total:.3%} more than one ulp apart")
+    return out
+
+
+def train_run(pump: int, batches, lr: float, profile_dir=None) -> dict:
+    """(a) at one M: seeded bf16 qwen3-0.6b (fp32 master, m and v), a cold
+    step and ``TRAIN_STEADY`` timed ones on ``batches``; with
+    ``profile_dir`` (c), one more step under ``obs.profile``.  Returns the
+    run's numbers and its first step's metrics and params (on the host)."""
+    from repro_torch import obs, optim
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert
+    cfg = train_cfg()
+    opt = optim.AdamWConfig(lr=lr, warmup_steps=1,
+                            total_steps=TRAIN_STEADY + 2)
+    torch.cuda.empty_cache()
+    model = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        torch.bfloat16)
+    state = optim.init(opt, model)
+    step = make_train_step(cfg, opt, pump)
+    torch.cuda.synchronize()
+    static = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, first = [], [], None
+    for i in range(TRAIN_STEADY + 1):
+        batch = batches[i]
+        if pump > 1:
+            batch = {k: v.reshape((pump, -1) + v.shape[1:])
+                     for k, v in batch.items()}
+        t0 = time.perf_counter()
+        metrics = step(model, state, batch)
+        loss = float(metrics["loss"])          # syncs
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        check(np.isfinite(loss), f"M {pump} step {i}: loss {loss}")
+        if i == 0:
+            first = {"loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                     "params": {n: p.detach().cpu() for n, p
+                                in model.named_parameters()}}
+    peak = torch.cuda.max_memory_allocated()
+    steady = statistics.median(times[1:])
+    prof = None
+    if profile_dir is not None:
+        batch = batches[TRAIN_STEADY + 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.profile("train.step", logdir=str(profile_dir)):
+            float(step(model, state, batch)["loss"])
+        prof = {"wall_profiled_s": time.perf_counter() - t0}
+    del model, state, step
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"pump": pump, "cold_ms": times[0] * 1e3, "steady_ms": steady * 1e3,
+           "steady_ms_all": [t * 1e3 for t in times[1:]],
+           "tokens_per_s": tokens / steady, "peak_gib": peak / 2 ** 30,
+           "static_gib": static / 2 ** 30, "losses": losses}
+    print(f"[train] (a) M {pump} (microbatch {TRAIN_BATCH // pump}): cold "
+          f"step {times[0] * 1e3:.1f} ms, steady {steady * 1e3:.1f} ms a "
+          f"step (median of {TRAIN_STEADY}; spread "
+          f"{min(times[1:]) * 1e3:.1f}-{max(times[1:]) * 1e3:.1f}), "
+          f"{tokens / steady:.0f} tokens/s, peak {peak / 2 ** 30:.2f} GiB "
+          f"(static {static / 2 ** 30:.2f} GiB); loss "
+          + " ".join(f"{v:.4f}" for v in losses))
+    return out, first, prof
+
+
+def read_profile(path: Path, wall_ms: float, top: int = 8) -> dict:
+    """(c): the device events of an ``obs.profile`` Chrome trace: busy ms,
+    the idle share against ``wall_ms`` (an unprofiled step's), and the top
+    ``top`` device ops by time."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    dev = [e for e in events if e.get("ph") == "X"
+           and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        print("[train] (c) the profiler recorded no device events: device "
+              "time not measured")
+        return {"busy_ms": None}
+    by_name = {}
+    for e in dev:
+        t, n = by_name.get(e["name"], (0.0, 0))
+        by_name[e["name"]] = (t + e["dur"], n + 1)
+    busy = sum(e["dur"] for e in dev) / 1e3
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    idle = max(0.0, 1 - busy / wall_ms)
+    print(f"[train] (c) one M 1 step profiled (obs.profile): device busy "
+          f"{busy:.1f} ms against a {wall_ms:.1f} ms steady step, idle "
+          f"{idle:.1%}, {len(dev)} device ops; top {top}:")
+    for name, (us, n) in ranked:
+        print(f"[train]   {us / 1e3 / busy:6.1%} {us / 1e3:9.2f} ms  x{n:5d}  "
+              f"{name[:100]}")
+    return {"busy_ms": busy, "idle": idle, "device_ops": len(dev),
+            "top": [{"name": n[:100], "ms": us / 1e3, "count": c}
+                    for n, (us, c) in ranked]}
+
+
+def refusals() -> dict:
+    """(d): each serving kernel on CUDA inputs that require grad, with grad
+    mode on, raises ``InputError``; under ``no_grad`` it returns its plain
+    version's values (fp32, ``ATOL_FP32``; the SSD ops relative,
+    ``RTOL_SSD_FP32``)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels._build import InputError
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = randn(gen, 2, 4, 64, 64), randn(gen, 2, 2, 64, 64), \
+        randn(gen, 2, 2, 64, 64)
+    qd, kc, vc = randn(gen, 2, 4, 64), randn(gen, 2, 2, 128, 64), \
+        randn(gen, 2, 2, 128, 64)
+    sx, sdt, sa, sb, sc = ssd_inputs(gen, 2, 130, 4, 2, 128, 64)
+    st = randn(gen, 2, 4, 128, 64)
+    dx, ddt, da, db, dc = ssd_inputs(gen, 2, 1, 4, 2, 128, 64)
+    dx, ddt, db, dc = dx[:, 0], ddt[:, 0], db[:, 0], dc[:, 0]
+    gx, gw = randn(gen, 4, 40, 96), randn(gen, 4, 96, 80)
+    cases = [
+        ("flash_attention", (q, k, v),
+         lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+         lambda q, k, v: ref.flash_attention(q, k, v, causal=True), err),
+        ("decode_attention", (qd, kc, vc),
+         lambda q, k, v: ops.decode_attention(q, k, v, 100),
+         lambda q, k, v: ref.decode_attention(q, k, v, 100), err),
+        ("ssd_scan", (sx, sdt, sb, sc),
+         lambda x, dt, b, c: ops.ssd_scan(x, dt, sa, b, c, chunk=64,
+                                          final_state=True),
+         lambda x, dt, b, c: ref.ssd_scan(x, dt, sa, b, c, chunk=64,
+                                          final_state=True), rel_err),
+        ("ssd_decode", (st, dx, ddt, db, dc),
+         lambda s, x, dt, b, c: ops.ssd_decode(s, x, dt, da, b, c),
+         lambda s, x, dt, b, c: ref.ssd_decode(s, x, dt, da, b, c), rel_err),
+        ("grouped_gemm", (gx, gw), lambda x, w: ops.grouped_gemm(x, w),
+         lambda x, w: ref.grouped_gemm(x, w), err)]
+    out = {}
+    for name, args, kernel, plain, measure in cases:
+        for i in range(len(args)):
+            live = [a.detach().clone().requires_grad_(j == i)
+                    for j, a in enumerate(args)]
+            try:
+                kernel(*live)
+            except InputError as e:
+                check(str(e).startswith(f"{name}: operand(s) [")
+                      and "require grad" in str(e), f"{name}: refusal {e}")
+            else:
+                check(False, f"{name}: operand {i} requires grad, and the "
+                             f"kernel ran")
+        with torch.no_grad():
+            live = [a.detach().clone().requires_grad_(True) for a in args]
+            got, want = kernel(*live), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        e = max(measure(g, w) for g, w in zip(got, want))
+        tol = RTOL_SSD_FP32 if measure is rel_err else ATOL_FP32
+        check(e <= tol, f"{name} under no_grad: err {e} > {tol}")
+        out[name] = e
+        print(f"[train] (d) {name}: each of its {len(args)} operands "
+              f"requiring grad refused (InputError); under no_grad the kernel "
+              f"{'rel ' if measure is rel_err else ''}err {e:.3g} against "
+              f"its plain version (tol {tol:g})")
+    return out
+
+
+def drill_child(root: str, report: str) -> None:
+    """One process of (e)'s drill: qwen3 at ``DRILL_LAYERS`` layers trained
+    to ``DRILL_STEPS`` on ``root`` (resuming from it), deterministic; the
+    final state's per-leaf sha256 and the losses go to ``report``."""
+    import hashlib
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.trainer import TrainConfig, train
+    logs = []
+
+    def log(msg):
+        logs.append(msg)
+        print(msg, flush=True)
+
+    out = train(train_cfg(DRILL_LAYERS),
+                ShapeConfig("drill", DRILL_SEQ, DRILL_BATCH, "train"),
+                optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=2,
+                                  total_steps=DRILL_STEPS),
+                TrainConfig(n_steps=DRILL_STEPS, param_dtype="bfloat16",
+                            ckpt_root=root, ckpt_every=DRILL_EVERY,
+                            log_every=1), device="cuda", log=log)
+    state = out["final_state"]
+    digests = {}
+
+    def walk(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                walk(val, prefix + key + "/")
+            else:
+                raw = val.detach().contiguous().reshape(-1).view(torch.uint8)
+                digests[prefix + key] = hashlib.sha256(
+                    raw.cpu().numpy().tobytes()).hexdigest()
+    walk(state.tree())
+    with open(report, "w") as f:
+        json.dump({"history": out["history"], "digests": digests,
+                   "step": state.step, "logs": logs}, f)
+
+
+def drill_process(root: Path, report: Path, log: Path) -> subprocess.Popen:
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=str(Path(__file__).resolve().parent / "src"))
+    code = ("import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            "chip_smoke.drill_child({root!r}, {report!r})").format(
+                here=str(Path(__file__).resolve().parent), root=str(root),
+                report=str(report))
+    return subprocess.Popen([sys.executable, "-c", code], env=env,
+                            stdout=open(log, "w"), stderr=subprocess.STDOUT)
+
+
+def drill() -> dict:
+    """(e): process A trains on one root and is SIGKILLed once ``LATEST``
+    names step ``DRILL_EVERY``; process B restarts on that root, resumes
+    there (the data stream's step too) and finishes; process C trains
+    uninterrupted on another root (beside A).  B's final params, optimizer
+    state and losses must equal C's bit for bit."""
+    import shutil
+    import signal
+    from repro_torch.checkpoint import manager as ckpt
+    if TRAIN_DIR.exists():
+        shutil.rmtree(TRAIN_DIR)
+    TRAIN_DIR.mkdir(parents=True)
+    root_ab, root_c = TRAIN_DIR / "ab", TRAIN_DIR / "c"
+    t0 = time.perf_counter()
+    a = drill_process(root_ab, TRAIN_DIR / "a.json", TRAIN_DIR / "a.log")
+    c = drill_process(root_c, TRAIN_DIR / "c.json", TRAIN_DIR / "c.log")
+    try:
+        want = f"step_{DRILL_EVERY:08d}"
+        latest = root_ab / "LATEST"
+        while a.poll() is None:
+            if latest.exists() and latest.read_text() == want:
+                a.send_signal(signal.SIGKILL)
+                break
+            time.sleep(0.02)
+        a.wait()
+        t_kill = time.perf_counter() - t0
+        check(a.returncode == -signal.SIGKILL,
+              f"drill: process A ended with {a.returncode} before LATEST "
+              f"named {want}: {(TRAIN_DIR / 'a.log').read_text()[-2000:]}")
+        steps_at_kill = ckpt.available_steps(str(root_ab))
+        b = drill_process(root_ab, TRAIN_DIR / "b.json", TRAIN_DIR / "b.log")
+        b.wait()
+        c.wait()
+    finally:
+        for p in (a, c):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for name, p in (("B", b), ("C", c)):
+        check(p.returncode == 0, f"drill: process {name} exit "
+              f"{p.returncode}: "
+              f"{(TRAIN_DIR / f'{name.lower()}.log').read_text()[-3000:]}")
+    rb = json.loads((TRAIN_DIR / "b.json").read_text())
+    rc = json.loads((TRAIN_DIR / "c.json").read_text())
+    resumed = [m for m in rb["logs"] if "resumed from" in m]
+    check(len(resumed) == 1 and resumed[0].endswith(
+        f"{want} at step {DRILL_EVERY}"), f"drill: B did not resume at "
+        f"{want}: {resumed}")
+    with open(root_ab / want / "manifest.json") as f:
+        extra = json.load(f)["extra"]
+    check(extra == {"step": DRILL_EVERY, "data_step": DRILL_EVERY},
+          f"drill: step {DRILL_EVERY}'s checkpoint holds {extra}")
+    lb = [h["loss"] for h in rb["history"]]
+    lc = [h["loss"] for h in rc["history"]]
+    same_state = rb["digests"] == rc["digests"]
+    differing = [n for n in rc["digests"]
+                 if rb["digests"].get(n) != rc["digests"][n]]
+    print(f"[train] (e) drill: A killed {t_kill:.1f} s in, with checkpoints "
+          f"at {steps_at_kill}; B resumed at step {DRILL_EVERY} and data "
+          f"step {extra['data_step']}, finished at {rb['step']}; C "
+          f"uninterrupted to {rc['step']}; B's {len(rb['digests'])} leaves "
+          f"(params, master, m, v, step) "
+          f"{'bit-identical to' if same_state else 'differ from'} C's "
+          f"({len(differing)} differ), losses after the resume "
+          f"{'equal' if lb == lc[DRILL_EVERY:] else 'differ'}: "
+          + " ".join(f"{v:.6f}" for v in lb) + f"; {wall:.1f} s wall")
+    check(rb["step"] == rc["step"] == DRILL_STEPS, "drill: final steps")
+    check(same_state, f"drill: B's state differs from C's in {differing[:5]}")
+    check(lb == lc[DRILL_EVERY:], f"drill: losses {lb} vs {lc}")
+    return {"kill_s": t_kill, "wall_s": wall, "leaves": len(rb["digests"]),
+            "bit_identical": same_state, "losses_after_resume": lb}
+
+
+def launcher_run() -> str:
+    """(f): ``launch.train`` at full width on the card, as a user runs it."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           TRAIN_ARCH, "--steps", "2", "--batch", str(TRAIN_BATCH), "--seq",
+           str(TRAIN_SEQ), "--pump", "4"]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                         timeout=600)
+    check(res.returncode == 0, f"launch.train exit {res.returncode}: "
+          f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    last = res.stdout.strip().splitlines()[-1]
+    check(last.startswith("[train] done: loss "), f"launch.train: {last}")
+    print(f"[train] (f) python -m repro_torch.launch.train "
+          f"{' '.join(cmd[3:])} ({time.perf_counter() - t0:.1f} s): {last}")
+    return last
+
+
+def phase_train() -> dict:
+    """Phase 11: training qwen3-0.6b at full width on the card, on the
+    plain routes (``attention_impl='xla_chunked'``, remat on), through
+    ``launch.steps.make_train_step``: (a) M 1 against M 4 from the same
+    params and batch, then each M's steady step, tokens/s and peak memory,
+    and the loss falling over the M 4 run; (b) no hand-written kernel
+    launched while training; (c) one M 1 step profiled; (d) every serving
+    kernel refusing tensors that require grad; (e) the kill-and-restore
+    drill; (f) the launcher.  Returns the phase's numbers."""
+    import gc
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, synthetic_batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = train_cfg()
+    print(f"[train] {TRAIN_ARCH} at full width and depth ({cfg.n_layers} "
+          f"layers, {cfg.param_count() / 1e6:.1f} M parameters, tied "
+          f"embeddings), bf16 params with fp32 master / m / v, remat on, "
+          f"plain routes; the n-gram stream at {TRAIN_BATCH} x {TRAIN_SEQ} "
+          f"(cut from train_4k's 256 x 4096, a batch sized for 256 chips); "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB held at the "
+          f"phase's start")
+    shape = ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH, "train")
+    batches = [synthetic_batch(cfg, shape, DataConfig(seed=0), i,
+                               device="cuda")
+               for i in range(TRAIN_STEADY + 2)]
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    runs, first = {}, {}
+    prof_dir = TRAIN_DIR.parent / "train_profile"
+    for pump in TRAIN_PUMPS:
+        runs[pump], first[pump], prof = train_run(
+            pump, batches, TRAIN_LR, prof_dir if pump == 1 else None)
+        if pump == 1:
+            runs[1]["profile"] = read_profile(
+                prof_dir / "train.step.pt.trace.json", runs[1]["steady_ms"])
+            runs[1]["profile"].update(prof)
+    launches = {n: mod.launches for n, mod in mods.items()}
+    print(f"[train] (b) hand-written kernel launches while training (a and "
+          f"c): {launches}")
+    check(not any(launches.values()), f"a kernel launched while training: "
+          f"{launches}")
+    held = hold_pumps(first, TRAIN_LR)
+    del first
+    l4 = runs[4]["losses"]
+    floor = float(np.log(cfg.vocab_size))
+    closed = (l4[0] - min(l4)) / (l4[0] - floor)
+    print(f"[train] (a) the M 4 run's loss {l4[0]:.4f} -> {l4[-1]:.4f}, "
+          f"lowest {min(l4):.4f}, closing {closed:.0%} of the gap to ln V "
+          f"= {floor:.4f} (bar: the last below the first, and at least "
+          f"{TRAIN_LOSS_GAP:.0%} of the gap closed)")
+    check(l4[-1] < l4[0] and closed >= TRAIN_LOSS_GAP,
+          f"the loss did not fall: {l4}")
+    check(runs[4]["peak_gib"] < runs[1]["peak_gib"],
+          f"M 4's peak {runs[4]['peak_gib']} not below M 1's "
+          f"{runs[1]['peak_gib']}")
+    del batches
+    refused = refusals()
+    drilled = drill()
+    last = launcher_run()
+    out = {"runs": {str(k): {kk: vv for kk, vv in v.items()
+                             if kk != "steady_ms_all"}
+                    for k, v in runs.items()},
+           "m1_vs_m4": held, "launches": launches, "refusals": refused,
+           "drill": drilled, "launcher": last,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"training": out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4146,6 +4644,8 @@ def main() -> int:
         del _ctx
     with timed("paper tables"):
         paths["paper"] = phase_paper()
+    with timed("training (11)"), guarded("train", guard):
+        phase_train()
     paths["compiler"] = compiler_launches
     print(json.dumps({"robustness": {
         "counters": robust, "launches": paths["robustness"],

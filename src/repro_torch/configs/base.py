@@ -3,7 +3,9 @@
 Field names and defaults match the reference dataclasses, so a config
 means the same in both packages.  Every reference config has its copy
 here (dense, SSM, MoE, hybrid, enc-dec and VLM), served by this port's
-model (``models.model``).
+model (``models.model``).  ``param_count`` / ``active_param_count``,
+``ShapeConfig``, ``SHAPES``, ``ARCH_IDS`` and ``cells`` are the
+reference's, the trainer's sizing and the assigned (arch x shape) grid.
 """
 from __future__ import annotations
 
@@ -110,6 +112,87 @@ class ModelConfig:
     def activation_dtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+    def param_count(self) -> int:
+        """Analytic parameter count (the reference's; the trainer's
+        ``resolve_pump`` sizes the gradient by it)."""
+        d, L, V = self.d_model, self.n_layers, self.vocab_size
+        hd = self.head_dim_
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        per_layer = 0
+        if self.family in ("dense", "moe", "encdec", "vlm", "hybrid"):
+            if self.mla:
+                m = self.mla
+                q = d * (self.n_heads * (m.nope_head_dim + m.rope_head_dim)) \
+                    if not m.q_lora_rank else \
+                    d * m.q_lora_rank + m.q_lora_rank * self.n_heads * (
+                        m.nope_head_dim + m.rope_head_dim)
+                kv = d * (m.kv_lora_rank + m.rope_head_dim) \
+                    + m.kv_lora_rank * self.n_heads * (
+                        m.nope_head_dim + m.v_head_dim)
+                o = self.n_heads * m.v_head_dim * d
+                attn = q + kv + o
+            else:
+                attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
+                    + self.n_heads * hd * d
+            per_layer += attn
+        ffn_dense = 3 * d * self.d_ff
+        if self.family == "moe" and self.moe:
+            mo = self.moe
+            ffn_moe = 3 * d * mo.d_expert * (
+                mo.n_experts + mo.n_shared_experts) + d * mo.n_experts
+            n_moe = L - mo.n_dense_layers
+            total_ffn = mo.n_dense_layers * ffn_dense + n_moe * ffn_moe
+            return emb + L * per_layer + total_ffn
+        if self.family in ("ssm", "hybrid") and self.ssm:
+            s = self.ssm
+            d_in = s.expand * d
+            n_h = d_in // s.head_dim
+            ssm_layer = (d * (2 * d_in + 2 * s.n_groups * s.state_dim + n_h)
+                         + d_in * d + s.conv_width * (
+                             d_in + 2 * s.n_groups * s.state_dim))
+            if self.family == "ssm":
+                return emb + L * ssm_layer
+            # hybrid: the shared attention + SwiGLU block counted once
+            return emb + L * ssm_layer + per_layer + ffn_dense
+        return emb + L * (per_layer + ffn_dense)
+
+    def active_param_count(self) -> int:
+        """Parameters a token uses (MoE: only the routed top-k)."""
+        if self.family != "moe" or not self.moe:
+            return self.param_count()
+        mo = self.moe
+        inactive = 3 * self.d_model * mo.d_expert * (mo.n_experts - mo.top_k) \
+            * (self.n_layers - mo.n_dense_layers)
+        return self.param_count() - inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+# archs for which long_500k is skipped (pure full-attention)
+FULL_ATTENTION_ARCHS = {
+    "deepseek-v3-671b", "deepseek-v2-lite-16b", "whisper-base",
+    "granite-3-2b", "qwen2.5-14b", "qwen2-7b", "qwen3-0.6b", "internvl2-2b",
+}
+
+ARCH_IDS = [
+    "mamba2-1.3b", "deepseek-v3-671b", "deepseek-v2-lite-16b", "whisper-base",
+    "granite-3-2b", "qwen2.5-14b", "qwen2-7b", "qwen3-0.6b", "internvl2-2b",
+    "zamba2-2.7b",
+]
+
 
 def _modname(arch_id: str) -> str:
     return arch_id.replace("-", "_").replace(".", "_")
@@ -118,3 +201,15 @@ def _modname(arch_id: str) -> str:
 def load_arch(arch_id: str, smoke: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{_modname(arch_id)}")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def cells(include_skipped: bool = False):
+    """All assigned (arch x shape) cells, the reference's grid."""
+    out = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES.values():
+            skip = shape.name == "long_500k" and arch in FULL_ATTENTION_ARCHS
+            if skip and not include_skipped:
+                continue
+            out.append((arch, shape.name))
+    return out

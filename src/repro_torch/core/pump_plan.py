@@ -32,6 +32,9 @@ PEAK_FLOPS_FP32 = 67e12           # fp32 on CUDA cores, an FMA = 2 FLOPs
 PEAK_OPS_FP32 = PEAK_FLOPS_FP32 / 2   # fp32 add, mul or min, one per op
 SMEM_BYTES = 227 * 1024           # shared memory one block may use
 SMS = 132                         # streaming multiprocessors (H100 SXM)
+# NVLink 4, one direction (900 GB/s both ways): the link a data-parallel
+# gradient all-reduce between H100s rides, in place of the TPU's ICI
+LINK_BW = 450e9
 STAGE_K = 32                      # widest K-slice the region kernel stages
 
 
@@ -101,6 +104,26 @@ def plan_kernel_pump(block_bytes_in: int, block_bytes_out: int,
                          panel_bytes=panel_bytes)
     m = best_pump_factor(est, max_factor=max_factor, smem_budget=smem_budget)
     return PumpSpec(factor=m, mode=mode, axis=axis, vmem_budget=smem_budget)
+
+
+def plan_trainer_pump(grad_bytes: int, step_flops: float, n_chips: int,
+                      dp_degree: int, max_factor: int = 64) -> int:
+    """Microbatches per gradient synchronization: the reference's law at
+    the H100's constants.  A ring all-reduce over ``d = max(dp_degree, 2)``
+    data shards moves ``2 (d - 1) / d · grad_bytes`` a card over
+    ``LINK_BW``; one microbatch computes ``step_flops / n_chips`` at
+    ``PEAK_FLOPS_BF16``.  M doubles (up to ``max_factor``) until the
+    collective, paid once per M microbatches, is under 10 % of their
+    compute."""
+    d = max(dp_degree, 2)
+    coll_time = 2 * (d - 1) / d * grad_bytes / LINK_BW
+    mb_compute = step_flops / n_chips / PEAK_FLOPS_BF16
+    if mb_compute <= 0:
+        return 1
+    m = 1
+    while m < max_factor and coll_time / m > 0.1 * mb_compute * m:
+        m *= 2
+    return m
 
 
 def dot_panel_bytes(rows: int, cols: int, depth: int, itemsize: int) -> int:

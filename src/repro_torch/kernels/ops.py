@@ -3,7 +3,12 @@
 A CUDA tensor launches the hand-written kernel or raises a
 ``_build.KernelError`` (no build, no case for its inputs, a failed
 launch); a CPU tensor takes the plain PyTorch version in ``ref``.
-Nothing falls back from the card to the plain version.  The launch
+Nothing falls back from the card to the plain version.  The kernels have
+no backward (nor does the reference define one), so on the card a wrapper
+refuses, with an ``InputError`` naming its kernel, any tensor operand that
+requires grad while grad mode is on (``_launch``, ``grad_refusal``): a
+launch would silently cut the gradient there.  Training runs the plain
+routes; a CPU tensor keeps its differentiable plain version.  The launch
 counts live on the kernel modules (``flash_attention.launches``,
 ``decode_attention.launches``, ``ssd_scan.launches``,
 ``ssd_decode.launches``, ``vecadd.launches``, ``matmul.launches``,
@@ -66,6 +71,34 @@ def _route(x: torch.Tensor, name: str) -> bool:
     raise InputError(f"{name}: unsupported device {x.device}")
 
 
+def grad_refusal(name: str, tensors: Sequence) -> Optional[str]:
+    """Why ``name``'s kernel cannot take ``tensors`` under autograd: the
+    message when grad mode is on and a tensor among them requires grad,
+    else None."""
+    if not torch.is_grad_enabled():
+        return None
+    which = [i for i, t in enumerate(tensors)
+             if isinstance(t, torch.Tensor) and t.requires_grad]
+    if not which:
+        return None
+    return (f"{name}: operand(s) {which} require grad, and the CUDA kernel "
+            f"has no backward; train on the plain route (attention_impl="
+            f"'xla_chunked', ssm_impl='xla', the MoE capacity route) or "
+            f"call it under torch.no_grad()")
+
+
+def _launch(name: str, *tensors) -> bool:
+    """``_route`` on the first tensor: True for the kernel, False for the
+    plain version.  On the kernel's route, a tensor that requires grad
+    under grad mode raises ``InputError`` (``grad_refusal``)."""
+    if not _route(tensors[0], name):
+        return False
+    why = grad_refusal(name, tensors)
+    if why is not None:
+        raise InputError(why)
+    return True
+
+
 Pump = Union[PumpSpec, int, Tuple[int, str], str]
 
 
@@ -119,7 +152,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         max_factor=_max_built(lambda f: _fa.built(f, "T", d, q.dtype)),
         block_bytes_in=2 * bkv * d * isz, block_bytes_out=0,
         flops_per_block=4.0 * bq * bkv * d)
-    if _route(q, "flash_attention"):
+    if _launch("flash_attention", q, k, v):
         return _fa.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
                                         pump=spec, stats=stats)
     return ref.flash_attention(q, k, v, causal=causal, scale=scale,
@@ -143,7 +176,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                  scale=scale, dtype=_dtype_name(q)),
             _max_built(lambda f: _da.built(f, "T", h // max(hkv, 1), d,
                                            k_cache.dtype)))
-    if _route(q, "decode_attention"):
+    if _launch("decode_attention", q, k_cache, v_cache, pos):
         return _da.decode_attention_cuda(q, k_cache, v_cache, pos,
                                          scale=scale, pump=spec)
     return ref.decode_attention(q, k_cache, v_cache, pos, scale=scale)
@@ -169,7 +202,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         block_bytes_in=chunk * (p + 1 + 2 * n) * 4,
         block_bytes_out=chunk * p * 4,
         flops_per_block=2.0 * chunk * chunk * (n + p))
-    if _route(x, "ssd_scan"):
+    if _launch("ssd_scan", x, dt, A, B, C):
         return _ss.ssd_scan_cuda(x, dt, A, B, C, chunk=chunk,
                                  final_state=final_state, pump=spec)
     return ref.ssd_scan(x, dt, A, B, C, chunk=chunk, final_state=final_state)
@@ -191,7 +224,7 @@ def ssd_decode(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
             dict(itemsize=x.element_size(), n_groups=B.shape[1],
                  dtype=_dtype_name(x)),
             _max_built(lambda f: h % f == 0))
-    if _route(x, "ssd_decode"):
+    if _launch("ssd_decode", x, state, dt, A, B, C):
         return _sd.ssd_decode_cuda(state, x, dt, A, B, C, pump=spec)
     return ref.ssd_decode(state, x, dt, A, B, C)
 
@@ -200,7 +233,7 @@ def region_map_reduce(desc, operands: Sequence[torch.Tensor]) -> torch.Tensor:
     """The fused-region map/reduce kernel on a ``RegionDesc`` (see
     ``kernels.region_map_reduce``): CUDA operands launch it, CPU operands
     take its plain version."""
-    if _route(operands[0], "region_map_reduce"):
+    if _launch("region_map_reduce", *operands):
         return _rmr.region_map_reduce_cuda(desc, operands)
     return ref.region_map_reduce(desc, operands)
 
@@ -277,7 +310,7 @@ def vecadd(x: torch.Tensor, y: torch.Tensor, *, vector_width: int = 8,
     if spec.mode == "R" and vector_width % spec.factor:
         raise ValueError(f"V={vector_width} not divisible by M={spec.factor} "
                          f"in mode R")
-    if _route(x, "vecadd"):
+    if _launch("vecadd", x, y):
         return _va.vecadd_cuda(x, y, vector_width=vector_width, pump=spec)
     return ref.vecadd(x, y)
 
@@ -305,7 +338,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, bm: int = 64, bn: int = 64,
     if spec.mode == "R" and bn % spec.factor:
         raise ValueError(f"bn={bn} not divisible by M={spec.factor} for "
                          f"mode R")
-    if _route(a, "matmul"):
+    if _launch("matmul", a, b):
         return _mm.matmul_cuda(a, b, bm=bm, bn=bn, bk=bk, pump=spec,
                                out_dtype=out_dtype)
     return ref.matmul(a, b, out_dtype=out_dtype or a.dtype)
@@ -319,7 +352,7 @@ def stencil_chain(x: torch.Tensor, stages: int, *, kind: str = "jacobi",
     f = _fixed_spec(pump, "stencil_chain").factor
     if (x.shape[0] - 2) % f:
         raise ValueError("interior plane count must divide the pump factor")
-    if _route(x, "stencil_chain"):
+    if _launch("stencil_chain", x):
         return _st.stencil_chain_cuda(x, stages, kind=kind, coef=coef,
                                       pump=f)
     return ref.stencil_chain(x, stages, kind=kind, coef=coef)
@@ -333,7 +366,7 @@ def floyd_warshall(dist: torch.Tensor, *,
     n = dist.shape[0]
     if n % f:
         raise ValueError(f"n={n} must divide pump factor {f}")
-    if _route(dist, "floyd_warshall"):
+    if _launch("floyd_warshall", dist):
         return _fw.floyd_warshall_cuda(dist, pump=f)
     return ref.floyd_warshall(dist)
 
@@ -474,14 +507,14 @@ def grouped_gemm(x: torch.Tensor, w: torch.Tensor, *, bc: int = 16,
         if x.dim() != 2 or x.shape[1] != d:
             raise ValueError(f"ragged x {tuple(x.shape)} does not chain with "
                              f"w {tuple(w.shape)}")
-        if _route(x, "grouped_gemm"):
+        if _launch("grouped_gemm", x, w, tiles):
             return _gg.grouped_gemm_cuda(x, w, tiles, bc=bc, bf=bf, bd=bd,
                                          pump=spec)
         return ref.ragged_grouped_gemm(x, w, tiles)
     if x.dim() != 3 or x.shape[0] != e or x.shape[2] != d:
         raise ValueError(f"grouped_gemm: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} do not chain")
-    if not _route(x, "grouped_gemm"):
+    if not _launch("grouped_gemm", x, w):
         return ref.grouped_gemm(x, w)
     c = x.shape[1]
     tiles = _gg.tile_table(torch.full((e,), c, device=x.device), bc,

@@ -16,7 +16,10 @@ start position is layer 0's ``pos``.  ``decode(..., last_only=True)``
 projects only the final position, as the Engine's prefill reads no other
 (the reference projects all S).  The sinusoid rows are computed at the
 positions that need them, with the reference table's formula, instead of
-indexing a 2^15-row table.  Attribute names are the reference params
+indexing a 2^15-row table.  ``loss_fn`` is the decoder's cross-entropy
+over every position (training projects them all); under grad mode each
+encoder and decoder block runs under ``layers.remat`` when ``cfg.remat``,
+the reference's checkpointed scan bodies.  Attribute names are the reference params
 tree's (``frontend_proj.w``, ``enc_blocks.<i>.attn.wq.w``,
 ``dec_blocks.<i>.cross_attn.wk.w``, ``dec_norm.bias`` ...).
 """
@@ -28,8 +31,8 @@ import torch
 from torch import nn
 
 from .attention import GQA, gqa_apply, gqa_cache_init
-from .layers import (Dense, Embedding, GeluMLP, LayerNorm, dense, embed,
-                     gelu_mlp, layernorm, unembed)
+from .layers import (Dense, Embedding, GeluMLP, LayerNorm, cross_entropy,
+                     dense, embed, gelu_mlp, layernorm, remat, unembed)
 
 
 def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
@@ -109,7 +112,7 @@ def encode(cfg, model: EncDec, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(x.shape[1], device=x.device)
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)[None]
     for block in model.enc_blocks:
-        x = enc_block_apply(block, cfg, x, positions)
+        x = remat(cfg, enc_block_apply, block, cfg, x, positions)
     return layernorm(model.enc_norm, x, cfg.norm_eps)
 
 
@@ -126,8 +129,12 @@ def decode(cfg, model: EncDec, tokens: torch.Tensor, enc_out: torch.Tensor,
     x = x + sinusoid(positions, cfg.d_model).to(x.dtype)[None]
     new_caches = []
     for i, block in enumerate(model.dec_blocks):
-        x, nc = dec_block_apply(block, cfg, x, enc_out, positions,
-                                caches[i] if caches is not None else None)
+        if caches is None:
+            x, nc = remat(cfg, dec_block_apply, block, cfg, x, enc_out,
+                          positions)
+        else:
+            x, nc = dec_block_apply(block, cfg, x, enc_out, positions,
+                                    caches[i])
         new_caches.append(nc)
     if last_only:
         x = x[:, -1:]
@@ -143,6 +150,13 @@ def forward(cfg, model: EncDec, batch: Dict, *, last_only: bool = False
     logits, _ = decode(cfg, model, batch["tokens"], enc_out,
                        last_only=last_only)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+
+
+def loss_fn(cfg, model: EncDec, batch: Dict) -> torch.Tensor:
+    """batch: dict(frames, tokens, labels) -> the decoder's mean
+    cross-entropy over all positions."""
+    logits, _ = forward(cfg, model, batch)
+    return cross_entropy(logits, batch["labels"])
 
 
 def init_cache(cfg, batch: int, max_len: int,

@@ -8,7 +8,10 @@ params dict.  The numerics follow the reference: ``dense`` is ``x @ w``
 with w in (d_in, d_out) layout, ``rmsnorm`` and ``layernorm`` compute in
 fp32 and cast back, the GELU MLP takes JAX's default (tanh) GELU,
 ``embed`` casts the table to the activation dtype, ``unembed`` is an
-fp32 product against the table, and rope rotates split halves.
+fp32 product against the table, rope rotates split halves, and
+``cross_entropy`` is the mean token loss over labels that are not -100.
+A block's apply runs under ``remat`` when the model trains (``cfg.remat``
+and grad mode on), as the reference checkpoints its scan body.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 
@@ -164,3 +168,35 @@ def slot_step(pos: torch.Tensor, length: Optional[int] = None) -> SlotStep:
     return SlotStep(pos + 1, torch.arange(pos.shape[0], device=pos.device),
                     pos.clamp(max=length - 1), pos < length,
                     keys[None, :] <= pos[:, None])
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_weight: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy (+ optional z-loss) over the labels that are
+    not negative (-100 marks a position without one), the reference's
+    ``cross_entropy``; 0 where no label is valid."""
+    mask = labels >= 0
+    safe = torch.where(mask, labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    # the label's logit by advanced indexing: its backward is an
+    # index_put with accumulate, which has a deterministic CUDA kernel
+    rows = logits.reshape(-1, logits.shape[-1])
+    ll = rows[torch.arange(rows.shape[0], device=rows.device),
+              safe.reshape(-1)].reshape(safe.shape)
+    nll = logz - ll
+    if z_weight:
+        nll = nll + z_weight * logz.square()
+    denom = mask.sum().clamp(min=1)
+    return torch.where(mask, nll, 0.0).sum() / denom
+
+
+def remat(cfg, fn, *args):
+    """``fn(*args)``, recomputed in the backward pass instead of keeping its
+    activations when the model trains (``cfg.remat`` and grad mode on): the
+    reference's ``jax.checkpoint`` of a block.  Serving (``no_grad``) calls
+    ``fn`` as it is.  The blocks draw no random numbers, so no RNG state is
+    stashed."""
+    if not (cfg.remat and torch.is_grad_enabled()):
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)

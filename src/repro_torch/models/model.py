@@ -3,7 +3,10 @@
 Every family of the reference is ported: dense, SSM, MoE and hybrid
 (``transformer``, with GQA or MLA attention), enc-dec (``encdec``) and VLM
 (``multimodal``: the dense backbone behind a projector), dispatched as the
-reference's ``models/model.py`` does.
+reference's ``models/model.py`` does.  ``loss_fn`` is the trainer's
+entry point; ``example_batch`` the reference's seeded batch, drawn on the
+port's threefry key chain (``serve.prng``) so that its tokens equal the
+JAX package's bit for bit.
 """
 from __future__ import annotations
 
@@ -40,6 +43,49 @@ def build(cfg, dtype: torch.dtype = torch.float32) -> nn.Module:
     if cfg.family == "vlm":
         return multimodal.VLM(cfg, dtype)
     return transformer.Transformer(cfg, dtype)
+
+
+def loss_fn(cfg, model, batch: Dict) -> torch.Tensor:
+    """batch: tokens and labels (B, S), with frames (encdec) or patches
+    (vlm) -> the scalar training loss."""
+    check_supported(cfg)
+    return _mod(cfg).loss_fn(cfg, model, batch)
+
+
+def example_batch(cfg, shape, key=None, batch_override: Optional[int] = None,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """The reference's ``example_batch``: tokens uniform over the vocab
+    from ``split(key)[0]``, labels the tokens shifted left with -100 last,
+    frames or patches standard normal from ``split(key)[1]``; ``key``
+    defaults to ``PRNGKey(0)``.  Tokens and labels are int64 (torch's index
+    dtype), drawn on ``device`` (default the CPU)."""
+    from repro_torch.serve import prng
+    key = key if key is not None else prng.PRNGKey(0)
+    b = batch_override or shape.global_batch
+    k1, k2 = prng.split(key)
+    tokens = prng.randint(k1, (b, shape.seq_len), 0, cfg.vocab_size, device)
+    return lm_batch(cfg, tokens, k2)
+
+
+def lm_batch(cfg, tokens: torch.Tensor, key) -> Dict[str, torch.Tensor]:
+    """A training batch around ``tokens`` (B, S): int64 tokens, labels
+    shifted left with -100 last, and for the stub frontends frames
+    (encdec) or patches (vlm), standard normal draws from ``key`` on the
+    tokens' device (the reference's ``example_batch`` and
+    ``synthetic_batch`` both build theirs so)."""
+    from repro_torch.serve import prng
+    tokens = tokens.long()
+    b, dev = tokens.shape[0], tokens.device
+    labels = torch.roll(tokens, -1, dims=1)
+    labels[:, -1] = -100
+    batch = {"tokens": tokens, "labels": labels}
+    if cfg.family == "encdec":
+        batch["frames"] = prng.normal(key, (b, cfg.encoder_seq, cfg.d_model),
+                                      dev)
+    if cfg.family == "vlm":
+        batch["patches"] = prng.normal(
+            key, (b, cfg.n_vision_tokens, cfg.d_vision), dev)
+    return batch
 
 
 def forward(cfg, model, batch: Dict, *, last_only: bool = False):

@@ -212,7 +212,10 @@ def _capacity_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     overflow, the expert SwiGLU runs as batched products over the first cap
     rows and the kept slots gather back, weighted by their gates.  The
     buffers are freed as the products go: at deepseek-v2-lite's serving
-    prefill (cap = t·k = 24,576) each is several GB."""
+    prefill (cap = t·k = 24,576) each is several GB.  This is also the
+    training route (GShard capacity, ``moe_apply(dropless=False)``): under
+    grad mode the SwiGLU is out of place, as autograd keeps both
+    products."""
     t, d = xt.shape
     e, k = p.gate.shape[0], idx.shape[1]
     dev = xt.device
@@ -229,8 +232,13 @@ def _capacity_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     buf = torch.zeros((e, cap + 1, d), dtype=xt.dtype, device=dev)
     buf[flat_e, posc] = xt.repeat_interleave(k, dim=0)
     expert_in = buf[:, :cap]
-    h = F.silu(torch.bmm(expert_in, p.gate.to(xt.dtype)), inplace=True)
-    h.mul_(torch.bmm(expert_in, p.up.to(xt.dtype)))
+    gate_in = torch.bmm(expert_in, p.gate.to(xt.dtype))
+    up = torch.bmm(expert_in, p.up.to(xt.dtype))
+    if torch.is_grad_enabled():
+        h = F.silu(gate_in) * up
+    else:
+        h = F.silu(gate_in, inplace=True).mul_(up)
+    del gate_in, up
     del buf, expert_in
     expert_out = torch.bmm(h, p.down.to(xt.dtype))                # (E, cap, d)
     del h

@@ -7,7 +7,9 @@ bridge: LayerNorm over d_vision, biased fc1, tanh GELU, biased fc2), so
 its state-dict names are the reference tree's flattened.  The backbone is
 ``models.transformer`` with the projected patches as prefix embeddings;
 the cache and decode step are the dense family's, as in the reference
-(serving is text-only: no decode path reads patches).
+(serving is text-only: no decode path reads patches).  ``loss_fn`` is
+the backbone's with the projected patches as the prefix, whose positions
+carry no labels.
 """
 from __future__ import annotations
 
@@ -51,6 +53,13 @@ def forward(cfg, model: VLM, batch: Dict, *, last_only: bool = False
                                input_embeds=project(cfg, model,
                                                     batch["patches"]),
                                last_only=last_only)
+
+
+def loss_fn(cfg, model: VLM, batch: Dict) -> torch.Tensor:
+    """batch: dict(patches, tokens, labels) -> scalar loss."""
+    return transformer.loss_fn(
+        cfg, model, {"tokens": batch["tokens"], "labels": batch["labels"],
+                     "input_embeds": project(cfg, model, batch["patches"])})
 
 
 def init_cache(cfg, batch: int, max_len: int,

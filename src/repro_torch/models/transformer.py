@@ -21,12 +21,18 @@ follow the reference params tree (``embed.embedding``,
 A config with ``mtp_depth`` (deepseek-v3) carries the reference's
 multi-token-prediction block as ``mtp``, a ``DenseBlock``, so the reference
 tree loads whole.  As in the reference's ``forward`` and ``decode_step``,
-nothing on the serving path reads it: only the reference's ``loss_fn``
-does (``repro/models/transformer.py:253-262``), which comes with training
-(ROADMAP.md queue 1, item 8).
+nothing on the serving path reads it; ``loss_fn`` does (ROADMAP.md queue
+1, item 8): the block predicts token t + 2 from the embeddings, and its
+cross-entropy adds at weight 0.1.
 
-Public API: ``Transformer``, ``forward``, ``init_cache``, ``decode_step``,
-``plan_requests``.
+Training (``loss_fn`` under grad mode) wraps each block's apply in
+``layers.remat`` when ``cfg.remat``, the reference's per-block
+``jax.checkpoint``; an MoE block takes the capacity route with its Switch
+aux loss.  Training runs the plain routes: the kernels have no backward
+and refuse tensors that require grad (``kernels.ops``).
+
+Public API: ``Transformer``, ``forward``, ``loss_fn``, ``init_cache``,
+``decode_step``, ``plan_requests``.
 """
 from __future__ import annotations
 
@@ -37,8 +43,9 @@ from torch import nn
 
 from .attention import (GQA, MLA, gqa_apply, gqa_cache_init, mla_apply,
                         mla_cache_init)
-from .layers import (Dense, Embedding, RMSNorm, SlotStep, SwiGLU, dense, embed,
-                     rmsnorm, slot_step, swiglu, unembed)
+from .layers import (Dense, Embedding, RMSNorm, SlotStep, SwiGLU,
+                     cross_entropy, dense, embed, remat, rmsnorm, slot_step,
+                     swiglu, unembed)
 from .moe import MoE, moe_apply
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
 
@@ -154,6 +161,14 @@ class Transformer(nn.Module):
             self.mtp = DenseBlock(cfg, dtype)
 
 
+def _run_block(cfg, apply, block, x, positions, cache, slots):
+    """One block's apply; without a cache under ``layers.remat`` (the
+    reference checkpoints only its cache-less scan body)."""
+    if cache is None:
+        return remat(cfg, apply, block, cfg, x, positions)
+    return apply(block, cfg, x, positions, cache, slots)
+
+
 def _backbone(cfg, model: Transformer, x: torch.Tensor,
               positions: torch.Tensor, caches: Optional[Dict] = None,
               slots: Optional[SlotStep] = None):
@@ -171,13 +186,13 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
         blocks, shared = [], []
         for gi in range(n_groups):
             for i in range(gi * g, (gi + 1) * g):
-                x, _, nc = mamba_block_apply(
-                    model.blocks[i], cfg, x, positions,
+                x, _, nc = _run_block(
+                    cfg, mamba_block_apply, model.blocks[i], x, positions,
                     caches["blocks"][i] if caches is not None else None,
                     slots)
                 blocks.append(nc)
-            x, _, nc = dense_block_apply(
-                model.shared_attn, cfg, x, positions,
+            x, _, nc = _run_block(
+                cfg, dense_block_apply, model.shared_attn, x, positions,
                 caches["shared_attn"][gi] if caches is not None else None,
                 slots)
             shared.append(nc)
@@ -188,9 +203,9 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
         apply = _BLOCKS[kind][1]
         layers: List[Dict] = []
         for i, block in enumerate(getattr(model, name)):
-            x, aux, nc = apply(block, cfg, x, positions,
-                               caches[name][i] if caches is not None
-                               else None, slots)
+            x, aux, nc = _run_block(cfg, apply, block, x, positions,
+                                    caches[name][i] if caches is not None
+                                    else None, slots)
             if aux is not None:
                 aux_total = aux_total + aux
             layers.append(nc)
@@ -221,6 +236,29 @@ def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
     if last_only:
         x = x[:, -1:]
     return _logits(cfg, model, x), aux
+
+
+def loss_fn(cfg, model: Transformer, batch: Dict) -> torch.Tensor:
+    """batch: dict(tokens (B, S), labels (B, S)[, input_embeds (B, P, d)])
+    -> scalar loss: the mean cross-entropy, the MoE layers' aux loss, and
+    with ``mtp_depth`` 0.1 x the MTP block's loss on the labels two ahead.
+    A VLM's prefix positions carry label -100."""
+    embeds = batch.get("input_embeds")
+    logits, aux = forward(cfg, model, batch["tokens"], input_embeds=embeds)
+    labels = batch["labels"]
+    if embeds is not None:
+        pad = torch.full(embeds.shape[:2], -100, dtype=labels.dtype,
+                         device=labels.device)
+        labels = torch.cat([pad, labels], dim=1)
+    loss = cross_entropy(logits, labels)
+    if cfg.mtp_depth:
+        x = embed(model.embed, batch["tokens"], cfg.activation_dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        h, _, _ = dense_block_apply(model.mtp, cfg, x, positions)
+        l2 = torch.nn.functional.pad(batch["labels"][:, 2:], (0, 2),
+                                     value=-100)
+        loss = loss + 0.1 * cross_entropy(_logits(cfg, model, h), l2)
+    return loss + aux
 
 
 def init_cache(cfg, batch: int, max_len: int,

@@ -30,7 +30,22 @@ The pieces, as JAX defines them (``jax/_src/prng.py``,
   uniform draw on ``[tiny, 1)`` (JAX's ``mode='low'``); ``categorical``:
   the argmax of gumbel noise plus the logits.
 
-The raw bits, and so ``uniform``, are exact on every device.  ``log``
+The data stream's draws (``data.pipeline``, ``models.model.
+example_batch``), as JAX 0.9.0 defines them (``jax/_src/random.py``):
+
+* ``randint(key, shape, lo, hi)`` (int32): two bit streams from
+  ``split(key)``'s keys, ``hi_bits`` and ``lo_bits``; with ``span = hi -
+  lo`` and ``mult = (2^16 mod span)^2 mod span`` in uint32 arithmetic
+  (the square wraps), the draw is ``lo + ((hi_bits mod span) · mult +
+  lo_bits mod span) mod span``, every product and sum wrapping at 2^32;
+* ``bernoulli(key, p, shape)``: ``uniform(key, shape) < p`` in float32;
+* ``normal(key, shape)``: ``sqrt(2) · erfinv(u)`` for ``u`` uniform on
+  ``[nextafter(-1, 0), 1)``, in float32.
+
+The raw bits, and so ``uniform``, ``randint`` and ``bernoulli``, are
+exact on every device; ``normal`` goes through ``erfinv``, whose float32
+approximations differ by a few ulps between XLA and torch (and between the
+card and the host).  ``log``
 differs by an ulp between libraries, so a categorical draw agrees with
 JAX's (and the card's with the host's) except where the top two perturbed
 scores nearly tie.
@@ -156,6 +171,52 @@ def uniform(key: Key, shape: Sequence[int], minval: float = 0.0,
     return _to_uniform(random_bits(key, shape, device), minval, maxval)
 
 
+def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,
+            device=None) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32): int32
+    values on ``device``.  A span of 2^32 (the whole int32 range) is not
+    drawn."""
+    i32 = (-(1 << 31), (1 << 31) - 1)
+    out_of_range = maxval > i32[1]
+    minval = min(max(int(minval), i32[0]), i32[1])
+    maxval = min(max(int(maxval), i32[0]), i32[1])
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    if out_of_range and maxval > minval:
+        span = (span + 1) & MASK
+    if span == 0:
+        raise ValueError("randint: a span of 2^32 is not supported")
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    mult = (1 << 16) % span
+    mult = ((mult * mult) & MASK) % span
+    # (higher mod span) · mult mod 2^32, in int64 without overflow: mult
+    # in 16-bit halves, each partial product under 2^48
+    a = higher % span
+    prod = ((a * (mult >> 16) & 0xFFFF) << 16) + a * (mult & 0xFFFF)
+    offset = (((prod & MASK) + lower % span) & MASK) % span
+    return (offset + minval).to(torch.int32)
+
+
+def bernoulli(key: Key, p: float, shape: Sequence[int], device=None
+              ) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` (``mode='low'``): bool."""
+    return uniform(key, shape, device=device) < _full(p, device or "cpu")
+
+
+# float32's sqrt(2) and the low end of normal's uniform draw
+_SQRT2 = float(np.float32(np.sqrt(2)))
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+
+def normal(key: Key, shape: Sequence[int], device=None) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``: ``sqrt(2) ·
+    erfinv(u)``, u uniform on ``[nextafter(-1, 0), 1)``.  The uniform draw
+    is exact; ``erfinv`` is torch's, a few float32 ulps from XLA's."""
+    u = uniform(key, shape, _NORMAL_LO, 1.0, device)
+    return torch.erfinv(u) * _full(_SQRT2, u.device)
+
+
 def _gumbel_of(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(_to_uniform(bits, _TINY, 1.0)))
 
@@ -203,5 +264,5 @@ def scaled(logits: torch.Tensor, temperature: float) -> torch.Tensor:
 
 
 __all__ = ["Key", "PRNGKey", "split", "fold_in", "threefry2x32",
-           "random_bits", "uniform", "gumbel", "categorical",
-           "categorical_rows", "scaled"]
+           "random_bits", "uniform", "randint", "bernoulli", "normal",
+           "gumbel", "categorical", "categorical_rows", "scaled"]

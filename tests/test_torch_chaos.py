@@ -32,7 +32,10 @@ check is refused, not served through the kernel the check rejected.  The
 reference's artifact and tuner rows (``ARTIFACT_MATRIX``, the lease
 faults) run the port's tuner fleet and a replica warm-started from its
 artifact, each beside the JAX package's under the same rule.  The
-reference's checkpoint and trainer rows wait for ROADMAP queue 1 item 8.
+reference's train rungs (ROADMAP queue 1 item 8): the recovery loop
+skipping a corrupt latest checkpoint (counted) and healing it, beside the
+JAX package's loop on the same schedule, and the trainer stamping its
+heartbeat and gauging the straggler policy's pump.
 """
 import dataclasses
 import functools
@@ -802,6 +805,79 @@ def test_plan_failing_its_spot_check_is_refused_on_the_card(baseline,
     np.testing.assert_array_equal(toks2, toks)
     assert {k: _ctr(k) for k in again} == again
     assert eng.degraded_requests == 0
+
+
+# ------------------------------------------------------------- train rungs --
+def _recovery_run(pkg, root):
+    """The reference's corrupt-latest row on either package: a failure at
+    step 10 that first corrupts step 10's shard.  Returns (final x,
+    ``failover.ckpt_skipped`` delta, step 10 verifies)."""
+    if pkg == "jax":
+        from repro import obs as o
+        from repro.checkpoint import manager as ck
+        from repro.runtime import failover as fo
+        zero = jax.numpy.zeros(())
+    else:
+        o = obs
+        from repro_torch.checkpoint import manager as ck
+        from repro_torch.runtime import failover as fo
+        zero = torch.zeros(())
+    calls = {"fail_at": 10}
+
+    def train_fn(state, step):
+        if step == calls["fail_at"]:
+            calls["fail_at"] = None
+            shard = os.path.join(root, "step_00000010", "shard_00000.npz")
+            with open(shard, "r+b") as f:
+                f.seek(10)
+                f.write(b"\xde\xad\xbe\xef")
+            raise fo.FailureInjected("simulated node loss")
+        return {"x": state["x"] + 1.0}
+
+    before = _counters(o, ("failover.ckpt_skipped",))
+    final = fo.run_with_recovery(train_fn, {"x": zero}, n_steps=12,
+                                 ckpt_root=root, ckpt_every=5)
+    skipped = _delta(_counters(o, ("failover.ckpt_skipped",)), before)
+    return (float(final["x"]), skipped["failover.ckpt_skipped"],
+            ck.verify(os.path.join(root, "step_00000010")))
+
+
+def test_recovery_skips_corrupt_latest_checkpoint(tmp_path):
+    """run_with_recovery's except path: a latest checkpoint whose payload
+    fails hash verification is skipped (counted) and the previous valid one
+    restores; the re-run re-saves step 10, healing it.  The JAX package's
+    loop on the same schedule ends the same, with the same count."""
+    got = _recovery_run("torch", str(tmp_path / "p"))
+    want = _recovery_run("jax", str(tmp_path / "j"))
+    assert got[0] == 12.0                # resumed from step 5, not 10
+    assert got[1] > 0 and got[2]
+    assert got == want
+
+
+def test_trainer_wires_heartbeat_and_straggler():
+    """The launch path's failover wiring: train() stamps the heartbeat every
+    step and feeds step times to the straggler policy, gauging the derated
+    pump factor."""
+    from repro_torch import optim
+    from repro_torch.configs.base import ModelConfig, ShapeConfig
+    from repro_torch.runtime.failover import Heartbeat, StragglerPolicy
+    from repro_torch.train.trainer import TrainConfig, train
+
+    tiny = ModelConfig("tiny", "dense", 2, 32, 4, 2, 64, 64, dtype="float32")
+    shape = ShapeConfig("t", 32, 8, "train")
+    hb = Heartbeat(timeout_s=60.0)
+    pol = StragglerPolicy()
+    out = train(tiny, shape, optim.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                               total_steps=5),
+                TrainConfig(n_steps=5, log_every=5), device="cpu",
+                heartbeat=hb, straggler=pol, log=lambda *a, **k: None)
+    worker = 0
+    assert hb._step[worker] == 5           # stamped through the last step
+    assert hb.dead_workers() == []
+    assert worker in pol._t                # EWMAs observed
+    assert pol.base_pump == out["pump"]
+    snap = obs.snapshot(include_views=False)
+    assert snap["gauges"].get("train.pump_derated") == out["pump"]
 
 
 # ------------------------------------------------------- artifact warm start --

@@ -105,3 +105,27 @@ def test_tuner_defaults_to_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tune.main(["--arch", "qwen3-0.6b", "--smoke",
                    "--work-dir", str(tmp_path / "w")])
+
+
+def test_trainer_defaults_to_cuda(monkeypatch, tmp_path):
+    """The trainer and its launcher train on the card unless asked for the
+    CPU."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.qwen3_0_6b import SMOKE
+    from repro_torch.data.pipeline import synthetic_batch, DataConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.trainer import TrainConfig, make_trainer, train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shape = ShapeConfig("t", 16, 2, "train")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train(SMOKE, shape, tcfg=TrainConfig(n_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_trainer(SMOKE, shape)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_train.main(["--arch", "qwen3-0.6b", "--smoke", "--steps", "1",
+                           "--ckpt", str(tmp_path / "c")])
+    assert not (tmp_path / "c").exists()
+    # the data stream draws where it is told (the trainer tells it its
+    # device); on its own it draws on the host
+    assert synthetic_batch(SMOKE, shape, DataConfig(), 0)["tokens"] \
+        .device.type == "cpu"
