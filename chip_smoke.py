@@ -243,6 +243,30 @@ Phases, in order; any failure exits non-zero:
    C's bit for bit; (f) ``python -m repro_torch.launch.train`` at 8 x 2048,
    M 4, 2 steps, its last line printed.  A ``{"training": ...}`` line
    holds the phase's numbers.
+12. distribution (``phase_distribution``), after phase 11: (a) the host
+   mesh (``launch.mesh.make_host_mesh``: a world-size-1 NCCL group, (1, 1)
+   over ("data", "model"), every placement replicated), destroyed at the
+   phase's end; (b) qwen3-0.6b at full width served by the direct Engine
+   route (``attention_impl='pallas'``, 8 x 512, fp32 cache, 64 new
+   tokens), then on the same weights through the host mesh:
+   ``serve_shardings`` places the weights, cache and tokens,
+   ``make_prefill_step`` runs a prefill (28 flash launches), a cached
+   prefill fills the cache (28 more), and 64 ``make_decode_step`` steps
+   teacher-forced on the engine's tokens (28 decode attentions each); every
+   logit held to the engine's (equal bits expected: the same code on the
+   local tensors; bound ``ATOL_E2E_LOGITS``), the steady step beside the
+   engine's; (c) ``train(..., mesh=host)`` at phase 11's 8 x 2048 and M 4,
+   2 steps, step 1's loss and grad norm held to phase 11's M 4 step
+   (``RTOL_TRAIN_*``), no kernel launched, and ``launch.train
+   --production-mesh`` in a world of one refused naming 256; (d)
+   ``elastic_remesh`` of phase 11 (e)'s uninterrupted drill checkpoint
+   onto the host mesh, bit-exact against ``restore``; (e) two cells of
+   ``python -m repro_torch.launch.dryrun`` on this machine's CPU (fake
+   worlds of 256 and 512 ranks), started together during (c) and (d):
+   per-device argument bytes within 1% of the reference's dry run
+   (``DRYRUN_CELLS``; an MoE cell's routed experts counted as the
+   reference's fp32), FLOPs and collectives printed beside its.  A
+   ``{"distribution": ...}`` line holds the phase's numbers.
 
 Imports torch and the port only; nothing of JAX or of the ``repro`` package.
 """
@@ -4476,6 +4500,7 @@ def phase_train() -> dict:
     check(not any(launches.values()), f"a kernel launched while training: "
           f"{launches}")
     held = hold_pumps(first, TRAIN_LR)
+    m4_first = {k: first[4][k] for k in ("loss", "grad_norm")}
     del first
     l4 = runs[4]["losses"]
     floor = float(np.log(cfg.vocab_size))
@@ -4500,7 +4525,392 @@ def phase_train() -> dict:
            "drill": drilled, "launcher": last,
            "seconds": time.perf_counter() - t0}
     print(json.dumps({"training": out}))
+    out["m4_first"] = m4_first
     return out
+
+# phase 12: distribution on the card's host mesh (a world of one: every
+# placement replicated, so the step builders run the direct path on the
+# local tensors).  The serving run is the qwen3 phase's, through
+# serve_shardings and the step builders
+DIST_BATCH, DIST_PROMPT, DIST_NEW = 8, 512, 64
+DIST_STEPS = 2                     # (c): train(..., mesh=host) steps at M 4
+DIST_PUMP = 4
+# (e): the reference's dry run of the same two cells (jax 0.9.0 on the CPU,
+# 512 fake host devices, repro.launch.dryrun): per-device argument bytes,
+# FLOPs and collectives
+DRYRUN_CELLS = (
+    ("qwen3-0.6b", "train_4k", False,
+     {"argument_size_in_bytes": 24_460_292, "flops": 6.363e12,
+      "collective_count": 66,
+      "collective_bytes": {"all-gather": 4.07e10, "all-reduce": 4.18e10,
+                           "collective-permute": 9.9e8}}),
+    ("deepseek-v2-lite-16b", "decode_32k", True,
+     {"argument_size_in_bytes": 490_222_716, "collective_count": 91}),
+)
+DRYRUN_RTOL_BYTES = 0.01
+DRYRUN_DIR = BUILD_CACHE / "dryrun"
+
+
+def routed_expert_bytes(arch: str, multi_pod: bool) -> int:
+    """The bytes of one rank's shards of an MoE config's routed experts
+    under the serving rules on the production mesh, in the port's param
+    dtype (bf16).  The reference's init promotes them to fp32 (a bf16 draw
+    times an fp32 scale, its ``models/moe.py:121-124``), so its dry run
+    counts them twice over."""
+    import math
+    from repro_torch.configs.base import load_arch
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import sharding as shard_mod
+    from repro_torch.launch import steps as steps_mod
+    dims, names = mesh_mod.production_shape(multi_pod)
+
+    class StandIn:
+        mesh_dim_names, shape = names, dims
+
+    cfg = load_arch(arch)
+    params = steps_mod.abstract_params(cfg)
+    specs = shard_mod.fit_specs(steps_mod.serve_param_specs(cfg, params),
+                                params, StandIn)
+    sizes = dict(zip(names, dims))
+    total = 0
+    for name, p in params.named_parameters():
+        if shard_mod.rule_names(name)[-2:] in (["moe", "gate"], ["moe", "up"],
+                                               ["moe", "down"]):
+            shards = math.prod(sizes[a] for ent in specs[name] if ent
+                               for a in (ent if isinstance(ent, tuple)
+                                         else (ent,)))
+            total += p.numel() // shards * p.element_size()
+    return total
+
+
+def dryrun_start() -> list:
+    """(e): the two cells, each ``python -m repro_torch.launch.dryrun`` in
+    a process of its own on this machine's CPU, started together."""
+    import shutil
+    if DRYRUN_DIR.exists():
+        shutil.rmtree(DRYRUN_DIR)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for i, (arch, shape, multi_pod, _ref) in enumerate(DRYRUN_CELLS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--json", str(DRYRUN_DIR / f"{i}.json")]
+        if multi_pod:
+            cmd.append("--multi-pod")
+        procs.append((cmd, subprocess.Popen(
+            cmd, env=env, stdout=open(DRYRUN_DIR / f"{i}.log", "w"),
+            stderr=subprocess.STDOUT)))
+    return procs
+
+
+def dryrun_finish(procs, t0: float) -> list:
+    """(e): each cell exits 0 and prints its line; its per-device argument
+    bytes within ``DRYRUN_RTOL_BYTES`` of the reference's (an MoE cell's
+    with its routed experts counted as the reference's fp32), its FLOPs
+    and collectives printed beside the reference's (another partitioner
+    and another counter: not a check)."""
+    out = []
+    try:
+        for _cmd, p in procs:
+            p.wait(timeout=600)
+    finally:
+        for _cmd, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for i, ((cmd, p), (arch, shape, multi_pod, ref)) in enumerate(
+            zip(procs, DRYRUN_CELLS)):
+        log = (DRYRUN_DIR / f"{i}.log").read_text()
+        lines = [ln for ln in log.splitlines() if ln.startswith("[dryrun]")]
+        check(p.returncode == 0, f"dry run {arch} x {shape}: exit "
+              f"{p.returncode}: {log[-2000:]}")
+        cell = json.loads((DRYRUN_DIR / f"{i}.json").read_text())[0]
+        got = cell["argument_size_in_bytes"]
+        experts = routed_expert_bytes(arch, multi_pod)
+        want = ref["argument_size_in_bytes"]
+        rel = abs(got + experts - want) / want
+        print(f"[dist] (e) {' '.join(cmd[3:])}: {lines[0]}")
+        print(f"[dist] (e)   argument_size_in_bytes {got} a device"
+              + (f" + {experts} (the routed experts' bf16 bytes again: the "
+                 f"reference's are fp32) = {got + experts}" if experts
+                 else "")
+              + f" against the reference's {want} (rel {rel:.2e}, at most "
+              f"{DRYRUN_RTOL_BYTES}); flops {cell['flops']:.4g} (the "
+              f"reference's {ref.get('flops', 'not recorded')}); "
+              f"{cell['collective_count']} collectives "
+              f"{cell['collective_counts']} of {cell['collective_bytes']} B "
+              f"(the reference's {ref['collective_count']}"
+              + (f", {ref['collective_bytes']} B" if "collective_bytes" in ref
+                 else "") + f"); the cell's wall {cell['wall_s']} s")
+        check(rel <= DRYRUN_RTOL_BYTES, f"dry run {arch} x {shape}: "
+              f"{got} + {experts} bytes against {want}")
+        out.append({"arch": arch, "shape": shape, "mesh": cell["mesh"],
+                    "argument_size_in_bytes": got,
+                    "routed_expert_bf16_bytes": experts,
+                    "reference_argument_size_in_bytes": want,
+                    "rel": rel, "flops": cell["flops"],
+                    "collective_count": cell["collective_count"],
+                    "collective_counts": cell["collective_counts"],
+                    "collective_bytes": cell["collective_bytes"],
+                    "wall_s": cell["wall_s"]})
+    print(f"[dist] (e) both cells in {wall:.1f} s, in parallel with (c) and "
+          f"(d)")
+    return out
+
+
+def dist_serve(host) -> tuple:
+    """(b): qwen3-0.6b served by the direct Engine route, then through the
+    host mesh (``serve_shardings``, ``make_prefill_step``, a cached
+    prefill and ``DIST_NEW`` steps of ``make_decode_step``), teacher-forced
+    on the engine's tokens; launches counted, logits held to the engine's
+    bit for bit, and the steady step beside the engine's."""
+    import gc
+    from repro_torch.configs.base import ShapeConfig, load_arch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import sharding as shard_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import convert
+    from repro_torch.models import model as model_mod
+    from repro_torch.serve.engine import Engine, ServeConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(load_arch("qwen3-0.6b"),
+                              attention_impl="pallas")
+    model = convert.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+        torch.bfloat16)
+    prompts = torch.randint(0, cfg.vocab_size, (DIST_BATCH, DIST_PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+    max_len = DIST_PROMPT + DIST_NEW + 1
+    eng = Engine(cfg, model, ServeConfig(batch=DIST_BATCH, max_len=max_len))
+    toks, logits = eng.generate(prompts, DIST_NEW, return_logits=True)
+    eng_ms = eng.stats()["phases"]["decode"]["steady_p50_s"] * 1e3
+    cfg = eng.cfg                       # the engine's (fresh prefill kernel)
+    del eng
+
+    p_sh, c_sh, b_sh, _ = steps_mod.serve_shardings(
+        cfg, host, ShapeConfig("serve", max_len, DIST_BATCH, "decode"))
+    shard_mod.place(model, host, p_sh)
+    cache = shard_mod.place(
+        model_mod.init_cache(cfg, DIST_BATCH, max_len, torch.float32,
+                             torch.device("cuda")), host, c_sh)
+    placed = shard_mod.place({"tokens": prompts.cuda()}, host,
+                             {"tokens": shard_mod.P()})
+    replicated = shard_mod.replicated(model, cache, placed)
+    prefill = steps_mod.make_prefill_step(cfg)
+    decode = steps_mod.make_decode_step(cfg)
+    launches = {"flash_attention": 0, "decode_attention": 0}
+
+    def counted(fn, *args):
+        fa.launches = da.launches = 0
+        out = fn(*args)
+        torch.cuda.synchronize()
+        got = {"flash_attention": fa.launches,
+               "decode_attention": da.launches}
+        for k in launches:
+            launches[k] += got[k]
+        return out, got
+
+    pre, n_pre = counted(prefill, model, placed)
+    check(n_pre == {"flash_attention": 28, "decode_attention": 0},
+          f"host-mesh prefill step launches {n_pre}")
+    (_, cache), n_fill = counted(decode, model, cache, placed)
+    check(n_fill == {"flash_attention": 28, "decode_attention": 0},
+          f"host-mesh cached prefill launches {n_fill}")
+    diffs = [err(pre[:, -1], logits[0])]
+    same = [torch.equal(pre[:, -1], logits[0])]
+    times, agree = [], []
+    fa.launches = da.launches = 0
+    for i in range(DIST_NEW):
+        t0 = time.perf_counter()
+        tok = shard_mod.place({"tokens": toks[:, i:i + 1].cuda()}, host, b_sh)
+        lg, cache = decode(model, cache, tok)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if i + 1 < DIST_NEW:
+            diffs.append(err(lg[:, -1], logits[i + 1]))
+            same.append(torch.equal(lg[:, -1], logits[i + 1]))
+            agree.append(bool((lg[:, -1].argmax(-1).cpu()
+                               == toks[:, i + 1].cpu()).all()))
+    n_dec = {"flash_attention": fa.launches, "decode_attention": da.launches}
+    for k in launches:
+        launches[k] += n_dec[k]
+    check(n_dec == {"flash_attention": 0,
+                    "decode_attention": 28 * DIST_NEW},
+          f"host-mesh decode launches {n_dec} in {DIST_NEW} steps")
+    mesh_ms = statistics.median(times[1:]) * 1e3
+    ratio = mesh_ms / eng_ms
+    print(f"[dist] (b) qwen3-0.6b at full width through the host mesh "
+          f"(every placement replicated: {replicated}): serve_shardings "
+          f"placed the weights, a {DIST_BATCH} x {max_len} fp32 cache and "
+          f"the tokens; make_prefill_step launched {n_pre}, the cached "
+          f"prefill {n_fill}, {DIST_NEW} make_decode_step steps {n_dec}")
+    print(f"[dist] (b) logits against the direct Engine route's (same "
+          f"weights, prompts and tokens): prefill and {len(diffs) - 1} "
+          f"steps {'bit-identical' if all(same) else 'differ'} (max abs "
+          f"diff {max(diffs):.3g}; the bound if they differ "
+          f"ATOL_E2E_LOGITS {ATOL_E2E_LOGITS}: the same code on the same "
+          f"local tensors, so equal bits are expected); greedy tokens equal "
+          f"at {sum(agree)} of {len(agree)} steps")
+    print(f"[dist] (b) steady decode step: host mesh {mesh_ms:.3f} ms "
+          f"(median of {len(times) - 1}, the token's placement included) "
+          f"against the engine's {eng_ms:.3f} ms p50: {ratio:.3f}x "
+          f"(predicted at most 1.10x)")
+    check(replicated, "the host mesh placed something unreplicated")
+    check(max(diffs) <= ATOL_E2E_LOGITS,
+          f"host-mesh logits differ from the engine's by {max(diffs)}")
+    check(all(agree), f"host-mesh greedy tokens differ: {agree}")
+    del model, cache, logits
+    torch.cuda.empty_cache()
+    return launches, {"bit_identical": all(same), "max_abs_diff": max(diffs),
+                      "mesh_step_ms": mesh_ms, "engine_step_ms": eng_ms,
+                      "ratio": ratio, "launches": {"prefill": n_pre,
+                                                   "cached_prefill": n_fill,
+                                                   "decode": n_dec}}
+
+
+def dist_train(host, m4_first: dict) -> dict:
+    """(c): ``train(..., mesh=host)`` at phase 11's shape and M, step 1
+    held to phase 11's unsharded M 4 step (same params and batch), no
+    kernel launched; then ``launch.train --production-mesh`` in a world of
+    one (its environment a launcher's) refused, its message naming 256."""
+    import gc
+    import socket
+    from repro_torch import optim
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train.trainer import TrainConfig, train
+    gc.collect()
+    torch.cuda.empty_cache()
+    mods = kernel_modules()
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    out = train(train_cfg(), ShapeConfig("train_card", TRAIN_SEQ, TRAIN_BATCH,
+                                         "train"),
+                optim.AdamWConfig(lr=TRAIN_LR, warmup_steps=1,
+                                  total_steps=TRAIN_STEADY + 2),
+                TrainConfig(n_steps=DIST_STEPS, pump_factor=DIST_PUMP,
+                            param_dtype="bfloat16", log_every=1),
+                device="cuda", mesh=host, log=lambda *a: None)
+    wall = time.perf_counter() - t0
+    launches = {n: mod.launches for n, mod in mods.items()}
+    h = out["history"]
+    state = out["final_state"]
+    placed = all(hasattr(p, "placements") for p in state.model.parameters())
+    del out, state
+    torch.cuda.empty_cache()
+    e_loss = abs(h[0]["loss"] - m4_first["loss"]) / abs(m4_first["loss"])
+    e_gn = abs(h[0]["grad_norm"] - m4_first["grad_norm"]) \
+        / m4_first["grad_norm"]
+    print(f"[dist] (c) train(..., mesh=host) {TRAIN_ARCH} at {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ}, M {DIST_PUMP}, {DIST_STEPS} steps in {wall:.1f} s "
+          f"(params and optimizer state DTensors: {placed}); step 1 loss "
+          f"{h[0]['loss']:.6f} / phase 11's {m4_first['loss']:.6f} (rel "
+          f"{e_loss:.3g}, rtol {RTOL_TRAIN_LOSS:.3g}), grad norm "
+          f"{h[0]['grad_norm']:.6f} / {m4_first['grad_norm']:.6f} (rel "
+          f"{e_gn:.3g}, rtol {RTOL_TRAIN_GNORM:.3g}); kernel launches "
+          f"{launches}")
+    check(placed, "train(mesh=host) did not place its state")
+    check(e_loss <= RTOL_TRAIN_LOSS and e_gn <= RTOL_TRAIN_GNORM,
+          f"host-mesh train step vs phase 11's M 4 step: {e_loss} {e_gn}")
+    check(not any(launches.values()), f"a kernel launched while training "
+          f"on the host mesh: {launches}")
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent
+                                          / "src"), WORLD_SIZE="1", RANK="0",
+               LOCAL_RANK="0", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                          "--arch", TRAIN_ARCH, "--steps", "1",
+                          "--production-mesh"], env=env, capture_output=True,
+                         text=True, timeout=300)
+    msg = next((ln for ln in res.stderr.splitlines()
+                if ln.startswith("[train] ")), res.stderr[-500:])
+    print(f"[dist] (c) launch.train --production-mesh in a world of one: "
+          f"exit {res.returncode}: {msg}")
+    check(res.returncode != 0 and "256" in msg, f"--production-mesh at "
+          f"world size 1: exit {res.returncode}, {msg}")
+    return {"loss": h[0]["loss"], "grad_norm": h[0]["grad_norm"],
+            "loss_rel": e_loss, "grad_norm_rel": e_gn, "wall_s": wall,
+            "launches": launches, "production_mesh": msg}
+
+
+def dist_remesh(host) -> dict:
+    """(d): phase 11 (e)'s uninterrupted drill checkpoint (process C, 4
+    layers) restored by ``elastic_remesh`` onto the host mesh under the
+    rule table, every leaf equal to ``restore``'s bit for bit."""
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch import sharding as shard_mod
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.runtime import failover
+    path = ckpt.latest_valid(str(TRAIN_DIR / "c"))
+    check(path is not None, "no drill checkpoint to restore")
+    t0 = time.perf_counter()
+    plain, extra = ckpt.restore(path)
+
+    def spec_fn(tree, mesh):
+        opt = steps_mod.opt_specs(tree["params"], mesh)
+        return {"params": shard_mod.shardings(tree["params"], mesh),
+                "opt_state": {"step": shard_mod.placements(shard_mod.P(),
+                                                           mesh),
+                              **{k: shard_mod.shardings(
+                                  tree["opt_state"][k], mesh, opt)
+                                 for k in ("master", "m", "v")}}}
+
+    placed, extra2 = failover.elastic_remesh(path, plain, host, spec_fn)
+    n = exact = 0
+
+    def cmp(_path, want, got):
+        nonlocal n, exact
+        n += 1
+        exact += torch.equal(got.to_local().cpu(), want)
+        return None
+
+    shard_mod.tree_map(cmp, plain, placed)
+    wall = time.perf_counter() - t0
+    print(f"[dist] (d) elastic_remesh of {Path(path).name} (step "
+          f"{extra2['step']}, {n} leaves) onto the host mesh: {exact} of {n} "
+          f"leaves equal restore's bit for bit ({wall:.1f} s)")
+    check(extra2 == extra and exact == n, f"elastic_remesh: {exact} of {n} "
+          f"leaves exact")
+    return {"leaves": n, "bit_exact": exact == n, "wall_s": wall}
+
+
+def phase_distribution(m4_first: dict) -> dict:
+    """Phase 12: distribution on the card.  (a) the host mesh over a
+    world-size-1 NCCL group; (b) qwen3-0.6b served through it by the step
+    builders against the direct Engine route; (c) ``train(..., mesh=)``
+    against phase 11's step and ``--production-mesh`` refused; (d)
+    ``elastic_remesh`` of the drill checkpoint; (e) two dry-run cells on
+    this machine's CPU against the reference's numbers.  Returns the
+    kernel launches of (b)."""
+    from repro_torch.launch import mesh as mesh_mod
+    t0 = time.perf_counter()
+    host = mesh_mod.make_host_mesh("cuda")
+    try:
+        sizes = mesh_mod.mesh_axis_sizes(host)
+        print(f"[dist] (a) host mesh {sizes} over a world-size-1 "
+              f"{torch.distributed.get_backend()} group; dp_degree "
+              f"{mesh_mod.dp_degree(host)}")
+        launches, served = dist_serve(host)
+        t_dry = time.perf_counter()
+        procs = dryrun_start()
+        trained = dist_train(host, m4_first)
+        remeshed = dist_remesh(host)
+        cells = dryrun_finish(procs, t_dry)
+    finally:
+        mesh_mod.destroy_group()
+    check(not torch.distributed.is_initialized(), "a process group outlived "
+          "phase 12")
+    out = {"host_mesh": sizes, "serve": served, "train": trained,
+           "remesh": remeshed, "dryrun": cells,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps({"distribution": out}))
+    return launches
 
 
 def main() -> int:
@@ -4645,7 +5055,9 @@ def main() -> int:
     with timed("paper tables"):
         paths["paper"] = phase_paper()
     with timed("training (11)"), guarded("train", guard):
-        phase_train()
+        trained = phase_train()
+    with timed("distribution (12)"), guarded("distribution", guard):
+        paths["distribution"] = phase_distribution(trained["m4_first"])
     paths["compiler"] = compiler_launches
     print(json.dumps({"robustness": {
         "counters": robust, "launches": paths["robustness"],

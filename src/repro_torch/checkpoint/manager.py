@@ -21,9 +21,12 @@ the trainer's leaves read ``params/blocks.0.attn.wq.w`` and
 leaf is stored as its raw 16 bits (uint16) with ``bfloat16`` as its dtype
 in the manifest: a round trip is bit-exact for every dtype.
 
-The reference's ``restore_resharded`` places a checkpoint onto a
-different mesh; it waits for the distribution slice (ROADMAP queue 1 item
-8b), which brings the port's meshes.
+A state placed on a mesh (DTensor leaves, ``launch.sharding``) is saved
+whole: each DTensor is gathered (``full_tensor``, a collective every rank
+joins) and rank 0 writes.  ``restore_resharded`` restores through
+``restore`` (bit-exact) and places the tensors under a mesh's
+placements, which may be another mesh than the one the checkpoint was
+saved from (``runtime.failover.elastic_remesh``).
 """
 from __future__ import annotations
 
@@ -36,6 +39,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 SEP = "/"
 
@@ -87,24 +92,41 @@ def _sha256(path: str) -> str:
     return h.hexdigest()
 
 
+def _rank() -> int:
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() \
+        else 0
+
+
 def save(root: str, step: int, state: Dict[str, Any],
          extra: Optional[dict] = None) -> str:
-    """Two-phase atomic save of ``state`` (a tree of dicts of tensors)."""
-    os.makedirs(root, exist_ok=True)
+    """Two-phase atomic save of ``state`` (a tree of dicts of tensors).
+    DTensor leaves are gathered whole and only rank 0 writes; every rank
+    must call it then, and all return once the checkpoint is in place."""
     final = os.path.join(root, f"step_{step:08d}")
+    flat = _flatten(state)
+    placed = any(isinstance(v, DTensor) for v in flat.values())
+    leaves = [v.full_tensor() if isinstance(v, DTensor) else torch.as_tensor(v)
+              for v in flat.values()]
+    if not placed or _rank() == 0:
+        _write(root, final, step, list(flat), leaves, extra)
+    if placed and dist.get_world_size() > 1:
+        dist.barrier()
+    return final
+
+
+def _write(root: str, final: str, step: int, paths: List[str],
+           leaves: List[torch.Tensor], extra: Optional[dict]) -> None:
+    os.makedirs(root, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    flat = _flatten(state)
-    leaves = [torch.as_tensor(v) for v in flat.values()]
     shard_path = os.path.join(tmp, "shard_00000.npz")
     np.savez(shard_path, **{f"leaf_{i:05d}": _to_numpy(t)
                             for i, t in enumerate(leaves)})
     manifest = {
         "step": step,
-        "paths": list(flat),
+        "paths": paths,
         "shapes": [list(t.shape) for t in leaves],
         "dtypes": [str(t.dtype).replace("torch.", "") for t in leaves],
         "shards": {"shard_00000.npz": _sha256(shard_path)},
@@ -120,7 +142,6 @@ def save(root: str, step: int, state: Dict[str, Any],
     with open(latest_tmp, "w") as f:
         f.write(os.path.basename(final))
     os.rename(latest_tmp, os.path.join(root, "LATEST"))
-    return final
 
 
 def verify(ckpt_dir: str) -> bool:
@@ -195,6 +216,18 @@ def restore(ckpt_dir: str, like: Optional[Dict[str, Any]] = None
                 t = t.to(ref.device)
             flat[name] = t
     return _unflatten(flat), manifest["extra"]
+
+
+def restore_resharded(ckpt_dir: str, like: Dict[str, Any], mesh,
+                      shardings: Dict[str, Any]
+                      ) -> Tuple[Dict[str, Any], dict]:
+    """Elastic restore: ``restore`` (against ``like``'s names and whole
+    shapes; DTensor leaves count by their global shape), then every leaf
+    placed under ``shardings`` (a tree like ``like`` of specs or
+    placements, ``launch.sharding.place``) on ``mesh``."""
+    from repro_torch.launch import sharding as shard_mod
+    state, extra = restore(ckpt_dir, like)
+    return shard_mod.place(state, mesh, shardings), extra
 
 
 def prune(root: str, keep: int = 3) -> None:

@@ -8,7 +8,10 @@ no backward (nor does the reference define one), so on the card a wrapper
 refuses, with an ``InputError`` naming its kernel, any tensor operand that
 requires grad while grad mode is on (``_launch``, ``grad_refusal``): a
 launch would silently cut the gradient there.  Training runs the plain
-routes; a CPU tensor keeps its differentiable plain version.  The launch
+routes; a CPU tensor keeps its differentiable plain version.  The
+kernels take raw pointers, so a DTensor operand on the kernel's route
+raises ``InputError`` too (a step on a replicated mesh hands them its
+local tensors: ``launch.steps.on_mesh``).  The launch
 counts live on the kernel modules (``flash_attention.launches``,
 ``decode_attention.launches``, ``ssd_scan.launches``,
 ``ssd_decode.launches``, ``vecadd.launches``, ``matmul.launches``,
@@ -41,6 +44,7 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..core.ir import PumpSpec
 from ..core.pump_plan import dot_panel_bytes
@@ -89,10 +93,16 @@ def grad_refusal(name: str, tensors: Sequence) -> Optional[str]:
 
 def _launch(name: str, *tensors) -> bool:
     """``_route`` on the first tensor: True for the kernel, False for the
-    plain version.  On the kernel's route, a tensor that requires grad
-    under grad mode raises ``InputError`` (``grad_refusal``)."""
+    plain version.  On the kernel's route, a DTensor operand (whose
+    pointer is not its data's) or a tensor that requires grad under grad
+    mode (``grad_refusal``) raises ``InputError``."""
     if not _route(tensors[0], name):
         return False
+    which = [i for i, t in enumerate(tensors) if isinstance(t, DTensor)]
+    if which:
+        raise InputError(f"{name}: operand(s) {which} are DTensors; the "
+                         f"CUDA kernel takes plain tensors (a step on a "
+                         f"replicated mesh passes the local ones)")
     why = grad_refusal(name, tensors)
     if why is not None:
         raise InputError(why)

@@ -17,13 +17,23 @@ H100's constants, one card); ``--ckpt DIR`` checkpoints there and resumes
 from it; ``--failover`` stamps a heartbeat every step and derates the
 pump by the straggler policy.  The last line reports the loss over the
 run, its pump, the steady ms a step (median after the first), tokens/s
-and the peak device memory.  The reference's ``--production-mesh`` and
-``--multi-pod`` wait for the distribution slice (ROADMAP queue 1 item 8b).
+and the peak device memory.
+
+``--production-mesh`` trains under the production mesh (16 x 16, or 2 x
+16 x 16 with ``--multi-pod``: ``launch.mesh.make_production_mesh``) in a
+launcher's world of exactly 256 or 512 ranks (``torchrun`` and the like:
+the process group is made from its ``RANK`` / ``WORLD_SIZE`` /
+``MASTER_ADDR`` environment); under any other world the launcher exits
+non-zero with ``make_production_mesh``'s message, naming the world it
+found and the one it needs.  Without it the run takes no mesh: the one
+card, no process group.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import statistics
+import sys
 import time
 from typing import Optional, Sequence
 
@@ -32,6 +42,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch import optim
 from repro_torch.configs.base import SHAPES, ShapeConfig, load_arch
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.train.trainer import TrainConfig, train
 
 
@@ -47,6 +58,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--pump", default="1", help="int or 'auto'")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="train under the 16x16 production mesh (a world "
+                         "of 256 ranks; 512 with --multi-pod)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="the 2x16x16 production mesh (with "
+                         "--production-mesh)")
     ap.add_argument("--failover", action="store_true",
                     help="wire the failover runtime into the loop: per-step "
                          "heartbeat stamping + straggler pump derating")
@@ -58,6 +75,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = ap.parse_args(argv)
 
     dev = device_mod.resolve(args.device)
+    mesh = None
+    if args.production_mesh:
+        mesh = _production_mesh(args.multi_pod, dev)
     cfg = load_arch(args.arch, smoke=args.smoke)
     shape = SHAPES[args.shape]
     if args.smoke:
@@ -81,7 +101,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = train(cfg, shape, optcfg, tcfg, device=dev,
-                heartbeat=heartbeat, straggler=straggler)
+                heartbeat=heartbeat, straggler=straggler, mesh=mesh)
     wall = time.perf_counter() - t0
     hist = out["history"]
     secs = [h["sec"] for h in hist[1:]]
@@ -107,6 +127,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
               f"{hist[-1]['loss']:.4f} over {args.steps} steps "
               f"(pump={out['pump']}); {ms}, {tps}, {mem}")
     return summary
+
+
+def _production_mesh(multi_pod: bool, dev: torch.device):
+    """The production mesh over the launcher's world (the process group
+    made from its environment), or exit non-zero with
+    ``make_production_mesh``'s message."""
+    import torch.distributed as dist
+    made = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    try:
+        return mesh_mod.make_production_mesh(multi_pod, device=dev)
+    except RuntimeError as e:
+        if made:
+            dist.destroy_process_group()
+        sys.exit(f"[train] {e}")
 
 
 if __name__ == "__main__":

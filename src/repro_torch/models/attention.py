@@ -47,7 +47,7 @@ from torch import nn
 from repro_torch.kernels import ops
 
 from .layers import (Dense, RMSNorm, SlotStep, apply_rope, cache_pos, dense,
-                     rmsnorm, slot_step)
+                     local_map, rmsnorm, slot_step, splittable)
 
 NEG_INF = -1e30
 
@@ -173,6 +173,30 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, v_cache.shape[-1]).to(q.dtype)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    q_pos: Optional[torch.Tensor] = None,
+                    kv_mask: Optional[torch.Tensor] = None,
+                    **kw) -> torch.Tensor:
+    """``chunked_attention``; on DTensors each rank attends over its own
+    batch rows and heads (``layers.local_map``: DTensor cannot flatten the
+    sharded heads into the grouped products)."""
+    row_pos = q_pos is not None and q_pos.dim() == 2
+    return local_map(
+        lambda q, k, v, qp, m: chunked_attention(q, k, v, q_pos=qp,
+                                                 kv_mask=m, **kw),
+        (q, k, v, q_pos, kv_mask),
+        ((0, 1), (0, 1), (0, 1), (0,) if row_pos else None, None), (0, 1))
+
+
+def local_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           kv_mask: torch.Tensor) -> torch.Tensor:
+    """``decode_attention``, per rank over its batch rows and heads on
+    DTensors (as ``local_attention``)."""
+    return local_map(decode_attention, (q, k_cache, v_cache, kv_mask),
+                     ((0, 1), (0, 1), (0, 1), (0,)), (0, 1))
+
+
 class GQA(nn.Module):
     def __init__(self, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -205,9 +229,9 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     kv_src = x if kv_input is None else kv_input
     t_in = kv_src.shape[1]
 
-    q = dense(p.wq, x).reshape(b, s, h, hd)
-    k = dense(p.wk, kv_src).reshape(b, t_in, hkv, hd)
-    v = dense(p.wv, kv_src).reshape(b, t_in, hkv, hd)
+    q = splittable(dense(p.wq, x), 2, h).reshape(b, s, h, hd)
+    k = splittable(dense(p.wk, kv_src), 2, hkv).reshape(b, t_in, hkv, hd)
+    v = splittable(dense(p.wv, kv_src), 2, hkv).reshape(b, t_in, hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(p.q_norm, q, cfg.norm_eps)
         k = rmsnorm(p.k_norm, k, cfg.norm_eps)
@@ -220,8 +244,8 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
 
     new_cache = None
     if kv_input is not None:
-        out = chunked_attention(q, k, v, causal=False, q_pos=positions,
-                                block=cfg.attn_block_kv)
+        out = local_attention(q, k, v, causal=False, q_pos=positions,
+                              block=cfg.attn_block_kv)
     elif cache is not None:
         pos = cache["pos"]
         kc, vc = cache["k"], cache["v"]
@@ -250,7 +274,7 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
             else:
                 mask = (_kv_valid_mask(t, pos, s, x.device).expand(b, t)
                         if st is None else st.valid)
-                out = decode_attention(q[:, :, 0], kc, vc, mask)
+                out = local_decode_attention(q[:, :, 0], kc, vc, mask)
             out = out[:, :, None, :]
         elif kernels and cfg.fresh_prefill_kernel and pos == 0:
             # fresh-cache prefill: attention over the just-written cache
@@ -261,14 +285,14 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         else:
             # a continuation chunk (pos > 0, or the flash route off) attends
             # over the whole written prefix under its valid mask
-            out = chunked_attention(q, kc, vc, causal=causal, q_pos=positions,
-                                    kv_mask=_kv_valid_mask(t, pos, s, x.device),
-                                    block=cfg.attn_block_kv)
+            out = local_attention(q, kc, vc, causal=causal, q_pos=positions,
+                                  kv_mask=_kv_valid_mask(t, pos, s, x.device),
+                                  block=cfg.attn_block_kv)
     elif kernels:
         out = _flash(cfg, q, k, v, causal=causal)
     else:
-        out = chunked_attention(q, k, v, causal=causal, q_pos=positions,
-                                block=cfg.attn_block_kv)
+        out = local_attention(q, k, v, causal=causal, q_pos=positions,
+                              block=cfg.attn_block_kv)
     out = out.transpose(1, 2).reshape(b, s, h * hd)
     return dense(p.wo, out), new_cache
 
@@ -311,7 +335,7 @@ def _mla_q(p: MLA, cfg, x: torch.Tensor):
         q = dense(p.wq_b, rmsnorm(p.q_norm, dense(p.wq_a, x), cfg.norm_eps))
     else:
         q = dense(p.wq, x)
-    q = q.reshape(b, s, h, dn + dr)
+    q = splittable(q, 2, h).reshape(b, s, h, dn + dr)
     return q[..., :dn], q[..., dn:]
 
 
@@ -331,9 +355,9 @@ def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
     if kernel:
         out = _flash(cfg, q, k, v, causal=True)
     else:
-        out = chunked_attention(q, k, v, causal=True, q_pos=positions,
-                                block=cfg.attn_block_kv,
-                                scale=(dn + dr) ** -0.5)
+        out = local_attention(q, k, v, causal=True, q_pos=positions,
+                              block=cfg.attn_block_kv,
+                              scale=(dn + dr) ** -0.5)
     return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
 
 
@@ -366,7 +390,7 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     k_rope = apply_rope(kv_a[:, None, :, kvr:], rp, cfg.rope_theta)[:, 0]
 
     if cache is None:
-        kv = dense(p.wkv_b, c_kv).reshape(b, s, h, dn + dv)
+        kv = splittable(dense(p.wkv_b, c_kv), 2, h).reshape(b, s, h, dn + dv)
         out = _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions, flash)
         return dense(p.wo, out), None
 
@@ -390,29 +414,30 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         # written cache, the compressed prefix decompressed through wkv_b
         # and masked to the pos + s valid slots (at pos 0 the mask reduces
         # this to the chunk-local prefill below)
-        kv = dense(p.wkv_b, ckv_c.to(x.dtype)).reshape(b, t, h, dn + dv)
+        kv = splittable(dense(p.wkv_b, ckv_c.to(x.dtype)), 2, h).reshape(
+            b, t, h, dn + dv)
         k = torch.cat([kv[..., :dn],
                        krope_c[:, :, None, :].to(x.dtype).expand(b, t, h, dr)],
                       dim=-1).transpose(1, 2)
         q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
-        out = chunked_attention(q, k, kv[..., dn:].transpose(1, 2),
-                                causal=True, q_pos=positions,
-                                kv_mask=_kv_valid_mask(t, pos, s, x.device),
-                                block=cfg.attn_block_kv,
-                                scale=(dn + dr) ** -0.5)
+        out = local_attention(q, k, kv[..., dn:].transpose(1, 2),
+                              causal=True, q_pos=positions,
+                              kv_mask=_kv_valid_mask(t, pos, s, x.device),
+                              block=cfg.attn_block_kv,
+                              scale=(dn + dr) ** -0.5)
         out = out.transpose(1, 2).reshape(b, s, h * dv)
         return dense(p.wo, out), new_cache
     if s > 1:
         # prefill: attend over the current tokens; the flash kernel only on
         # a fresh cache, as the reference's lax.cond on pos == 0
-        kv = dense(p.wkv_b, c_kv).reshape(b, s, h, dn + dv)
+        kv = splittable(dense(p.wkv_b, c_kv), 2, h).reshape(b, s, h, dn + dv)
         out = _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
                           flash and cfg.fresh_prefill_kernel and pos == 0)
         return dense(p.wo, out), new_cache
 
     # absorbed decode: w_uk (kvr, h, dn), w_uv (kvr, h, dv); every product
     # that touches the cache reads it in its own dtype and sums in fp32
-    wkv_b = p.wkv_b.w.reshape(kvr, h, dn + dv)
+    wkv_b = splittable(p.wkv_b.w, 1, h).reshape(kvr, h, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
     f32 = torch.float32
     q_abs = torch.einsum("bhd,khd->bhk", q_nope[:, 0].to(f32),

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 class Dense(nn.Module):
@@ -80,7 +81,7 @@ class Embedding(nn.Module):
 
 def embed(p: Embedding, ids: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return p.embedding.to(dtype)[ids]
+    return take_rows(p.embedding.to(dtype), ids)
 
 
 def unembed(p: Embedding, x: torch.Tensor) -> torch.Tensor:
@@ -170,13 +171,11 @@ def slot_step(pos: torch.Tensor, length: Optional[int] = None) -> SlotStep:
                     keys[None, :] <= pos[:, None])
 
 
-def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
-                  z_weight: float = 0.0) -> torch.Tensor:
-    """Mean token cross-entropy (+ optional z-loss) over the labels that are
-    not negative (-100 marks a position without one), the reference's
-    ``cross_entropy``; 0 where no label is valid."""
-    mask = labels >= 0
-    safe = torch.where(mask, labels, 0).long()
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor,
+               z_weight: float) -> torch.Tensor:
+    """Each position's loss (+ z-loss); a position without a label reads
+    label 0 (the caller masks it)."""
+    safe = torch.where(labels >= 0, labels, 0).long()
     logz = torch.logsumexp(logits, dim=-1)
     # the label's logit by advanced indexing: its backward is an
     # index_put with accumulate, which has a deterministic CUDA kernel
@@ -186,8 +185,164 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
     nll = logz - ll
     if z_weight:
         nll = nll + z_weight * logz.square()
+    return nll
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, *,
+                  z_weight: float = 0.0) -> torch.Tensor:
+    """Mean token cross-entropy (+ optional z-loss) over the labels that are
+    not negative (-100 marks a position without one), the reference's
+    ``cross_entropy``; 0 where no label is valid.  On DTensors each rank
+    reads its own rows' label logits (``local_map``)."""
+    mask = labels >= 0
+    nll = local_map(lambda lg, lb: _token_nll(lg, lb, z_weight),
+                    (logits, labels), ((0,), (0,)), (0,))
     denom = mask.sum().clamp(min=1)
     return torch.where(mask, nll, 0.0).sum() / denom
+
+
+def whole(t: torch.Tensor) -> torch.Tensor:
+    """``t`` as it is, or a DTensor (a sharded step, ``launch.steps``)
+    replicated on every mesh dim: the points where DTensor has no
+    sharding strategy for the op that follows redistribute its operand
+    here (ROADMAP queue 3 lists them)."""
+    if isinstance(t, DTensor):
+        return t.redistribute(t.device_mesh,
+                              [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
+def splittable(t: torch.Tensor, dim: int, outer: int) -> torch.Tensor:
+    """``t`` as it is, or a DTensor with its dim ``dim`` gathered (the
+    mesh dims sharding it replicated) where their size does not divide
+    ``outer``: DTensor cannot split a dim sharded n ways into (outer,
+    rest) unless n divides outer (a redistribution point, as ``whole``;
+    ``outer`` 1 gathers a sharded dim before an uneven ``torch.split``)."""
+    if not isinstance(t, DTensor):
+        return t
+    pl = list(t.placements)
+    n = 1
+    for i, p in enumerate(pl):
+        if p.is_shard(dim):
+            n *= t.device_mesh.size(i)
+    if outer % n == 0:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if p.is_shard(dim)
+                                          else p for p in pl])
+
+
+def local_map(fn, args, specs, out_specs):
+    """``fn(*args)``, or on DTensors (a sharded step) ``fn`` on each rank's
+    local shards: a redistribution point for a stretch of ops that is
+    independent along some dims (the batch, the heads) and that DTensor
+    has no sharding strategy for.
+
+    ``specs[i]`` names, per role, the dim of ``args[i]`` that carries it
+    (a tuple such as ``(0, 1)`` for batch and heads, None for a role the
+    argument lacks), or is None for an argument gathered whole (or a
+    non-tensor passed as it is).  A mesh dim keeps sharding a role where
+    the first DTensor with a spec shards that role's dim there and every
+    argument's dim of that role divides; the arguments are redistributed
+    to exactly that (a plain tensor counts as replicated and is sliced),
+    everything else replicated.  ``out_specs`` give each output's dims by
+    role (one tuple, or a list of them for a tuple of outputs).  On the
+    way back, an argument's gradient is partial over the mesh dims it was
+    not split along but the computation was."""
+    lead = next((a for a, sp in zip(args, specs)
+                 if sp is not None and isinstance(a, DTensor)), None)
+    if lead is None:
+        return fn(*args)
+    mesh = lead.device_mesh
+    lead_spec = next(sp for a, sp in zip(args, specs) if a is lead)
+    roles = [None] * mesh.ndim        # mesh dim -> the role it shards
+    for i, pl in enumerate(lead.placements):
+        if pl.is_shard() and pl.dim in lead_spec:
+            roles[i] = lead_spec.index(pl.dim)
+    for r in set(roles) - {None}:
+        n = 1
+        for i, ri in enumerate(roles):
+            if ri == r:
+                n *= mesh.size(i)
+        if any(sp is not None and len(sp) > r and sp[r] is not None
+               and isinstance(a, torch.Tensor) and a.shape[sp[r]] % n
+               for a, sp in zip(args, specs)):
+            roles = [None if ri == r else ri for ri in roles]
+
+    def placements(sp):
+        return [Shard(sp[r]) if r is not None and sp is not None
+                and len(sp) > r and sp[r] is not None else Replicate()
+                for r in roles]
+
+    local = []
+    for a, sp in zip(args, specs):
+        if not isinstance(a, torch.Tensor):
+            local.append(a)
+            continue
+        if not isinstance(a, DTensor):
+            if sp is None:
+                local.append(a)
+                continue
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        target = placements(sp)
+        grads = [pl if pl.is_shard() else
+                 (Partial() if r is not None else Replicate())
+                 for pl, r in zip(target, roles)]
+        local.append(a.redistribute(mesh, target).to_local(
+            grad_placements=grads))
+    out = fn(*local)
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, placements(sp),
+                                        run_check=False)
+                     for o, sp in zip(out, out_specs))
+    return DTensor.from_local(out, mesh, placements(out_specs),
+                              run_check=False)
+
+
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``; on DTensors, each rank's ids look up the whole
+    table (``local_map``: the table gathered, the rows split as the ids
+    are along their first dim)."""
+    return local_map(lambda t, i: t[i], (table, ids), (None, (0,)), (0,))
+
+
+def on_whole_module(module: nn.Module, fn, *args):
+    """``fn(*args)``; where ``module``'s parameters or ``args`` hold a
+    DTensor (a sharded step), every parameter and tensor argument is
+    gathered whole (``whole``), ``fn`` runs on the local tensors (the
+    module's parameters swapped for them for the call) and its tensor
+    results come back replicated.  For a layer whose data-dependent
+    scatters and gathers DTensor has no sharding strategy for."""
+    named = list(module.named_parameters())
+    mesh = next((t.device_mesh for t in (*args, *(p for _, p in named))
+                 if isinstance(t, DTensor)), None)
+    if mesh is None:
+        return fn(*args)
+    slots = []
+    for name, _ in named:
+        mod_name, _, leaf = name.rpartition(".")
+        slots.append((module.get_submodule(mod_name), leaf))
+    local = [whole(t).to_local() if isinstance(t, DTensor) else t
+             for t in (*(p for _, p in named), *args)]
+    saved = [mod._parameters[leaf] for mod, leaf in slots]
+    for (mod, leaf), w in zip(slots, local):
+        mod._parameters[leaf] = w
+    try:
+        out = fn(*local[len(named):])
+    finally:
+        for (mod, leaf), w in zip(slots, saved):
+            mod._parameters[leaf] = w
+    rep = [Replicate()] * mesh.ndim
+    if isinstance(out, tuple):
+        return tuple(DTensor.from_local(o, mesh, rep, run_check=False)
+                     for o in out)
+    return DTensor.from_local(out, mesh, rep, run_check=False)
+
+
+def placed(module: nn.Module, *tensors) -> bool:
+    """Whether ``module``'s parameters or ``tensors`` hold a DTensor."""
+    return any(isinstance(t, DTensor)
+               for t in (*tensors, *module.parameters()))
 
 
 def remat(cfg, fn, *args):

@@ -38,7 +38,7 @@ from torch import nn
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import ops
 
-from .layers import Dense, SwiGLU, dense, swiglu
+from .layers import Dense, SwiGLU, dense, on_whole_module, placed, swiglu
 
 # the ragged route's group bucket (the reference's 'direct' plan: group
 # sizes rounded up to 16)
@@ -170,6 +170,12 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
     """x (B, S, d) -> (out, aux loss).  ``dropless=True`` (the serving path)
     sizes capacity so that no token is dropped when icf <= 0; training
     uses GShard capacity semantics."""
+    if placed(p, x):
+        # a sharded step: the routing, its data-dependent scatters and the
+        # expert products have no DTensor sharding strategy, so the layer
+        # runs whole on every rank (ROADMAP queue 3)
+        return on_whole_module(p, lambda xw: moe_apply(p, cfg, xw,
+                                                       dropless=dropless), x)
     mo = cfg.moe
     b, s, d = x.shape
     t = b * s

@@ -38,7 +38,8 @@ from torch import nn
 
 from repro_torch.kernels import ops
 
-from .layers import Dense, RMSNorm, SlotStep, cache_pos, dense, rmsnorm
+from .layers import (Dense, RMSNorm, SlotStep, cache_pos, dense, local_map,
+                     rmsnorm, splittable)
 
 
 class Mamba2(nn.Module):
@@ -69,7 +70,8 @@ def _split_proj(cfg, proj: torch.Tensor):
     d_in = s.expand * cfg.d_model
     n_heads = d_in // s.head_dim
     gn = s.n_groups * s.state_dim
-    z, xbc, dt = torch.split(proj, [d_in, d_in + 2 * gn, n_heads], dim=-1)
+    z, xbc, dt = torch.split(splittable(proj, proj.dim() - 1, 1),
+                             [d_in, d_in + 2 * gn, n_heads], dim=-1)
     return z, xbc, dt, d_in, n_heads, gn
 
 
@@ -138,6 +140,21 @@ def _ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), s.reshape(b, h, n, p)
 
 
+def _ssd_step(state: torch.Tensor, xh: torch.Tensor, dt1: torch.Tensor,
+              A: torch.Tensor, Bg: torch.Tensor, Cg: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One plain recurrent step: the fp32 state (B, H, N, P) decays by
+    exp(A dt) and takes dt B x; y = C · state (B, H, P)."""
+    hpg = xh.shape[1] // Bg.shape[1]
+    Bh = Bg.repeat_interleave(hpg, dim=1)
+    Ch = Cg.repeat_interleave(hpg, dim=1)
+    decay = torch.exp(A[None] * dt1)                              # (B,H)
+    upd = torch.einsum("bhn,bhp->bhnp", Bh.float() * dt1[..., None],
+                       xh.float())
+    state = state * decay[..., None, None] + upd
+    return torch.einsum("bhn,bhnp->bhp", Ch.float(), state), state
+
+
 def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
                  cache: Optional[Dict] = None,
                  slots: Optional[SlotStep] = None
@@ -159,7 +176,8 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         conv_out = F.silu((window * w).sum(dim=1, keepdim=True)
                           + p.conv_b.to(x.dtype))
         new_conv = window[:, 1:]
-        xs, B_, C_ = torch.split(conv_out, [d_in, gn, gn], dim=-1)
+        xs, B_, C_ = torch.split(splittable(conv_out, 2, 1),
+                                 [d_in, gn, gn], dim=-1)
         xh = xs.reshape(b, n_heads, s.head_dim)
         Bg = B_.reshape(b, s.n_groups, s.state_dim)
         Cg = C_.reshape(b, s.n_groups, s.state_dim)
@@ -172,14 +190,9 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         elif kernels:
             y, state = ops.ssd_decode(state, xh, dt1, A, Bg, Cg)
         else:
-            hpg = n_heads // s.n_groups
-            Bh = Bg.repeat_interleave(hpg, dim=1)
-            Ch = Cg.repeat_interleave(hpg, dim=1)
-            decay = torch.exp(A[None] * dt1)                      # (B,H)
-            upd = torch.einsum("bhn,bhp->bhnp",
-                               Bh.float() * dt1[..., None], xh.float())
-            state = state * decay[..., None, None] + upd
-            y = torch.einsum("bhn,bhnp->bhp", Ch.float(), state)
+            y, state = local_map(_ssd_step, (state, xh, dt1, A, Bg, Cg),
+                                 ((0,), (0,), (0,), None, (0,), (0,)),
+                                 [(0,), (0,)])
         y = y + p.D.float()[None, :, None] * xh.float()
         y = y.reshape(b, 1, d_in).to(x.dtype)
         new_cache = {"state": state.to(cache["state"].dtype),
@@ -195,7 +208,8 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
         window = torch.cat([before, xbc], dim=1)
         conv_out = _causal_conv(window, p.conv_w.to(x.dtype),
                                 p.conv_b.to(x.dtype))
-        xs, B_, C_ = torch.split(conv_out, [d_in, gn, gn], dim=-1)
+        xs, B_, C_ = torch.split(splittable(conv_out, 2, 1),
+                                 [d_in, gn, gn], dim=-1)
         xh = xs.reshape(b, l, n_heads, s.head_dim)
         Bg = B_.reshape(b, l, s.n_groups, s.state_dim)
         Cg = C_.reshape(b, l, s.n_groups, s.state_dim)
@@ -215,7 +229,9 @@ def mamba2_apply(p: Mamba2, cfg, x: torch.Tensor, *,
             chunk = min(s.chunk, l)
             if l % chunk:
                 chunk = 1
-            y, s_final = _ssd_chunked(xh, dt, A, Bg, Cg, chunk)
+            y, s_final = local_map(
+                lambda *a: _ssd_chunked(*a, chunk), (xh, dt, A, Bg, Cg),
+                ((0,), (0,), None, (0,), (0,)), [(0,), (0,)])
         if cont:
             # the exact initial-state correction on the zero-state scan
             s0 = cache["state"].float()                            # (B,H,N,P)

@@ -44,8 +44,8 @@ from torch import nn
 from .attention import (GQA, MLA, gqa_apply, gqa_cache_init, mla_apply,
                         mla_cache_init)
 from .layers import (Dense, Embedding, RMSNorm, SlotStep, SwiGLU,
-                     cross_entropy, dense, embed, remat, rmsnorm, slot_step,
-                     swiglu, unembed)
+                     cross_entropy, dense, embed, local_map, remat, rmsnorm,
+                     slot_step, swiglu, unembed)
 from .moe import MoE, moe_apply
 from .ssm import Mamba2, mamba2_apply, mamba2_cache_init
 
@@ -255,8 +255,10 @@ def loss_fn(cfg, model: Transformer, batch: Dict) -> torch.Tensor:
         x = embed(model.embed, batch["tokens"], cfg.activation_dtype)
         positions = torch.arange(x.shape[1], device=x.device)
         h, _, _ = dense_block_apply(model.mtp, cfg, x, positions)
-        l2 = torch.nn.functional.pad(batch["labels"][:, 2:], (0, 2),
-                                     value=-100)
+        # the labels two ahead, per batch row (each rank its own rows)
+        l2 = local_map(lambda lb: torch.nn.functional.pad(
+            lb[:, 2:], (0, 2), value=-100), (batch["labels"],), ((0,),),
+            (0,))
         loss = loss + 0.1 * cross_entropy(_logits(cfg, model, h), l2)
     return loss + aux
 

@@ -17,9 +17,9 @@ mitigation; the port of ``repro.runtime.failover``.
     host can take fewer microbatches per synchronization (the gradient
     carries its microbatch count).
 
-The reference's ``elastic_remesh`` re-places a checkpoint onto a mesh of
-another shape; it waits for the distribution slice (ROADMAP queue 1 item
-8b), which brings the port's meshes.
+  - :func:`elastic_remesh`: restore a checkpoint onto a mesh of another
+    shape (another data-parallel degree after a node loss), its
+    placements recomputed from the same rule table.
 """
 from __future__ import annotations
 
@@ -148,3 +148,14 @@ def run_with_recovery(train_fn: Callable[[Any, int], Any],
             state = tree_to_state(tree, state)
             step = extra["step"]
     return state
+
+
+def elastic_remesh(ckpt_dir: str, like_tree, new_mesh, spec_fn):
+    """Re-place a checkpoint onto a new mesh (other axis sizes).
+
+    ``spec_fn(tree, mesh) -> shardings`` is the rule table used at
+    launch (``launch.sharding.shardings``), so resharding needs no
+    per-tensor bookkeeping: the placements are recomputed for the new
+    mesh and the restored tensors distributed under them."""
+    shardings = spec_fn(like_tree, new_mesh)
+    return ckpt.restore_resharded(ckpt_dir, like_tree, new_mesh, shardings)

@@ -75,6 +75,18 @@ shape, dtype or pump, or where a launch fails, and a rung of plain
 PyTorch standing in for such a kernel would hide it (the reference
 degrades on any exception).  A failure of the bottom rung itself raises.
 
+**Meshes.**  ``Engine(..., mesh=)`` places the weights under the serving
+rules (``launch.steps.serve_param_specs``: TP-resident, "data" stripped
+but for MoE) as DTensor parameters, and every step runs through
+``launch.steps.on_mesh``: on a mesh where they are all replicated (the
+card's 1 x 1 host mesh) the model is served from its local tensors, so
+routes, kernels and launch counts are the direct path's.  A placement
+that shards a weight raises ``ValueError``: the engine's caches and
+tokens are plain tensors, so a sharded mesh serves through
+``make_prefill_step`` / ``make_decode_step`` on a placed cache
+(``serve_shardings``).  ``mesh=None`` (the default; the reference's is
+``make_host_mesh()``) makes no process group and no DTensor.
+
 **Tracing and metrics** (:mod:`repro_torch.obs`): the spans
 ``serve.warmup``, ``serve.generate``, ``serve.prefill``,
 ``serve.prefill_chunk`` and ``serve.decode``; the histograms
@@ -134,7 +146,8 @@ class ServeConfig:
 
 class Engine:
     def __init__(self, cfg, model, scfg: ServeConfig, *,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 mesh=None):
         model_mod.check_supported(cfg)
         if scfg.kernel_plan and scfg.kernel_plan != cfg.kernel_plan:
             cfg = dataclasses.replace(cfg, kernel_plan=scfg.kernel_plan)
@@ -154,6 +167,19 @@ class Engine:
         self._req_degraded = False
         self.device = device_mod.resolve(device)
         self.model = model.to(self.device)
+        self.mesh = mesh
+        if mesh is not None:
+            from repro_torch.launch import sharding as shard_mod
+            from repro_torch.launch import steps as steps_mod
+            specs = steps_mod.serve_param_specs(cfg, self.model)
+            shard_mod.place(self.model, mesh, specs)
+            if not shard_mod.replicated(self.model):
+                raise ValueError(
+                    f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+                    f"shards {cfg.name}'s weights; the engine serves a "
+                    f"replicated placement (a host mesh): serve a sharded "
+                    f"one through launch.steps.make_prefill_step / "
+                    f"make_decode_step on a placed cache")
         self.cache_dtype = getattr(torch, scfg.cache_dtype)
         self.timer = StepTimer(self.device)
         self.ttft_s: Optional[float] = None
@@ -228,6 +254,14 @@ class Engine:
         finally:
             set_default_registry(old)
 
+    def _on_mesh(self):
+        """Under a mesh, the model over its local tensors
+        (``launch.steps.on_mesh``) for the length of the block."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from repro_torch.launch.steps import on_mesh
+        return on_mesh(self.model)
+
     def _batch(self, tokens: torch.Tensor, enc_out=None) -> Dict:
         """A step's batch: the tokens, and an enc-dec model's encoder
         output."""
@@ -262,6 +296,10 @@ class Engine:
         ``engine.{phase}`` fault, or, guarded, non-finite logits), from
         the caller's cache (exact: module docstring).  Re-raises a
         ``KernelError``; raises if the bottom rung fails too."""
+        with self._on_mesh():
+            return self._guarded_step(phase, cache, batch, **kw)
+
+    def _guarded_step(self, phase: str, cache, batch: Dict, **kw):
         cont = phase == "prefill_chunk"
         try:
             faults.check(f"engine.{phase}")

@@ -16,6 +16,14 @@ Training runs the plain PyTorch routes, as the reference trains on its
 plain ones: the hand-written kernels have no backward and refuse tensors
 that require grad (``kernels.ops``).  Runs on the card unless
 ``device='cpu'``.
+
+``mesh=`` (``launch.mesh``) trains under the rule table: ``'auto'`` plans
+for the mesh's chips and data-parallel degree, the parameters and the
+optimizer state are placed under ``launch.steps.train_shardings`` and
+every batch under its batch placements, and checkpoints are saved whole
+and restored onto the state's placements.  ``mesh=None`` (the default;
+the reference's is ``make_host_mesh()``) is the one-card path as it
+was: no process group, no DTensor.
 """
 from __future__ import annotations
 
@@ -31,6 +39,8 @@ from repro_torch.checkpoint import manager as ckpt_mod
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.pump_plan import plan_trainer_pump
 from repro_torch.data.pipeline import DataConfig, DataIterator
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch import sharding as shard_mod
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import convert
 
@@ -87,19 +97,27 @@ def make_trainer(cfg: ModelConfig, shape: ShapeConfig,
                  optcfg: optim.AdamWConfig = optim.AdamWConfig(),
                  tcfg: TrainConfig = TrainConfig(), device=None,
                  batch_override: Optional[int] = None,
-                 model: Optional[torch.nn.Module] = None):
+                 model: Optional[torch.nn.Module] = None, mesh=None):
     """Returns (init_fn, step_fn, data_iter, pump).  ``init_fn(seed)``
     builds the state from ``model`` when given (trained in place, in its
     own dtype), else seeded weights (``convert.init_params``) in
-    ``tcfg.param_dtype``."""
+    ``tcfg.param_dtype``; under ``mesh`` the state is placed under
+    ``train_shardings`` and each batch under its placements."""
     dev = device_mod.resolve(device)
-    pump = resolve_pump(cfg, shape, tcfg.pump_factor)
+    if mesh is None:
+        pump = resolve_pump(cfg, shape, tcfg.pump_factor)
+    else:
+        pump = resolve_pump(cfg, shape, tcfg.pump_factor, mesh.size(),
+                            mesh_mod.dp_degree(mesh))
     batch = batch_override or shape.global_batch
     if batch % pump:
         raise ValueError(f"pump factor {pump} does not divide the global "
                          f"batch {batch}")
     pdt = getattr(torch, tcfg.param_dtype)
     step = steps_mod.make_train_step(cfg, optcfg, pump)
+    if mesh is not None:
+        (p_sh, o_sh, b_sh), _, _ = steps_mod.train_shardings(
+            cfg, optcfg, mesh, shape, pdt, pump)
 
     def init_fn(seed: int) -> TrainState:
         m = model
@@ -107,9 +125,16 @@ def make_trainer(cfg: ModelConfig, shape: ShapeConfig,
             m = convert.init_params(
                 cfg, torch.Generator(device=dev).manual_seed(seed), dev, pdt)
         m.requires_grad_(True)
-        return TrainState(m, optim.init(optcfg, m), 0)
+        opt = optim.init(optcfg, m)
+        if mesh is not None:
+            shard_mod.place(m, mesh, p_sh)
+            opt = optim.AdamWState(**shard_mod.place(
+                opt.tree(), mesh, o_sh.tree()))
+        return TrainState(m, opt, 0)
 
     def step_fn(state: TrainState, batch) -> tuple:
+        if mesh is not None:
+            batch = shard_mod.place(batch, mesh, b_sh)
         metrics = step(state.model, state.opt_state, batch)
         state.step += 1
         return state, metrics
@@ -132,7 +157,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
           tcfg: TrainConfig = TrainConfig(), device=None,
           batch_override: Optional[int] = None, log: Callable = print,
           heartbeat=None, straggler=None,
-          model: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
+          model: Optional[torch.nn.Module] = None, mesh=None
+          ) -> Dict[str, Any]:
     """Full driver: init, resume from ``latest_valid`` (the state and the
     data stream's step), the loop, checkpoints.  Returns ``history`` (a
     row per logged step: loss, grad norm, lr, seconds), ``final_state``
@@ -147,7 +173,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     it: the reference writes the same state twice).
     """
     init_fn, step_fn, data, pump = make_trainer(
-        cfg, shape, optcfg, tcfg, device, batch_override, model)
+        cfg, shape, optcfg, tcfg, device, batch_override, model, mesh)
     state = init_fn(tcfg.seed)
     worker = _worker()
     pump_derated = pump
@@ -155,7 +181,12 @@ def train(cfg: ModelConfig, shape: ShapeConfig,
     if tcfg.ckpt_root:
         latest = ckpt_mod.latest_valid(tcfg.ckpt_root)
         if latest:
-            tree, extra = ckpt_mod.restore(latest, state.tree())
+            like = state.tree()
+            if mesh is None:
+                tree, extra = ckpt_mod.restore(latest, like)
+            else:
+                tree, extra = ckpt_mod.restore_resharded(
+                    latest, like, mesh, shard_mod.placements_of(like))
             state.load(tree)
             state.step = extra["step"]
             data.step = extra["data_step"]

@@ -14,7 +14,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path):
@@ -51,6 +52,45 @@ def test_port_imports_with_jax_and_reference_blocked():
                          text=True, env=env, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_distribution_surface_exists():
+    """The distribution slice's modules and entry points (the reference's
+    ``launch/{mesh,sharding,steps,dryrun,__main__}.py``,
+    ``restore_resharded``, ``elastic_remesh``, the launcher's mesh flags,
+    ``mesh=`` on the trainer and the engine)."""
+    import inspect
+
+    from repro_torch.checkpoint import manager
+    from repro_torch.launch import __main__ as dispatch
+    from repro_torch.launch import dryrun, mesh, sharding, steps
+    from repro_torch.launch import train as launch_train
+    from repro_torch.runtime import failover
+    from repro_torch.serve.engine import Engine
+    from repro_torch.train import trainer
+    for mod, names in (
+            (mesh, ("make_production_mesh", "make_host_mesh",
+                    "mesh_axis_sizes", "dp_degree", "fake_world",
+                    "destroy_group")),
+            (sharding, ("_fit", "_param_rule", "param_specs", "fit_specs",
+                        "batch_spec", "batch_specs", "cache_specs",
+                        "strip_axis", "constrain", "placements", "shardings",
+                        "place")),
+            (steps, ("abstract_params", "abstract_opt_state",
+                     "abstract_batch", "abstract_decode_batch",
+                     "abstract_cache", "train_shardings",
+                     "make_prefill_step", "make_decode_step",
+                     "serve_shardings", "make_train_step")),
+            (dryrun, ("run_cell", "main")), (dispatch, ("main",)),
+            (manager, ("restore_resharded",)),
+            (failover, ("elastic_remesh",))):
+        for name in names:
+            assert callable(getattr(mod, name, None)), (mod.__name__, name)
+    assert set(dispatch.COMMANDS) == {"tune", "serve"}
+    src = inspect.getsource(launch_train)
+    assert "--production-mesh" in src and "--multi-pod" in src
+    for fn in (trainer.train, trainer.make_trainer, Engine.__init__):
+        assert "mesh" in inspect.signature(fn).parameters
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
