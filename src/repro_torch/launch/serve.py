@@ -31,7 +31,8 @@ synthetic trace of ``--requests`` requests (prompts of ``--prompt-len`` and
 half of it, ``--new`` tokens each; geometric gaps for R < 1, packed
 overload arrivals for R > 1) through ``Engine.serve_stream`` with
 ``--max-slots`` decode lanes (default ``--batch``), and prints tokens/s,
-slot occupancy, queue waits and TTFT.  ``--prefill-chunk-tokens``,
+slot occupancy, queue waits and TTFT (each request's from its submit, or
+its arrival step where that comes later, so it holds the queue wait).  ``--prefill-chunk-tokens``,
 ``--preempt``, ``--max-queue`` and ``--deadline-ms`` are the overload
 controls; a shed request is reported on a ``[serve] SHED:`` line.
 
@@ -290,7 +291,7 @@ def stream(args, cfg, eng):
           f"rate {args.arrival_rate}")
     print(f"[serve] slots: peak occupancy {max(occ, default=0)}/"
           f"{args.max_slots or args.batch} over {len(occ)} steps; queue "
-          f"wait: max {max(waits)} step(s); ttft p50 "
+          f"wait: max {max(waits)} step(s); ttft (from submit) p50 "
           f"{ttft[len(ttft) // 2] * 1e3:.1f}ms")
     n_pre = sum(r.preemptions for r in results)
     if n_pre:

@@ -340,16 +340,25 @@ def serve_shardings(cfg, mesh, shape: ShapeConfig,
 
 
 class StepTimer:
+    """Times each call of a step to its finish on the device: on a CUDA
+    device ``run`` ends in ``torch.cuda.synchronize()``.  ``enqueued`` is
+    the ``perf_counter()`` stamp of the last ``fn`` return, before that
+    synchronize: the host's part of the step ends there.  The wait is the
+    ``engine.sync_wait`` span (empty off the card)."""
+
     def __init__(self, device: torch.device):
         self._sync = device.type == "cuda"
         self.cold_s: Dict[str, float] = {}
         self._warm: Dict[str, obs.Histogram] = {}
+        self.enqueued = 0.0
 
     def run(self, phase: str, fn, *args, **kwargs):
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        if self._sync:
-            torch.cuda.synchronize()
+        self.enqueued = time.perf_counter()
+        with obs.span("engine.sync_wait", cat="serve"):
+            if self._sync:
+                torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if phase not in self.cold_s:
             self.cold_s[phase] = dt

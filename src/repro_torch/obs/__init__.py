@@ -19,16 +19,31 @@ reference's names:
 * the **plan registry** counts hits / misses / fallbacks per phase and
   measure / replay per plan (``registry.*``) and publishes its stats as a
   snapshot view;
-* the **serve engine** wraps warmup / prefill / per-token decode in spans,
-  records TTFT and per-step latency histograms, and counts every degraded
-  step (``engine.degraded``) and request; the **scheduler** adds its
-  gauges, sheds, fault counters and per-request histograms.
+* the **serve engine** wraps warmup / prefill / per-token decode in spans
+  (the step's wait for the card in ``engine.sync_wait``), records TTFT,
+  the synced wall and the enqueue of each step (``serve.decode_step_s``,
+  ``engine.prefill_s``, ``engine.<phase>_enqueue_s``) and
+  ``engine.warmup_s``, and counts every degraded step
+  (``engine.degraded``) and request; the **scheduler** adds its step
+  phases as spans (``sched.step`` over ``sched.admit``,
+  ``sched.insert_rows``, ``sched.prefill_chunks``, ``sched.decode``,
+  ``sched.readback``), one ``sched.request`` span a request, its gauges,
+  sheds, fault counters, padded-row counters and per-request histograms,
+  the host time of each step (``sched.host_s``) and the parts of each
+  first token's wait (``sched.first_token_*``);
+* **``kernels._build.build_all``** records ``kernels.build_s``.
 
 On the card the engine's steps end in ``torch.cuda.synchronize()``
 (``StepTimer``), so a step span measures the device's work too; the
 compile and registry spans measure host time (no sync is added to get
-them).  With tracing off a span is one attribute check; nothing counts per
-layer or per kernel launch.
+them).  With tracing off a span is one attribute check and one profiler
+check; nothing counts per layer or per kernel launch.  While a
+``torch.profiler`` records, every span is also a ``record_function``
+range in its trace, tracing on or off.
+
+Every histogram sample carries its ``time.perf_counter()`` stamp, so
+``Histogram.between(t0, t1)`` reads the samples of a window timed on
+that clock (the benchmark's readers do).
 
 Quick use::
 
@@ -39,6 +54,7 @@ Quick use::
     obs.count("my.counter")               # counter + trace instant
     obs.observe("my.latency_s", 0.004)    # histogram sample
     obs.write_trace("trace.json")         # open at ui.perfetto.dev
+    obs.get_tracer().record_span("my.request", t0_ns, t1_ns, rid=7)
     obs.snapshot()                        # pure-JSON metrics state
 """
 from __future__ import annotations
@@ -46,8 +62,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,
-                      default_metrics, format_phases, format_snapshot,
-                      set_default_metrics)
+                      default_metrics, format_snapshot, set_default_metrics)
 from .profile import profile
 from .trace import (Tracer, disable, enable, get_tracer, instant, set_tracer,
                     span, tracing_enabled, write_trace)
@@ -56,7 +71,7 @@ __all__ = [
     "Tracer", "get_tracer", "set_tracer", "enable", "disable",
     "tracing_enabled", "span", "instant", "write_trace",
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "default_metrics",
-    "set_default_metrics", "format_snapshot", "format_phases",
+    "set_default_metrics", "format_snapshot",
     "count", "observe", "gauge", "snapshot", "register_view", "profile",
 ]
 

@@ -1,5 +1,6 @@
 """Metrics registry: counters, gauges, histograms with percentiles; the
-port of ``repro.obs.metrics``, line for line.
+port of ``repro.obs.metrics``, with a time stamp on each histogram sample
+(``Histogram.between`` reads the samples of a window).
 
 The *how-often / how-bad* half of ``repro_torch.obs``.  Unlike the tracer,
 metrics are **always on** — counting a cache corruption or recording a
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 from typing import Any, Callable, Dict, List, Optional
 
 PERCENTILES = (50, 90, 99)
@@ -53,18 +55,21 @@ class Gauge:
 class Histogram:
     """Value series with nearest-rank percentiles (p50/p90/p99).
 
-    Stores raw samples up to ``max_samples``; past that the series is
-    compacted by keeping every other sample (deterministic — no RNG), while
-    ``count``/``total`` keep exact tallies over everything ever recorded.
-    The serving decode loop records thousands of sub-ms floats per run, so
-    the bound exists for long-lived processes, not for correctness at
-    benchmark scale.
+    Stores raw samples up to ``max_samples``, each with the
+    ``time.perf_counter()`` stamp of its ``record``; past that the series
+    is compacted by keeping every other sample with its stamp
+    (deterministic — no RNG), while ``count``/``total`` keep exact tallies
+    over everything ever recorded.  The serving decode loop records
+    thousands of sub-ms floats per run, so the bound exists for
+    long-lived processes, not for correctness at benchmark scale.
     """
 
-    __slots__ = ("_values", "count", "total", "min", "max", "max_samples")
+    __slots__ = ("_values", "_stamps", "count", "total", "min", "max",
+                 "max_samples")
 
     def __init__(self, max_samples: int = 8192):
         self._values: List[float] = []
+        self._stamps: List[float] = []
         self.count = 0
         self.total = 0.0
         self.min: Optional[float] = None
@@ -78,8 +83,16 @@ class Histogram:
         self.min = v if self.min is None else min(self.min, v)
         self.max = v if self.max is None else max(self.max, v)
         self._values.append(v)
+        self._stamps.append(time.perf_counter())
         if len(self._values) > self.max_samples:
             self._values = self._values[::2]
+            self._stamps = self._stamps[::2]
+
+    def between(self, t0: float, t1: float) -> List[float]:
+        """The retained samples recorded at ``t0 <= perf_counter() <= t1``
+        (the clock a caller's window is measured on)."""
+        return [v for v, t in zip(self._values, self._stamps)
+                if t0 <= t <= t1]
 
     @property
     def values(self) -> List[float]:
@@ -195,22 +208,6 @@ def _fmt_value(v: Any) -> str:
     if isinstance(v, float):
         return f"{v:.4g}"
     return str(v)
-
-
-def format_phases(phases: Dict[str, Dict[str, Any]]) -> str:
-    """Human lines for ``StepTimer.stats()`` — the serve launcher's report
-    formatter (replaces hand-rolled dict dumps)."""
-    lines = []
-    for phase, st in phases.items():
-        warm = st.get("warm") or {}
-        lines.append(
-            f"{phase:>8}: cold={_fmt_seconds(st.get('compile_s'))} | "
-            f"warm mean={_fmt_seconds(warm.get('mean_s'))} "
-            f"p50={_fmt_seconds(warm.get('p50_s'))} "
-            f"p99={_fmt_seconds(warm.get('p99_s'))} "
-            f"best={_fmt_seconds(warm.get('best_s'))} "
-            f"over {warm.get('calls', 0)} steps")
-    return "\n".join(lines)
 
 
 def format_snapshot(snap: Dict[str, Any], prefix: str = "") -> str:

@@ -1,34 +1,49 @@
 """Span tracer: nested wall-clock spans + instant events, exportable as
-Chrome-trace JSON (Perfetto-loadable) or a JSONL event log; the port of
-``repro.obs.trace``, line for line.
+Chrome-trace JSON (Perfetto-loadable); the port of ``repro.obs.trace``,
+with a hook into ``torch.profiler`` and request spans beside it.
 
 The tracer is the *where-does-the-time-go* half of ``repro_torch.obs``:
 every layer that does time-shaped work (pipeline passes, compiles,
 autotune measurement, plan-registry compiles, engine warmup / prefill /
-decode) brackets it in a span, so one ``Engine.generate()`` call under
-``--trace`` yields a complete nested timeline.
+decode, the scheduler's step phases) brackets it in a span, so one
+``Engine.generate()`` call under ``--trace`` yields a complete nested
+timeline.
 
 Design constraints:
 
-* **Zero dependencies** — stdlib only, importable from every layer
-  (including :mod:`repro_torch.compiler.cache`).
+* **No dependencies** — stdlib only, importable from every layer
+  (including :mod:`repro_torch.compiler.cache`); torch is looked up in
+  ``sys.modules`` when a span opens, never imported here.
 * **Off by default, near-zero cost when off** — ``span()`` returns a
-  shared no-op handle after one attribute check.
+  shared no-op handle after one attribute check and one profiler check.
 * **Exception-safe nesting** — a span records on ``__exit__`` even when the
   body raises (the error type lands in its attrs), and the thread-local
   stack is popped in all cases, so an exception can never corrupt the
   parent/depth bookkeeping of later spans.
 
+**The profiler hook.**  While a ``torch.profiler`` is recording
+(``torch.autograd._profiler_enabled()``), every span also opens a
+``record_function`` range of its name, whether or not tracing is on: the
+program's spans then sit in the profiler's Chrome trace as user
+annotations, on the kernels' own timeline.
+
+**Request spans.**  ``Tracer.record_span`` records a span that opened
+earlier and closed elsewhere (the scheduler's ``sched.request``, from
+submit to completion).  Such spans overlap one another, so the Chrome
+trace exports each one carrying a ``rid`` as an async event keyed by it.
+
 Timestamps are monotonic (``time.perf_counter_ns``) relative to the
 tracer's construction, in microseconds — the unit Chrome-trace wants.
 Spans time the host: on the card a span measures the device's work only
 where the code inside it synchronizes (the engine's steps do, through
-``StepTimer``); compile and registry spans measure host time.
+``StepTimer``, whose wait is the ``engine.sync_wait`` span); compile and
+registry spans measure host time.
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -52,11 +67,47 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` is recording in this process (False
+    where torch was never imported)."""
+    torch = sys.modules.get("torch")
+    return torch is not None and torch.autograd._profiler_enabled()
+
+
+def _range_open(name: str):
+    """An entered ``record_function`` range: a user annotation in the
+    recording profiler's trace."""
+    rf = sys.modules["torch"].autograd.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Range:
+    """A span only a recording profiler sees (tracing off): its
+    ``record_function`` range, nothing in the tracer."""
+
+    __slots__ = ("name", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self) -> "_Range":
+        self._rf = _range_open(self.name)
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self._rf.__exit__(*exc)
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
 class _Span:
     """One live span: context manager that records itself on exit."""
 
     __slots__ = ("_tracer", "name", "cat", "attrs", "_t0", "_tid", "_depth",
-                 "_parent")
+                 "_parent", "_rf")
 
     def __init__(self, tracer: "Tracer", name: str, cat: str,
                  attrs: Dict[str, Any]):
@@ -76,6 +127,7 @@ class _Span:
         self._depth = len(stack)
         self._tid = tr._tid()
         stack.append(self.name)
+        self._rf = _range_open(self.name) if profiling() else None
         self._t0 = time.perf_counter_ns()
         return self
 
@@ -95,11 +147,13 @@ class _Span:
             "tid": self._tid, "depth": self._depth, "parent": self._parent,
             "args": self.attrs,
         })
+        if self._rf is not None:
+            self._rf.__exit__(exc_type, exc, tb)
         return False
 
 
 class Tracer:
-    """Span/event recorder with Chrome-trace and JSONL export.
+    """Span/event recorder with Chrome-trace export.
 
     ``enabled=False`` (the default for the process-wide tracer) makes
     ``span()``/``instant()`` no-ops; flip with :func:`enable` or construct a
@@ -136,10 +190,29 @@ class Tracer:
     # -- recording API -------------------------------------------------------
     def span(self, name: str, cat: str = "", **attrs):
         """Context manager timing one unit of work; nests via a thread-local
-        stack.  Returns a no-op handle when the tracer is disabled."""
+        stack.  Disabled, it returns a profiler range while a
+        ``torch.profiler`` records, else a shared no-op handle."""
+        if self.enabled:
+            return _Span(self, name, cat, attrs)
+        if profiling():
+            return _Range(name)
+        return _NULL
+
+    def record_span(self, name: str, start_ns: int, end_ns: int,
+                    cat: str = "", **attrs) -> None:
+        """Record a span that opened at ``start_ns`` and closed at
+        ``end_ns`` (``time.perf_counter_ns``), elsewhere than one ``with``
+        block: a request's life across scheduler steps.  A ``rid`` attr
+        makes it an async event of that id in the Chrome trace."""
         if not self.enabled:
-            return _NULL
-        return _Span(self, name, cat, attrs)
+            return
+        self._record({
+            "type": "span", "name": name, "cat": cat,
+            "ts": (start_ns - self._epoch) / 1e3,
+            "dur": (end_ns - start_ns) / 1e3, "tid": self._tid(),
+            "depth": 0, "parent": None, "args": attrs,
+            "id": attrs.get("rid"),
+        })
 
     def instant(self, name: str, cat: str = "", **attrs) -> None:
         """Point-in-time event (cache hit, fallback, tier decision)."""
@@ -168,23 +241,24 @@ class Tracer:
     # -- export --------------------------------------------------------------
     def chrome_trace(self, metadata: Optional[dict] = None) -> Dict[str, Any]:
         """The Chrome Trace Event JSON object (open at ui.perfetto.dev or
-        chrome://tracing).  Spans become complete ``"X"`` events, instants
-        become ``"i"`` events; ``ts``/``dur`` are microseconds."""
+        chrome://tracing).  Spans become complete ``"X"`` events, request
+        spans (``record_span`` with a ``rid``) async ``"b"``/``"e"`` pairs
+        keyed by the rid, instants ``"i"`` events; ``ts``/``dur`` are
+        microseconds."""
         pid = os.getpid()
         events: List[Dict[str, Any]] = []
         for r in self.records:
-            if r["type"] == "span":
-                events.append({
-                    "name": r["name"], "cat": r["cat"] or "repro_torch",
-                    "ph": "X", "ts": r["ts"], "dur": r["dur"],
-                    "pid": pid, "tid": r["tid"], "args": dict(r["args"]),
-                })
+            ev = {"name": r["name"], "cat": r["cat"] or "repro_torch",
+                  "ts": r["ts"], "pid": pid, "tid": r["tid"],
+                  "args": dict(r["args"])}
+            if r["type"] != "span":
+                events.append({**ev, "ph": "i", "s": "t"})
+            elif r.get("id") is not None:
+                events.append({**ev, "ph": "b", "id": r["id"]})
+                events.append({**ev, "ph": "e", "id": r["id"],
+                               "ts": r["ts"] + r["dur"], "args": {}})
             else:
-                events.append({
-                    "name": r["name"], "cat": r["cat"] or "repro_torch",
-                    "ph": "i", "s": "t", "ts": r["ts"],
-                    "pid": pid, "tid": r["tid"], "args": dict(r["args"]),
-                })
+                events.append({**ev, "ph": "X", "dur": r["dur"]})
         out = {"traceEvents": events, "displayTimeUnit": "ms"}
         if metadata:
             out["otherData"] = dict(metadata)
@@ -195,12 +269,6 @@ class Tracer:
         span attrs from breaking the export)."""
         with open(path, "w") as f:
             json.dump(self.chrome_trace(metadata), f, default=repr)
-
-    def write_jsonl(self, path) -> None:
-        """One raw record per line — the grep/jq-friendly event log."""
-        with open(path, "w") as f:
-            for r in self.records:
-                f.write(json.dumps(r, default=repr) + "\n")
 
 
 # ------------------------------------------------------------ process-wide --

@@ -89,11 +89,16 @@ tokens are plain tensors, so a sharded mesh serves through
 
 **Tracing and metrics** (:mod:`repro_torch.obs`): the spans
 ``serve.warmup``, ``serve.generate``, ``serve.prefill``,
-``serve.prefill_chunk`` and ``serve.decode``; the histograms
-``serve.ttft_s`` and ``serve.decode_step_s``; ``serve.tokens``; and the
-engine's ``stats()`` as the ``serve.engine`` snapshot view.  With tracing
-off a decode step adds one enabled check, one ``perf_counter`` pair and
-one histogram append.
+``serve.prefill_chunk`` and ``serve.decode``, each step's with an
+``engine.sync_wait`` child where ``StepTimer`` waits for the card; the
+histograms ``serve.ttft_s`` and ``engine.warmup_s``; two samples a step,
+both from the step's entry, split at the point ``StepTimer`` stamps as the
+host's last enqueue: ``engine.<phase>_enqueue_s`` up to it, and the synced
+wall (``serve.decode_step_s`` for decode, ``engine.prefill_s`` and
+``engine.prefill_chunk_s``); ``serve.tokens``; and the engine's
+``stats()`` as the ``serve.engine`` snapshot view.  With tracing off and
+no profiler recording, a span is one attribute and one profiler check
+(``decode_token`` gives the whole cost of a decode step).
 
 """
 from __future__ import annotations
@@ -199,9 +204,14 @@ class Engine:
         stats = weakref.WeakMethod(self.stats)
         obs.register_view("serve.engine",
                           lambda: None if stats() is None else stats()())
-        # resolved once: a decode step appends to the histogram directly
-        self._step_hist = obs.default_metrics().histogram(
-            "serve.decode_step_s")
+        # resolved once: a step appends to its histograms directly
+        reg = obs.default_metrics()
+        self._step_hists = {
+            phase: (reg.histogram(f"engine.{phase}_enqueue_s"),
+                    reg.histogram(wall))
+            for phase, wall in (("prefill", "engine.prefill_s"),
+                                ("prefill_chunk", "engine.prefill_chunk_s"),
+                                ("decode", "serve.decode_step_s"))}
         if scfg.warmup:
             self.warmup()
 
@@ -237,7 +247,9 @@ class Engine:
             sp.set(plans=len(self.warmup_report),
                    failed=sum(1 for r in self.warmup_report
                               if "error" in r))
-        self.warmup_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.warmup_s += dt
+        obs.observe("engine.warmup_s", dt)
         return self.warmup_report
 
     @contextlib.contextmanager
@@ -287,6 +299,13 @@ class Engine:
             self._direct_cfg = dataclasses.replace(self.cfg, **_DIRECT)
         return self._direct_cfg
 
+    def _record_step(self, phase: str, t0: float) -> None:
+        """The step entered at ``t0``: its enqueue, up to ``StepTimer``'s
+        stamp, and its synced wall."""
+        enqueue, wall = self._step_hists[phase]
+        enqueue.record(self.timer.enqueued - t0)
+        wall.record(time.perf_counter() - t0)
+
     def _nan_guarded(self) -> bool:
         return self.scfg.nan_guard or faults.active()
 
@@ -328,6 +347,7 @@ class Engine:
         """tokens (B, S_prompt) -> (cache, last-position logits (B, V)).
         ``enc_out``: an enc-dec model's encoder output (``encdec.encode``,
         run outside the engine)."""
+        t0 = time.perf_counter()
         cache = model_mod.init_cache(self.cfg, int(tokens.shape[0]),
                                      self.scfg.max_len, self.cache_dtype,
                                      self.device)
@@ -337,6 +357,7 @@ class Engine:
             logits, cache = self._run_step(
                 "prefill", cache, self._batch(tokens, enc_out),
                 last_only=True)
+        self._record_step("prefill", t0)
         return cache, logits[:, -1]
 
     @torch.no_grad()
@@ -345,6 +366,7 @@ class Engine:
         already holding tokens) by one chunk of ``tokens`` (B, S_chunk).
         Returns (cache, last-position logits (B, V)).  At pos 0 this is the
         answer of ``prefill`` without the flash fresh-cache route."""
+        t0 = time.perf_counter()
         with obs.span("serve.prefill_chunk", cat="serve",
                       batch=int(tokens.shape[0]),
                       chunk_len=int(tokens.shape[1])):
@@ -352,23 +374,22 @@ class Engine:
             logits, cache = self._run_step(
                 "prefill_chunk", cache, self._batch(tokens, enc_out),
                 last_only=True)
+        self._record_step("prefill_chunk", t0)
         return cache, logits[:, -1]
 
     @torch.no_grad()
     def decode_token(self, cache, tokens: torch.Tensor, enc_out=None):
         """One decode step of every row of ``cache`` (int or per-slot pos):
         tokens (B, 1) -> (logits (B, 1, V), cache).  The serving hot path:
-        with tracing off it adds one enabled check, one ``perf_counter``
-        pair and one histogram append to the step."""
+        with tracing off and no profiler recording it adds two no-op spans
+        (``serve.decode``, ``engine.sync_wait``), five ``perf_counter``
+        reads and three histogram appends to the step, ``StepTimer``'s
+        included."""
         t0 = time.perf_counter()
-        batch = self._batch(tokens, enc_out)
-        tr = obs.get_tracer()
-        if tr.enabled:
-            with tr.span("serve.decode", cat="serve"):
-                out = self._run_step("decode", cache, batch)
-        else:
-            out = self._run_step("decode", cache, batch)
-        self._step_hist.record(time.perf_counter() - t0)
+        with obs.span("serve.decode", cat="serve"):
+            out = self._run_step("decode", cache,
+                                 self._batch(tokens, enc_out))
+        self._record_step("decode", t0)
         return out
 
     def _sample(self, logits: torch.Tensor, key: prng.Key) -> torch.Tensor:

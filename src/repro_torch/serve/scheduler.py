@@ -55,9 +55,10 @@ draws one ``(1, V)`` categorical per lane: bit for bit the same draws,
 since a row's counters depend only on its place in ``(1, V)``; the cache
 is lists of per-layer dicts per segment (plus ``shared_attn``), which
 :func:`insert_rows` and the eviction walk, copying rows into the
-preallocated tensors in place; a request's ``ttft_s`` starts at its
-admission, before its prefill (the reference starts a grouped admission's
-after it, leaving the prefill out).
+preallocated tensors in place; a request's ``ttft_s`` starts when it is
+submitted, or, submitted ahead of its arrival step, when that step takes
+it in, so it holds the queue wait and the prefill (the reference starts a
+grouped admission's after its prefill).
 
 Robustness and metrics, the reference's: the ``sched.slot_free``,
 ``sched.preempt`` and ``sched.evict_rows`` fault seams each count their
@@ -68,9 +69,28 @@ chunk or decode step the engine degraded (``Engine._run_step``) completes
 with ``CompletedRequest.degraded`` and counts in the engine's
 ``degraded_requests`` and ``serve.degraded_request``.  The stream runs in a
 ``serve.stream`` span; sheds count ``sched.shed.<reason>``; each completion
-records ``serve.request_ttft_s``, ``serve.request_tpot_s`` and
-``sched.ttft_steps``, each admission ``sched.queue_wait_steps``, and each
-step sets the ``sched.slot_occupancy`` and ``sched.queue_depth`` gauges.
+records ``serve.request_ttft_s`` (the ``ttft_s`` above),
+``serve.request_tpot_s`` and ``sched.ttft_steps``, each admission
+``sched.queue_wait_steps``, and each step sets the ``sched.slot_occupancy``
+and ``sched.queue_depth`` gauges.  Every prefill counts its request rows
+in ``sched.prefill_rows`` and the rows padding it to the engine batch in
+``sched.prefill_rows_padded``.
+
+The host's share of the loop, always on: each step records ``sched.host_s``,
+its wall less the time inside the engine's ``prefill``, ``prefill_chunk``
+and ``decode_token``; each first token records, at the end of the step
+that made it, ``sched.first_token_s`` (submit to that end, the span a
+client's TTFT covers), ``sched.first_token_behind_s`` (submit to the start
+of the request's own prefill) and ``sched.first_token_prefill_s`` (that
+prefill, chunks summed).  With tracing on or a ``torch.profiler``
+recording, ``sched.step`` spans each step, over ``sched.admit`` (one an
+admission group, carrying its ``rids``: the group's ``serve.prefill``,
+then ``sched.insert_rows``), ``sched.prefill_chunks``, ``sched.decode``
+(over ``serve.decode``) and ``sched.readback`` (the copy of the tokens to
+the host); with tracing on, each request is a ``sched.request`` span from
+submit to completion (``Tracer.record_span``), carrying its ``rid``, the
+seconds it queued, waited behind others, prefilled, was held after its
+prefill and decoded, and its preemptions.
 """
 from __future__ import annotations
 
@@ -118,12 +138,13 @@ class CompletedRequest:
     admitted_step: int
     done_step: int
     queue_wait_steps: int                   # admitted_step - arrival
-    ttft_s: float                           # admission -> first token (wall)
+    ttft_s: float                           # submit -> first token (wall)
     tpot_s: float                           # mean inter-token wall time
     degraded: bool = False                  # a step ran off the planned route
     logits: Optional[np.ndarray] = None     # (n_new, V) fp32 when collected
     preemptions: int = 0                    # times evicted and resumed
     ttft_steps: int = 0                     # arrival -> first token (steps)
+    queue_s: float = 0.0                    # submit -> its own prefill (wall)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,7 +283,11 @@ class _Lane:
     emitted: List[int] = dataclasses.field(default_factory=list)
     logits: List[np.ndarray] = dataclasses.field(default_factory=list)
     admitted_step: int = 0
+    # perf_counter stamps and seconds of the request's wait (module doc)
+    submit_wall: float = 0.0
     admit_wall: float = 0.0
+    prefill_wall: float = 0.0       # its own prefill's first start
+    prefill_s: float = 0.0          # its own prefill, chunks summed
     first_tok_wall: float = 0.0
     first_tok_step: int = -1
     preemptions: int = 0
@@ -282,6 +307,7 @@ class _QueueItem:
     (``resume`` carries its emitted tokens and accounting)."""
     req: Request
     resume: Optional[_Lane] = None
+    submit_wall: float = 0.0
 
 
 class Scheduler:
@@ -342,6 +368,12 @@ class Scheduler:
         self.preempt_count = 0
         self.step = 0
         self._total = 0
+        # submit stamps of requests not yet arrived (None: submitted ahead
+        # of their arrival step, stamped when it takes them in)
+        self._submitted: Dict[int, Optional[float]] = {}
+        # this step's seconds inside engine calls, and its first tokens
+        self._engine_s = 0.0
+        self._firsts: List[_Lane] = []
 
     # ------------------------------------------------------------ helpers --
     def _prefill_tokens(self, it: _QueueItem) -> np.ndarray:
@@ -358,7 +390,24 @@ class Scheduler:
     def _lane_for(self, it: _QueueItem) -> _Lane:
         if it.resume is not None:
             return it.resume
-        return _Lane(req=it.req, key=prng.PRNGKey(self.engine.scfg.seed))
+        return _Lane(req=it.req, key=prng.PRNGKey(self.engine.scfg.seed),
+                     submit_wall=it.submit_wall)
+
+    def _engine_call(self, fn, *args):
+        """``fn(*args)``, an engine step, with its start stamp and wall
+        seconds; the seconds count as engine time of this step."""
+        t = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t
+        self._engine_s += dt
+        return out, t, dt
+
+    @staticmethod
+    def _prefilled(lane: _Lane, start: float, seconds: float) -> None:
+        """Account one prefill call of the lane's own."""
+        if not lane.prefill_wall:
+            lane.prefill_wall = start
+        lane.prefill_s += seconds
 
     def _qkey(self, it: _QueueItem):
         r = it.req
@@ -430,8 +479,19 @@ class Scheduler:
             self.engine.degraded_requests += 1
             obs.count("serve.degraded_request")
         ttft_steps = lane.first_tok_step - r.arrival
-        obs.observe("serve.request_ttft_s",
-                    lane.first_tok_wall - lane.admit_wall)
+        ttft = lane.first_tok_wall - lane.submit_wall
+        queue_s = lane.prefill_wall - lane.submit_wall
+        tr = obs.get_tracer()
+        if tr.enabled:
+            tr.record_span(
+                "sched.request", int(lane.submit_wall * 1e9),
+                int(now * 1e9), cat="sched", rid=r.rid,
+                queue_s=lane.admit_wall - lane.submit_wall,
+                behind_s=queue_s, prefill_s=lane.prefill_s,
+                held_s=ttft - queue_s - lane.prefill_s,
+                decode_s=now - lane.first_tok_wall,
+                preemptions=lane.preemptions)
+        obs.observe("serve.request_ttft_s", ttft)
         obs.observe("serve.request_tpot_s", tpot)
         obs.observe("sched.ttft_steps", float(ttft_steps))
         obs.count("serve.stream_tokens", n)
@@ -440,11 +500,11 @@ class Scheduler:
             arrival=r.arrival, admitted_step=lane.admitted_step,
             done_step=self.step,
             queue_wait_steps=lane.admitted_step - r.arrival,
-            ttft_s=lane.first_tok_wall - lane.admit_wall, tpot_s=tpot,
-            degraded=lane.degraded,
+            ttft_s=ttft, tpot_s=tpot, degraded=lane.degraded,
             logits=(np.stack(lane.logits).astype(np.float32)
                     if self.collect_logits else None),
-            preemptions=lane.preemptions, ttft_steps=ttft_steps)
+            preemptions=lane.preemptions, ttft_steps=ttft_steps,
+            queue_s=queue_s)
 
     def _first_token(self, slot: int, lane: _Lane, tok: int,
                      row: Optional[np.ndarray]) -> None:
@@ -458,6 +518,7 @@ class Scheduler:
         lane.cur = tok
         lane.first_tok_wall = time.perf_counter()
         lane.first_tok_step = self.step
+        self._firsts.append(lane)
         if self.collect_logits:
             lane.logits.append(row)
         obs.observe("sched.queue_wait_steps",
@@ -470,13 +531,14 @@ class Scheduler:
         ``keys[i]`` (the greedy argmax at temperature 0), and the fp32 rows
         on the host only under ``collect_logits``."""
         temp = self.engine.scfg.temperature
-        if temp <= 0.0:
-            toks = logits.argmax(dim=-1).tolist()
-        else:
-            toks = prng.categorical_rows(
-                keys, prng.scaled(logits, temp)).tolist()
-        rows = (logits.float().cpu().numpy() if self.collect_logits
-                else [None] * len(toks))
+        with obs.span("sched.readback", cat="sched"):
+            if temp <= 0.0:
+                toks = logits.argmax(dim=-1).tolist()
+            else:
+                toks = prng.categorical_rows(
+                    keys, prng.scaled(logits, temp)).tolist()
+            rows = (logits.float().cpu().numpy() if self.collect_logits
+                    else [None] * len(toks))
         return toks, rows
 
     # ---------------------------------------------------------- admission --
@@ -486,6 +548,7 @@ class Scheduler:
         chunks start this same step, in ``_advance_chunks``)."""
         eng = self.engine
         budget = self.prefill_chunk_tokens
+        admit_wall = time.perf_counter()
         direct: List[_QueueItem] = []
         for it in admitted:
             n_tok = len(self._prefill_tokens(it))
@@ -494,7 +557,7 @@ class Scheduler:
                 lane = self._lane_for(it)
                 if it.resume is None:
                     lane.admitted_step = self.step
-                    lane.admit_wall = time.perf_counter()
+                    lane.admit_wall = admit_wall
                 lane.prefilling = True
                 lane.prefill_toks = self._prefill_tokens(it)
                 lane.prefill_done = 0
@@ -506,33 +569,44 @@ class Scheduler:
         for it in direct:
             groups.setdefault(len(self._prefill_tokens(it)), []).append(it)
         for grp in groups.values():
-            toks = np.stack([self._prefill_tokens(it) for it in grp])
-            g = len(grp)
-            # pad the prefill to the engine batch, the warm plan bucket
-            # (rows are independent; the padding rows are dropped at insert)
-            pad_to = max(eng.scfg.batch, g)
-            if pad_to > g:
-                toks = np.concatenate(
-                    [toks, np.repeat(toks[-1:], pad_to - g, axis=0)])
-            now = time.perf_counter()       # TTFT counts the prefill
-            eng._req_degraded = False
-            small, last = eng.prefill(torch.from_numpy(toks))
-            degraded = eng._req_degraded
-            slot_ids = [self.slots.alloc(it.req.rid) for it in grp]
+            with obs.span("sched.admit", cat="sched",
+                          rids=[it.req.rid for it in grp]):
+                self._admit_group(grp, admit_wall)
+
+    def _admit_group(self, grp: List[_QueueItem], admit_wall: float) -> None:
+        """One grouped whole-prompt prefill, its rows copied into fresh
+        lanes and its first tokens taken."""
+        eng = self.engine
+        toks = np.stack([self._prefill_tokens(it) for it in grp])
+        g = len(grp)
+        # pad the prefill to the engine batch, the warm plan bucket
+        # (rows are independent; the padding rows are dropped at insert)
+        pad_to = max(eng.scfg.batch, g)
+        if pad_to > g:
+            toks = np.concatenate(
+                [toks, np.repeat(toks[-1:], pad_to - g, axis=0)])
+        obs.count("sched.prefill_rows", g)
+        obs.count("sched.prefill_rows_padded", pad_to - g)
+        eng._req_degraded = False
+        (small, last), start, secs = self._engine_call(
+            eng.prefill, torch.from_numpy(toks))
+        degraded = eng._req_degraded
+        slot_ids = [self.slots.alloc(it.req.rid) for it in grp]
+        with obs.span("sched.insert_rows", cat="sched"):
             insert_rows(self.cache, small, slot_ids, g)
-            lanes = [self._lane_for(it) for it in grp]
-            # a fresh lane's first token is drawn with its key itself; a
-            # resume's draw is discarded (its token was emitted already)
-            first, rows = self._host_rows(last[:g],
-                                          [ln.key for ln in lanes])
-            for i, (it, slot) in enumerate(zip(grp, slot_ids)):
-                lane = lanes[i]
-                if it.resume is None:
-                    lane.admitted_step = self.step
-                    lane.admit_wall = now
-                lane.degraded = lane.degraded or degraded
-                self.active[slot] = lane
-                self._first_token(slot, lane, first[i], rows[i])
+        lanes = [self._lane_for(it) for it in grp]
+        # a fresh lane's first token is drawn with its key itself; a
+        # resume's draw is discarded (its token was emitted already)
+        first, rows = self._host_rows(last[:g], [ln.key for ln in lanes])
+        for i, (it, slot) in enumerate(zip(grp, slot_ids)):
+            lane = lanes[i]
+            if it.resume is None:
+                lane.admitted_step = self.step
+                lane.admit_wall = admit_wall
+            self._prefilled(lane, start, secs)
+            lane.degraded = lane.degraded or degraded
+            self.active[slot] = lane
+            self._first_token(slot, lane, first[i], rows[i])
 
     def _advance_chunks(self) -> None:
         """Advance chunk-prefilling lanes, oldest admission first, within
@@ -554,13 +628,16 @@ class Scheduler:
             seg = lane.prefill_toks[lane.prefill_done:
                                     lane.prefill_done + take]
             eng._req_degraded = False
-            lane.side, last = eng.prefill_chunk(
-                lane.side, torch.from_numpy(seg[None]))
+            obs.count("sched.prefill_rows")
+            (lane.side, last), start, secs = self._engine_call(
+                eng.prefill_chunk, lane.side, torch.from_numpy(seg[None]))
+            self._prefilled(lane, start, secs)
             lane.degraded = lane.degraded or eng._req_degraded
             lane.prefill_done += take
             obs.count("sched.prefill_chunk")
             if lane.prefill_done == total:
-                insert_rows(self.cache, lane.side, [slot], 1)
+                with obs.span("sched.insert_rows", cat="sched"):
+                    insert_rows(self.cache, lane.side, [slot], 1)
                 lane.side = None
                 lane.prefilling = False
                 lane.prefill_toks = None
@@ -648,13 +725,15 @@ class Scheduler:
                      if not ln.prefilling}
         if not decodable:
             return
-        toks = np.zeros((self.max_slots, 1), np.int64)
-        for slot, lane in decodable.items():
-            toks[slot, 0] = lane.cur
         eng = self.engine
-        eng._req_degraded = False
-        logits, self.cache = eng.decode_token(
-            self.cache, torch.from_numpy(toks).to(eng.device))
+        with obs.span("sched.decode", cat="sched"):
+            toks = np.zeros((self.max_slots, 1), np.int64)
+            for slot, lane in decodable.items():
+                toks[slot, 0] = lane.cur
+            eng._req_degraded = False
+            (logits, self.cache), _, _ = self._engine_call(
+                eng.decode_token, self.cache,
+                torch.from_numpy(toks).to(eng.device))
         degraded = eng._req_degraded
         # each decodable lane splits its key and draws with the second
         # half; a free or prefilling slot's row is drawn with a key nothing
@@ -683,19 +762,38 @@ class Scheduler:
                     f"{r.n_new} exceeds max_len {max_len}")
             if r.n_new < 1:
                 raise ValueError(f"request {r.rid}: n_new must be >= 1")
+        now = time.perf_counter()
+        for r in requests:
+            self._submitted[r.rid] = now if r.arrival <= self.step else None
         self.pending.extend(sorted(requests, key=lambda r: (r.arrival, r.rid)))
         self._total += len(requests)
 
     def run_step(self) -> None:
         """One scheduler step: arrivals -> shed sweep -> preemption ->
-        admission -> prefill chunks -> batched decode."""
+        admission -> prefill chunks -> batched decode; then the step's
+        host time and its first tokens' samples (module doc)."""
+        t0 = time.perf_counter()
+        self._engine_s, self._firsts = 0.0, []
+        with obs.span("sched.step", cat="sched", step=self.step):
+            self._run_step(t0)
+        end = time.perf_counter()
+        obs.observe("sched.host_s", end - t0 - self._engine_s)
+        for lane in self._firsts:
+            obs.observe("sched.first_token_s", end - lane.submit_wall)
+            obs.observe("sched.first_token_behind_s",
+                        lane.prefill_wall - lane.submit_wall)
+            obs.observe("sched.first_token_prefill_s", lane.prefill_s)
+
+    def _run_step(self, t0: float) -> None:
         while self.pending and self.pending[0].arrival <= self.step:
             r = self.pending.pop(0)
+            wall = self._submitted.pop(r.rid, None)
+            it = _QueueItem(req=r, submit_wall=t0 if wall is None else wall)
             if self.max_queue is not None \
                     and len(self.queue) >= self.max_queue:
-                self._shed_request(_QueueItem(req=r), "queue_full")
+                self._shed_request(it, "queue_full")
             else:
-                self._enqueue(_QueueItem(req=r))
+                self._enqueue(it)
         if self.deadline_aware:
             # a queued request whose deadline an admission this step could
             # not meet is shed; preempted requests were admitted, and stay
@@ -717,7 +815,8 @@ class Scheduler:
         if admitted:
             self._admit(admitted)
         if self.prefill_chunk_tokens is not None:
-            self._advance_chunks()
+            with obs.span("sched.prefill_chunks", cat="sched"):
+                self._advance_chunks()
         self._decode()
         obs.gauge("sched.slot_occupancy", self.slots.occupancy)
         obs.gauge("sched.queue_depth", len(self.queue))

@@ -1,9 +1,9 @@
 """The port's observability spine (``repro_torch.obs``) against the
 reference's contract (``tests/test_obs.py``), on the CPU.
 
-The reference's 18 tests on the port's ``obs``, ``StepTimer``, compile
+The reference's tests on the port's ``obs``, ``StepTimer``, compile
 cache, engine and scheduler: spans nest (under exceptions and across
-threads too), the Chrome-trace and JSONL exports parse, snapshots are pure
+threads too), the Chrome-trace export parses, snapshots are pure
 JSON, the cache's health counters fire (``cache.stale_env`` where the
 reference counts ``cache.stale_jax_version``), ``StepTimer``'s
 percentiles come from ``obs.Histogram``, and one ``Engine.generate`` /
@@ -14,6 +14,15 @@ the JAX engine's on the same params (the same ``serve.*`` spans, nesting
 and counts, equal ``serve.tokens``, ``engine.degraded`` and histogram
 sample counts), on the direct and the plan-registry route; and a warm
 registry hit makes no ``obs`` call.
+
+The port's own layer: a span is a user annotation in a recording
+``torch.profiler``'s trace, tracing on or off; ``Histogram.between`` reads
+samples by their stamps; one traced stream yields the scheduler's and the
+engine's step phases in the profiler's trace, one ``sched.host_s`` a step,
+first-token parts within their whole, the padded prefill rows, request
+spans keyed by rid and ``queue_s <= ttft_s``; and the benchmark's five
+readers of these samples read a number inside a window and None from an
+empty registry.
 """
 import dataclasses
 import json
@@ -156,16 +165,6 @@ def test_chrome_trace_export_is_valid(tracer, tmp_path):
     assert {e["ph"] for e in events} == {"X", "i"}
 
 
-def test_jsonl_event_log(tracer, tmp_path):
-    with obs.span("a"):
-        pass
-    obs.instant("b")
-    path = tmp_path / "events.jsonl"
-    tracer.write_jsonl(path)
-    lines = [json.loads(line) for line in path.read_text().splitlines()]
-    assert [r["type"] for r in lines] == ["span", "event"]
-
-
 # --------------------------------------------------------------- metrics ----
 def test_metrics_snapshot_roundtrips(metrics):
     obs.count("c.hits", 3)
@@ -220,12 +219,6 @@ def test_formatters(metrics):
     text = obs.format_snapshot(obs.snapshot())
     assert "cache.hit" in text and "serve.decode_step_s" in text
     assert "p99" in text
-
-    phases = {"decode": {"compile_s": 0.5, "warm": {
-        "calls": 3, "mean_s": 0.001, "p50_s": 0.001, "p99_s": 0.002,
-        "best_s": 0.0009}}}
-    lines = obs.format_phases(phases)
-    assert "decode" in lines and "p99=2.00ms" in lines and "3 steps" in lines
 
 
 # ----------------------------------------------------- cache health events --
@@ -517,3 +510,220 @@ def test_registry_warm_hit_makes_no_obs_call(monkeypatch, private_cache):
         reg.flash_attention(q, k, v, causal=True)
     assert reg.stats.hits == hits + 3
     assert calls == []
+
+
+# ------------------------------------------- the profiler and the stream ----
+def _annotations(prof, tmp_path):
+    """The user annotations of a finished ``torch.profiler`` capture:
+    name -> list of (start, end) in the trace's microseconds."""
+    path = tmp_path / "profile.json"
+    prof.export_chrome_trace(str(path))
+    out = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "user_annotation" and e.get("ph") == "X":
+            out.setdefault(e["name"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    return out
+
+
+@pytest.mark.parametrize("tracing", [False, True], ids=["off", "on"])
+def test_span_is_a_profiler_range(tracing, tmp_path):
+    """Under a recording CPU ``torch.profiler`` a span opens a
+    ``record_function`` range of its name, tracing on or off; with no
+    profiler and tracing off it is the shared no-op handle."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = Tracer(enabled=tracing)
+    old = obs.set_tracer(tr)
+    try:
+        if not tracing:
+            assert obs.span("before") is obs.span("before2")  # the null
+        with obs.span("before"):
+            pass
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with obs.span("outer", cat="t"):
+                with obs.span("inner"):
+                    torch.ones(4) + 1
+        after = obs.span("after")
+    finally:
+        obs.set_tracer(old)
+    ann = _annotations(prof, tmp_path)
+    assert "outer" in ann and "inner" in ann and "before" not in ann
+    (o0, o1), (i0, i1) = ann["outer"][0], ann["inner"][0]
+    assert o0 <= i0 and i1 <= o1
+    assert [r["name"] for r in tr.spans()] == (
+        ["before", "inner", "outer"] if tracing else [])
+    if not tracing:
+        assert after is obs.span("after2")  # the profiler is gone
+
+
+def test_histogram_between_keeps_stamps_through_compaction():
+    h = obs.Histogram(max_samples=16)
+    for v in range(1, 51):
+        h.record(float(v))
+    mid = time.perf_counter()
+    for v in range(51, 101):
+        h.record(float(v))
+    kept = h.values
+    assert len(kept) <= 16 and h.count == 100
+    early = h.between(float("-inf"), mid)
+    late = h.between(mid, time.perf_counter())
+    assert early + late == kept
+    assert early and all(v <= 50 for v in early)
+    assert late and all(v > 50 for v in late)
+    assert h.between(time.perf_counter(), float("inf")) == []
+
+
+@pytest.fixture(scope="module")
+def traced_stream(tmp_path_factory):
+    """One qwen3 SMOKE stream at engine batch 2 over 3 slots, traced and
+    under a recording CPU ``torch.profiler``, on a private tracer and
+    registry."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import convert
+    from repro_torch.serve import scheduler as sched
+    from repro_torch.serve.engine import Engine, ServeConfig
+
+    tr, reg = Tracer(enabled=True), MetricsRegistry()
+    old_tr, old_m = obs.set_tracer(tr), obs.set_default_metrics(reg)
+    try:
+        cfg = dataclasses.replace(load_arch("qwen3-0.6b", smoke=True),
+                                  attention_impl="xla_chunked",
+                                  kernel_plan="direct")
+        model = convert.init_params(cfg, torch.Generator().manual_seed(0))
+        eng = Engine(cfg, model, ServeConfig(batch=2, max_len=16,
+                                             warmup=False), device="cpu")
+        reqs = sched.synthetic_workload(
+            8, seed=5, prompt_lens=(3, 5), new_tokens=(1, 3),
+            arrival_rate=0.6, vocab=cfg.vocab_size)
+        snaps = []
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            done = eng.serve_stream(reqs, max_slots=3,
+                                    step_hook=snaps.append)
+        ann = _annotations(prof, tmp_path_factory.mktemp("stream"))
+    finally:
+        obs.set_tracer(old_tr)
+        obs.set_default_metrics(old_m)
+    return SimpleNamespace(tr=tr, reg=reg, reqs=reqs, done=done,
+                           snaps=snaps, ann=ann)
+
+
+def test_stream_phases_in_the_profiler_trace(traced_stream):
+    """The scheduler's step phases, the engine's steps and their waits sit
+    in the profiler's trace as user annotations, each engine step inside
+    the scheduler phase that made it."""
+    ann = traced_stream.ann
+    for name in ("sched.step", "sched.admit", "sched.insert_rows",
+                 "sched.decode", "sched.readback", "engine.sync_wait",
+                 "serve.prefill", "serve.decode", "serve.stream"):
+        assert name in ann, name
+    assert len(ann["sched.step"]) == len(traced_stream.snaps)
+
+    def inside(child, parent):
+        return all(any(a <= c0 and c1 <= b for a, b in ann[parent])
+                   for c0, c1 in ann[child])
+
+    assert inside("serve.decode", "sched.decode")
+    assert inside("serve.prefill", "sched.admit")
+    assert inside("sched.admit", "sched.step")
+    assert inside("engine.sync_wait", "sched.step")
+
+
+def test_stream_host_time_and_first_token_parts(traced_stream):
+    """One ``sched.host_s`` a step; every first token's behind and prefill
+    parts within its whole; the engine's enqueue within each synced step;
+    ``sched.prefill_rows_padded`` the rows ``_admit`` padded to batch 2."""
+    reg, snaps, reqs = traced_stream.reg, traced_stream.snaps, \
+        traced_stream.reqs
+    host = reg.histogram("sched.host_s").values
+    assert len(host) == len(snaps) and min(host) >= 0.0
+    first = reg.histogram("sched.first_token_s").values
+    behind = reg.histogram("sched.first_token_behind_s").values
+    own = reg.histogram("sched.first_token_prefill_s").values
+    assert len(first) == len(behind) == len(own) == len(reqs)
+    for f, b, p in zip(first, behind, own):
+        assert 0.0 <= b <= f and 0.0 < p <= f and b + p <= f
+    for phase, wall in (("decode", "serve.decode_step_s"),
+                        ("prefill", "engine.prefill_s")):
+        enq = reg.histogram(f"engine.{phase}_enqueue_s").values
+        walls = reg.histogram(wall).values
+        assert len(enq) == len(walls) > 0
+        assert all(0.0 < e <= w for e, w in zip(enq, walls))
+    plen = {r.rid: r.prompt_len for r in reqs}
+    padded = 0
+    for snap in snaps:
+        groups = {}
+        for rid in snap["admitted"]:
+            groups[plen[rid]] = groups.get(plen[rid], 0) + 1
+        padded += sum(max(2, g) - g for g in groups.values())
+    assert padded > 0, "no admission group was padded"
+    assert reg.counter("sched.prefill_rows_padded").value == padded
+    assert reg.counter("sched.prefill_rows").value == len(reqs)
+
+
+def test_stream_request_spans_and_ttft_from_submit(traced_stream):
+    """A ``sched.request`` span a request, carrying its rid (an async
+    event of that id in the Chrome trace); ``queue_s <= ttft_s``, and
+    ``serve.request_ttft_s`` holds the requests' ``ttft_s``."""
+    tr, done = traced_stream.tr, traced_stream.done
+    spans = tr.spans("sched.request")
+    assert sorted(s["args"]["rid"] for s in spans) == [r.rid for r in done]
+    for s in spans:
+        a = s["args"]
+        assert 0.0 <= a["queue_s"] <= a["behind_s"]
+        assert a["held_s"] >= 0.0 and a["decode_s"] >= 0.0
+        assert a["behind_s"] + a["prefill_s"] + a["held_s"] \
+            <= s["dur"] / 1e6 + 1e-9
+    events = tr.chrome_trace()["traceEvents"]
+    ids = sorted(e["id"] for e in events if e["ph"] == "b")
+    assert ids == [r.rid for r in done]
+    assert all(0.0 <= r.queue_s <= r.ttft_s for r in done)
+    assert sorted(traced_stream.reg.histogram(
+        "serve.request_ttft_s").values) == sorted(r.ttft_s for r in done)
+    admits = tr.spans("sched.admit")
+    assert sorted(rid for s in admits for rid in s["args"]["rids"]) == \
+        [r.rid for r in done]
+
+
+# ------------------------------------------------ the benchmark's readers ----
+READERS = {
+    "decode_host_pct": ({"engine.decode_enqueue_s": [0.01, 0.03],
+                         "serve.decode_step_s": [0.04, 0.04]}, 50.0),
+    "prefill_host_pct": ({"engine.prefill_enqueue_s": [0.02],
+                          "engine.prefill_s": [0.08]}, 25.0),
+    "sched_host_ms": ({"sched.host_s": [0.001, 0.003]}, 2.0),
+    "ttft_wait_pct": ({"sched.first_token_s": [0.4, 0.6],
+                       "sched.first_token_prefill_s": [0.1, 0.15]}, 75.0),
+    "setup_plans_s": ({"kernels.build_s": [1.5],
+                       "engine.warmup_s": [2.0]}, 3.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(READERS))
+def test_benchmark_reader(name, metrics, monkeypatch):
+    """Each of the benchmark's readers of these samples, loaded as the
+    harness loads it: None from an empty registry, and from its samples
+    the number, samples outside its stretch left out (before the window
+    for ``setup_plans_s``, inside it for the rest)."""
+    from pathlib import Path
+    from types import SimpleNamespace
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    from portbench.harness.trace import load_module
+    mod = load_module("metrics", name)
+    samples, want = READERS[name]
+    assert mod.read(SimpleNamespace(t0=0.0, t1=float("inf"))) is None
+
+    def record(noise=None):
+        for hist, values in samples.items():
+            for v in values:
+                obs.observe(hist, 7.0 if noise else v)
+
+    before_window = name == "setup_plans_s"
+    record(noise=not before_window)
+    t0 = time.perf_counter()
+    record(noise=before_window)
+    t1 = time.perf_counter()
+    record(noise=True)
+    assert mod.read(SimpleNamespace(t0=t0, t1=t1)) == pytest.approx(want)
