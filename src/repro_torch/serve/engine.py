@@ -49,7 +49,15 @@ of the running key.  On a CUDA tensor the draw runs on the card; only the
 requests through ``serve.scheduler``: ``max_slots`` decode lanes over one
 per-slot cache (each row's ``pos`` an int32 device tensor), admission into
 freed lanes, grouped fresh prefills scattered into the lanes, and one
-batched decode step a scheduler step.  ``Engine.prefill_chunk`` is the
+batched decode step a scheduler step.  On a CUDA device that step replays
+one CUDA graph (:mod:`.decode_graph`), captured at the second step over a
+cache whose leaves the step writes in place (K/V rows; the first step runs
+eagerly and plans its kernels) and keyed on the batch, the dtypes and
+those leaves' shapes and data pointers.  A replay copies the tokens and
+``pos`` into the graph's static inputs and returns clones of its logits
+and next ``pos`` over the caller's leaves.  SSM, hybrid and MoE caches,
+an int ``pos`` (``generate``), a mesh and a guarded step (``nan_guard``,
+fault rules) stay eager.  ``Engine.prefill_chunk`` is the
 continuation prefill under chunked prefill and preemption resume: a
 config with ``prefill_continuation=True`` and ``fresh_prefill_kernel=False``
 that attends over the whole written prefix and seeds the SSM scan from the
@@ -95,10 +103,18 @@ histograms ``serve.ttft_s`` and ``engine.warmup_s``; two samples a step,
 both from the step's entry, split at the point ``StepTimer`` stamps as the
 host's last enqueue: ``engine.<phase>_enqueue_s`` up to it, and the synced
 wall (``serve.decode_step_s`` for decode, ``engine.prefill_s`` and
-``engine.prefill_chunk_s``); ``serve.tokens``; and the engine's
-``stats()`` as the ``serve.engine`` snapshot view.  With tracing off and
-no profiler recording, a span is one attribute and one profiler check
-(``decode_token`` gives the whole cost of a decode step).
+``engine.prefill_chunk_s``); ``serve.tokens``; a decode step's
+``engine.decode_graph`` sample (1 a replay, 0 an eager step), the
+``engine.decode_graph_capture`` counter and each eager step's
+``engine.decode_graph_eager`` with its reason (``degraded`` for the
+bottom rung); and the engine's ``stats()`` as the ``serve.engine``
+snapshot view.  A replay ends ``engine.decode_enqueue_s`` at its return,
+inside ``serve.decode`` and before ``engine.sync_wait``, and adds to each
+kernel's ``launches`` what the capture launched (the capture itself leaves
+them as they were), so the counters match the kernels the card ran.
+With tracing off and no profiler recording, a span is one attribute and
+one profiler check (``decode_token`` gives the whole cost of a decode
+step).
 
 """
 from __future__ import annotations
@@ -120,6 +136,7 @@ from repro_torch.models import model as model_mod
 from repro_torch.testing import faults
 
 from . import prng
+from .decode_graph import DecodeGraph, count_eager
 
 # the bottom rung of the degradation ladder: plain PyTorch attention and
 # SSD, no plan registry
@@ -212,6 +229,10 @@ class Engine:
             for phase, wall in (("prefill", "engine.prefill_s"),
                                 ("prefill_chunk", "engine.prefill_chunk_s"),
                                 ("decode", "serve.decode_step_s"))}
+        # the decode step, replayed as a CUDA graph where it can be
+        # (serve.decode_graph), and its sample: 1 a replay, 0 eager
+        self._decode = DecodeGraph(self.device, mesh, scfg.nan_guard)
+        self._graph_hist = reg.histogram("engine.decode_graph")
         if scfg.warmup:
             self.warmup()
 
@@ -320,13 +341,13 @@ class Engine:
 
     def _guarded_step(self, phase: str, cache, batch: Dict, **kw):
         cont = phase == "prefill_chunk"
+        step = self._decode if phase == "decode" else model_mod.decode_step
         try:
             faults.check(f"engine.{phase}")
             with self._serving():
                 logits, new_cache = self.timer.run(
-                    phase, model_mod.decode_step,
-                    self.cont_cfg if cont else self.cfg, self.model, batch,
-                    cache, **kw)
+                    phase, step, self.cont_cfg if cont else self.cfg,
+                    self.model, batch, cache, **kw)
             if self._nan_guarded() and \
                     not bool(torch.isfinite(logits[:, -1]).all()):
                 raise FloatingPointError(
@@ -337,6 +358,8 @@ class Engine:
         except Exception as e:  # noqa: BLE001 — serving must not die
             obs.count("engine.degraded", phase=phase,
                       reason=type(e).__name__)
+            if phase == "decode":
+                count_eager("degraded")
             self._req_degraded = True
             return self.timer.run(phase, model_mod.decode_step,
                                   self._fallback(cont), self.model, batch,
@@ -383,13 +406,15 @@ class Engine:
         tokens (B, 1) -> (logits (B, 1, V), cache).  The serving hot path:
         with tracing off and no profiler recording it adds two no-op spans
         (``serve.decode``, ``engine.sync_wait``), five ``perf_counter``
-        reads and three histogram appends to the step, ``StepTimer``'s
-        included."""
+        reads and four histogram appends to the step, ``StepTimer``'s
+        included, and an eager step a counter."""
         t0 = time.perf_counter()
+        replays = self._decode.replays
         with obs.span("serve.decode", cat="serve"):
             out = self._run_step("decode", cache,
                                  self._batch(tokens, enc_out))
         self._record_step("decode", t0)
+        self._graph_hist.record(float(self._decode.replays > replays))
         return out
 
     def _sample(self, logits: torch.Tensor, key: prng.Key) -> torch.Tensor:
