@@ -1,3 +1,5 @@
-from .base import MLAConfig, ModelConfig, MoEConfig, SSMConfig, load_arch
+from .base import (MLAConfig, ModelConfig, MoEConfig, RopeScaling, SSMConfig,
+                   load_arch)
 
-__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "SSMConfig", "load_arch"]
+__all__ = ["MLAConfig", "ModelConfig", "MoEConfig", "RopeScaling",
+           "SSMConfig", "load_arch"]

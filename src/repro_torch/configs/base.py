@@ -1,7 +1,11 @@
 """Model configs: a jax-free mirror of ``repro.configs.base``.
 
 Field names and defaults match the reference dataclasses, so a config
-means the same in both packages.  Every reference config has its copy
+means the same in both packages.  Three fields are the port's alone, each
+defaulting to the reference's behaviour: ``MoEConfig.norm_topk_prob``
+and ``ModelConfig.rope_scaling`` (YaRN, ``RopeScaling``), which serve
+deepseek-v2-lite as published, and ``ModelConfig.prefill_graph_bucket``
+(the prefill replayed as a CUDA graph, ``serve.prefill_graph``).  Every reference config has its copy
 here (dense, SSM, MoE, hybrid, enc-dec and VLM), served by this port's
 model (``models.model``).  ``param_count`` / ``active_param_count``,
 ``ShapeConfig``, ``SHAPES``, ``ARCH_IDS`` and ``cells`` are the
@@ -11,7 +15,8 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,6 +35,10 @@ class MoEConfig:
     # over row groups padded to 16 (csrc/grouped_gemm.cu on the card)
     # instead of the dense (E, t·k, d) einsum path
     ragged_dropless: bool = False
+    # the port's: the top-k gates renormalised to sum to 1 (the reference's
+    # behaviour) or, False, the router's softmax probabilities as they are
+    # (DeepSeek-V2's published ``norm_topk_prob``)
+    norm_topk_prob: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +48,56 @@ class MLAConfig:
     rope_head_dim: int = 64
     nope_head_dim: int = 128
     v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class RopeScaling:
+    """YaRN rope scaling (arXiv:2309.00071), the seven keys of DeepSeek-V2's
+    published ``rope_scaling``.  The rope dims' frequencies between the
+    correction dims of ``beta_fast`` and ``beta_slow`` rotations over
+    ``original_max_position_embeddings`` ramp from the base frequency to
+    it over ``factor``; cos / sin are scaled by mscale(mscale) /
+    mscale(mscale_all_dim) and an MLA softmax by mscale(mscale_all_dim)²,
+    where mscale(m) = 0.1 m ln(factor) + 1."""
+    type: str = "yarn"
+    factor: float = 1.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+    def __post_init__(self):
+        if self.type != "yarn":
+            raise ValueError(f"rope_scaling type {self.type!r}: only 'yarn' "
+                             f"is supported")
+
+    def _mscale(self, m: float) -> float:
+        return 0.1 * m * math.log(self.factor) + 1.0 \
+            if self.factor > 1 else 1.0
+
+    def correction_range(self, dim: int, theta: float) -> Tuple[int, int]:
+        """(low, high): the rope pair indices where the ramp from the base
+        frequency (below low) to the scaled one (above high) starts and
+        ends, clipped to [0, dim - 1]."""
+        def at(rotations: float) -> float:
+            return dim * math.log(self.original_max_position_embeddings
+                                  / (rotations * 2 * math.pi)) \
+                / (2 * math.log(theta))
+        return (max(math.floor(at(self.beta_fast)), 0),
+                min(math.ceil(at(self.beta_slow)), dim - 1))
+
+    @property
+    def rope_mscale(self) -> float:
+        """The factor on cos and sin."""
+        return self._mscale(self.mscale) / self._mscale(self.mscale_all_dim)
+
+    @property
+    def softmax_mscale(self) -> float:
+        """The factor on an MLA softmax scale (1 without
+        ``mscale_all_dim``)."""
+        return self._mscale(self.mscale_all_dim) ** 2 \
+            if self.mscale_all_dim else 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +124,9 @@ class ModelConfig:
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 10000.0
+    # the port's: YaRN rope scaling (a ``RopeScaling``, or its published
+    # dict); None is plain RoPE, the reference's only form
+    rope_scaling: Optional[RopeScaling] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
     moe: Optional[MoEConfig] = None
@@ -94,6 +156,11 @@ class ModelConfig:
     fresh_prefill_kernel: bool = False
     prefill_continuation: bool = False
     attn_block_kv: int = 1024          # KV chunk for chunked attention
+    # the port's: the CUDA-graph prefill's length bucket (tokens).  On the
+    # card a fresh prefill of S tokens replays the graph captured at S
+    # rounded up to a multiple of it (``serve.prefill_graph``); 0 runs
+    # every prefill eagerly, the reference's only form
+    prefill_graph_bucket: int = 0
     remat: bool = True
     dtype: str = "bfloat16"
 
@@ -103,6 +170,10 @@ class ModelConfig:
         if self.kernel_plan not in ("measure", "direct"):
             raise ValueError(f"kernel_plan must be 'measure' or 'direct', "
                              f"got {self.kernel_plan!r}")
+        if isinstance(self.rope_scaling, dict):
+            # a configuration file's published dict
+            object.__setattr__(self, "rope_scaling",
+                               RopeScaling(**self.rope_scaling))
 
     @property
     def head_dim_(self) -> int:

@@ -18,7 +18,10 @@ MLA (``mla_apply``) follows the reference's three branches: a fresh-cache
 prefill writes the compressed cache and attends over the current tokens
 through chunked attention, a decode step runs the absorbed path over the
 compressed cache with fp32 accumulation, and the cache-free forward
-decompresses and attends.  Its nope + rope head width (192 in
+decompresses and attends.  Under ``cfg.rope_scaling`` (YaRN, the port's
+addition for deepseek-v2-lite as published) the rope frequencies ramp
+to their scaled values and every branch's softmax scale takes YaRN's
+mscale² (``mla_scale``).  Its nope + rope head width (192 in
 deepseek-v2-lite) is not its v width (128), so the flash kernel's branch
 (``dn + dr == dv``) is reached by no shipped config.
 
@@ -99,12 +102,34 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool, q_pos: Optional[torch.Tensor] = None,
                       kv_mask: Optional[torch.Tensor] = None,
                       block: int = 1024,
-                      scale: Optional[float] = None) -> torch.Tensor:
+                      scale: Optional[float] = None,
+                      q_start: Optional[int] = None) -> torch.Tensor:
     """Flash-style attention over KV blocks.  q (B, H, S, D); k / v
     (B, Hkv, T, Dk / Dv); returns (B, H, S, Dv) in q's dtype.  Keys past T
-    are zero padding masked to NEG_INF, exactly as in the reference."""
+    are zero padding masked to NEG_INF, exactly as in the reference.
+
+    ``q_start`` (causal only): the queries' positions are ``q_start +
+    arange(S)``, known on the host (a fresh prefill).  Each block of
+    ``block`` queries then stops at the last KV block holding a key at or
+    before its last query: the blocks after it are wholly masked for those
+    rows, and a wholly masked block adds exactly nothing to their running
+    max, sum and output (its weights are exp(NEG_INF - m) = 0), so the
+    answer is the unsplit one up to the rounding of products over fewer
+    rows."""
     b, h, s, d = q.shape
     _, hkv, t, dk = k.shape
+    if causal and q_start is not None and s > block:
+        outs = []
+        for i in range(0, s, block):
+            rows = min(block, s - i)
+            end = min(t, -(-(q_start + i + rows) // block) * block)
+            outs.append(chunked_attention(
+                q[:, :, i:i + rows], k[:, :, :end], v[:, :, :end],
+                causal=True,
+                q_pos=None if q_pos is None else q_pos[i:i + rows],
+                kv_mask=None if kv_mask is None else kv_mask[:end],
+                block=block, scale=scale))
+        return torch.cat(outs, dim=2)
     dv = v.shape[-1]
     g = h // hkv
     scale = d ** -0.5 if scale is None else scale
@@ -238,8 +263,9 @@ def gqa_apply(p: GQA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     if kv_input is None:
         rp = _rope_positions(positions)
-        q = apply_rope(q, rp, cfg.rope_theta)               # (B, H, S, hd)
-        k = apply_rope(k, rp, cfg.rope_theta)
+        # (B, H, S, hd)
+        q = apply_rope(q, rp, cfg.rope_theta, cfg.rope_scaling)
+        k = apply_rope(k, rp, cfg.rope_theta, cfg.rope_scaling)
     kernels = cfg.attention_impl == "pallas"
 
     new_cache = None
@@ -339,12 +365,22 @@ def _mla_q(p: MLA, cfg, x: torch.Tensor):
     return q[..., :dn], q[..., dn:]
 
 
+def mla_scale(cfg) -> float:
+    """MLA's softmax scale: 1 / sqrt(nope + rope width), times YaRN's
+    ``softmax_mscale`` under ``cfg.rope_scaling``."""
+    m = cfg.mla
+    scale = (m.nope_head_dim + m.rope_head_dim) ** -0.5
+    if cfg.rope_scaling is not None:
+        scale *= cfg.rope_scaling.softmax_mscale
+    return scale
+
+
 def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
-                kernel: bool) -> torch.Tensor:
+                kernel: bool, q_start: Optional[int] = None) -> torch.Tensor:
     """Decompressed causal attention over the current tokens: q (B, S, H,
     dn / dr), kv (B, S, H, dn + dv), k_rope (B, S, dr) shared over heads.
-    ``kernel`` takes the flash kernel, which needs dn + dr == dv.  Returns
-    (B, S, H·dv)."""
+    ``kernel`` takes the flash kernel, which needs dn + dr == dv;
+    ``q_start`` as in ``chunked_attention``.  Returns (B, S, H·dv)."""
     m = cfg.mla
     h, dn, dr = cfg.n_heads, m.nope_head_dim, m.rope_head_dim
     b, s = q_nope.shape[:2]
@@ -353,11 +389,14 @@ def _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
     v = kv[..., dn:].transpose(1, 2)
     q = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
     if kernel:
-        out = _flash(cfg, q, k, v, causal=True)
+        # the kernel scales by 1 / sqrt(dn + dr): YaRN's mscale goes on q
+        mscale = mla_scale(cfg) * (dn + dr) ** 0.5
+        out = _flash(cfg, q * mscale if mscale != 1.0 else q, k, v,
+                     causal=True)
     else:
         out = local_attention(q, k, v, causal=True, q_pos=positions,
-                              block=cfg.attn_block_kv,
-                              scale=(dn + dr) ** -0.5)
+                              block=cfg.attn_block_kv, scale=mla_scale(cfg),
+                              q_start=q_start)
     return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim)
 
 
@@ -383,11 +422,12 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
     flash = cfg.attention_impl == "pallas" and dn + dr == dv
     q_nope, q_rope = _mla_q(p, cfg, x)
     rp = _rope_positions(positions)
-    q_rope = apply_rope(q_rope.transpose(1, 2), rp,
-                        cfg.rope_theta).transpose(1, 2)
+    q_rope = apply_rope(q_rope.transpose(1, 2), rp, cfg.rope_theta,
+                        cfg.rope_scaling).transpose(1, 2)
     kv_a = dense(p.wkv_a, x)
     c_kv = rmsnorm(p.kv_norm, kv_a[..., :kvr], cfg.norm_eps)   # (B, S, kvr)
-    k_rope = apply_rope(kv_a[:, None, :, kvr:], rp, cfg.rope_theta)[:, 0]
+    k_rope = apply_rope(kv_a[:, None, :, kvr:], rp, cfg.rope_theta,
+                        cfg.rope_scaling)[:, 0]
 
     if cache is None:
         kv = splittable(dense(p.wkv_b, c_kv), 2, h).reshape(b, s, h, dn + dv)
@@ -423,16 +463,17 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
         out = local_attention(q, k, kv[..., dn:].transpose(1, 2),
                               causal=True, q_pos=positions,
                               kv_mask=_kv_valid_mask(t, pos, s, x.device),
-                              block=cfg.attn_block_kv,
-                              scale=(dn + dr) ** -0.5)
+                              block=cfg.attn_block_kv, scale=mla_scale(cfg))
         out = out.transpose(1, 2).reshape(b, s, h * dv)
         return dense(p.wo, out), new_cache
     if s > 1:
         # prefill: attend over the current tokens; the flash kernel only on
-        # a fresh cache, as the reference's lax.cond on pos == 0
+        # a fresh cache, as the reference's lax.cond on pos == 0; the plain
+        # route skips the key blocks after each block of queries
         kv = splittable(dense(p.wkv_b, c_kv), 2, h).reshape(b, s, h, dn + dv)
         out = _mla_attend(cfg, q_nope, q_rope, kv, k_rope, positions,
-                          flash and cfg.fresh_prefill_kernel and pos == 0)
+                          flash and cfg.fresh_prefill_kernel and pos == 0,
+                          q_start=pos)
         return dense(p.wo, out), new_cache
 
     # absorbed decode: w_uk (kvr, h, dn), w_uv (kvr, h, dv); every product
@@ -449,7 +490,7 @@ def mla_apply(p: MLA, cfg, x: torch.Tensor, *, positions: torch.Tensor,
                            krope_c.to(f32))
     keep = (_kv_valid_mask(t, pos, 1, x.device)[None, None, :]
             if st is None else st.valid[:, None, :])
-    sc = torch.where(keep, sc * (dn + dr) ** -0.5, NEG_INF)
+    sc = torch.where(keep, sc * mla_scale(cfg), NEG_INF)
     attn = torch.softmax(sc, dim=-1)
     out_c = torch.einsum("bht,btk->bhk", attn.to(ckv_c.dtype).to(f32),
                          ckv_c.to(f32))

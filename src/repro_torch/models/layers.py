@@ -119,19 +119,56 @@ def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
 
 
 def rope_freqs(head_dim: int, theta: float = 10000.0,
-               device: Optional[torch.device] = None) -> torch.Tensor:
+               device: Optional[torch.device] = None,
+               scaling=None) -> torch.Tensor:
+    """(head_dim / 2,) inverse frequencies ``theta ** (-2i / head_dim)``;
+    under YaRN ``scaling`` (a ``configs.RopeScaling``) pair i takes
+    ``inv / factor · ramp(i) + inv · (1 - ramp(i))``, the ramp rising
+    linearly from 0 at the correction range's low end to 1 at its high
+    end.  Device ops only, so a captured step may compute it; the scaled
+    form is kept per (width, theta, scaling, device) outside a capture."""
+    if scaling is not None:
+        key = (head_dim, theta, scaling, torch.device(device or "cpu"))
+        inv = _YARN_FREQS.get(key)
+        if inv is None:
+            inv = _yarn_freqs(head_dim, theta, scaling, key[3])
+            if not _capturing(key[3]):
+                _YARN_FREQS[key] = inv
+        return inv
     exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
                         device=device) / head_dim
     return 1.0 / (theta ** exps)      # (head_dim / 2,)
 
 
+_YARN_FREQS: dict = {}
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def _yarn_freqs(head_dim: int, theta: float, scaling,
+                device: torch.device) -> torch.Tensor:
+    inv = rope_freqs(head_dim, theta, device)
+    low, high = scaling.correction_range(head_dim, theta)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(head_dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0.0, 1.0)
+    return inv / scaling.factor * ramp + inv * (1.0 - ramp)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """x (..., S, D) with D even; positions broadcastable to (..., S)."""
+               theta: float = 10000.0, scaling=None) -> torch.Tensor:
+    """x (..., S, D) with D even; positions broadcastable to (..., S).
+    ``scaling``: YaRN (``rope_freqs``), whose cos and sin are also scaled
+    by its ``rope_mscale`` where that is not 1."""
     d = x.shape[-1]
-    inv = rope_freqs(d, theta, x.device)
+    inv = rope_freqs(d, theta, x.device, scaling)
     ang = positions[..., None].float() * inv           # (..., S, D/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
+    if scaling is not None and scaling.rope_mscale != 1.0:
+        cos, sin = cos * scaling.rope_mscale, sin * scaling.rope_mscale
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)

@@ -22,19 +22,27 @@ the port of ``repro.models.moe``.
     registry instead (``_ragged_registry_experts``), as in the reference:
     group sizes on the host, bucketed, the compiled ragged graph.
 
-Routing is fp32 softmax, top-k, renormalised gates; the Switch aux loss
-comes back beside the output.  The routed experts are stacked (E, d, de)
+Routing is fp32 softmax, top-k, and gates renormalised to sum to 1, or
+under ``moe.norm_topk_prob=False`` (DeepSeek-V2 as published) the top-k
+softmax probabilities as they are; the Switch aux loss comes back beside
+the output.  The routed experts are stacked (E, d, de)
 parameters ``gate`` / ``up`` and (E, de, d) ``down``, as in the reference's
 params tree.
+
+**Tracing.**  A serving call's routed part is the span ``moe.experts``,
+and ``TALLY`` (``ExpertTally``) keeps per phase the calls, the routed
+rows, the rows of the route's buffer and the experts each call hit
+(``Engine`` folds it into stamped samples while a profiler records).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.kernels import grouped_gemm as gg
 from repro_torch.kernels import ops
 
@@ -54,6 +62,67 @@ def row_tile(tk: int, e: int, dtype: torch.dtype) -> int:
     tiles of at most this many rows."""
     want = 128 if tk >= 128 * e else 64 if tk >= 32 * e else ROW_TILE
     return max(bc for bc, _bf, _bd in gg.TILES[dtype] if bc <= want)
+
+
+PHASES = ("prefill", "decode")
+
+
+class ExpertTally:
+    """What the serving MoE calls routed, per phase (``decode``: a call
+    over one position a row; ``prefill`` any other): calls, routed rows
+    (t·k) and rows of the route's buffer, counted on the host, and per
+    expert the calls that gave it at least one row, added in place on the
+    routing's device, so a captured decode step tallies at every replay
+    (``serve.decode_graph`` adds the host counts per replay).
+
+    ``Engine`` calls ``reset`` before a step and ``fold`` after its
+    synchronize, both only while a profiler records: ``fold`` reads the
+    step's tally back and records one stamped sample of each of
+    ``moe.<phase>_calls``, ``_rows``, ``_buffer_rows`` and
+    ``_experts_hit`` (Σ over the calls of the experts each hit) for every
+    phase that ran.  Off the profiler nothing is read back."""
+
+    def __init__(self):
+        # phase -> [calls, routed rows, buffer rows]
+        self.host: Dict[str, list] = {p: [0, 0, 0] for p in PHASES}
+        # (device, phase, experts) -> (E,) int64 calls that hit each expert
+        self._hits: Dict[tuple, torch.Tensor] = {}
+
+    def add(self, phase: str, rows: int, buffer_rows: int,
+            sizes: torch.Tensor) -> None:
+        """One call: ``sizes`` (E,) the rows each expert took (any count
+        that is 0 exactly where the expert took none)."""
+        h = self.host[phase]
+        h[0] += 1
+        h[1] += rows
+        h[2] += buffer_rows
+        key = (sizes.device, phase, sizes.shape[0])
+        hits = self._hits.get(key)
+        if hits is None:
+            hits = self._hits[key] = torch.zeros(
+                sizes.shape, dtype=torch.long, device=sizes.device)
+        hits.add_(sizes > 0)
+
+    def reset(self) -> None:
+        for h in self.host.values():
+            h[:] = [0, 0, 0]
+        for hits in self._hits.values():
+            hits.zero_()
+
+    def fold(self) -> None:
+        reg = obs.default_metrics()
+        for phase in PHASES:
+            calls, rows, buf = self.host[phase]
+            if not calls:
+                continue
+            hit = sum(int(v.sum()) for (_d, p, _e), v in self._hits.items()
+                      if p == phase)
+            for name, v in (("calls", calls), ("rows", rows),
+                            ("buffer_rows", buf), ("experts_hit", hit)):
+                reg.histogram(f"moe.{phase}_{name}").record(v)
+
+
+TALLY = ExpertTally()
 
 
 class MoE(nn.Module):
@@ -76,21 +145,25 @@ def _bincount(flat_e: torch.Tensor, e: int) -> torch.Tensor:
         .scatter_add_(0, flat_e, torch.ones_like(flat_e))
 
 
-def ragged_layout(idx: torch.Tensor, e: int):
+def ragged_layout(idx: torch.Tensor, e: int, bc: int = ROW_TILE):
     """The ragged route's row layout for a routing ``idx`` (t, k), built on
     idx's device with no host round trip.  Assignments sort by expert id
     (stably) into a row-major concatenation of groups, each padded to a
-    multiple of ``ROW_TILE`` rows; the buffer and the tile table are sized
-    for the worst case, ⌈t·k / 16⌉ + E tiles, whose surplus tiles' rows
-    come out zero.  Returns (rows: the buffer row of each assignment (t·k,),
-    padded group sizes (E,), the tile table, the buffer's row count)."""
+    multiple of ``ROW_TILE`` rows; the buffer is sized for the worst case,
+    ⌈t·k / 16⌉ + E tiles of 16 rows, and the tile table, in tiles of at
+    most ``bc`` rows (``row_tile``), covers it, its surplus tiles' rows
+    coming out zero.  Returns (rows: the buffer row of each assignment
+    (t·k,), padded group sizes (E,), the tile table, the buffer's row
+    count)."""
     t, k = idx.shape
     flat_e = idx.reshape(-1)                                      # (t·k,)
     counts = _bincount(flat_e, e)
     padded = (counts + ROW_TILE - 1) // ROW_TILE * ROW_TILE
-    n_tiles = -(-t * k // ROW_TILE) + e
+    n_rows = (-(-t * k // ROW_TILE) + e) * ROW_TILE
+    # a group of padded rows takes at most padded / bc + 1 tiles of bc
+    n_tiles = n_rows // bc if bc == ROW_TILE else -(-n_rows // bc) + e
     return _layout_rows(flat_e, counts, padded), padded, \
-        gg.tile_table(padded, ROW_TILE, n_tiles), n_tiles * ROW_TILE
+        gg.tile_table(padded, bc, n_tiles), n_rows
 
 
 def _layout_rows(flat_e: torch.Tensor, counts: torch.Tensor,
@@ -108,7 +181,7 @@ def _layout_rows(flat_e: torch.Tensor, counts: torch.Tensor,
 
 
 def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
-                             idx: torch.Tensor) -> torch.Tensor:
+                             idx: torch.Tensor, phase: str) -> torch.Tensor:
     """Expert SwiGLU over ragged row groups (the megablocks idiom), the
     reference's ``_ragged_dropless_experts`` on its 'direct' plan: tokens
     scatter once into the padded layout of ``ragged_layout`` and the three
@@ -116,10 +189,9 @@ def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     t, d = xt.shape
     k = idx.shape[1]
     e = p.gate.shape[0]
-    rows, padded, tiles, n_rows = ragged_layout(idx, e)
     bc = row_tile(t * k, e, xt.dtype)
-    if bc != ROW_TILE:
-        tiles = gg.tile_table(padded, bc, -(-n_rows // bc) + e)
+    rows, padded, tiles, n_rows = ragged_layout(idx, e, bc)
+    TALLY.add(phase, t * k, n_rows, padded)
     xs = torch.zeros((n_rows, d), dtype=xt.dtype, device=xt.device)
     xs[rows] = xt.repeat_interleave(k, dim=0)
 
@@ -135,7 +207,7 @@ def _ragged_dropless_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
 
 
 def _ragged_registry_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
-                             idx: torch.Tensor) -> torch.Tensor:
+                             idx: torch.Tensor, phase: str) -> torch.Tensor:
     """The ragged route under ``kernel_plan='measure'`` (the reference's
     registry branch, ``repro/models/moe.py:74-80``): the group sizes come to
     the host (one sync a layer), each is bucketed by the registry's
@@ -150,6 +222,7 @@ def _ragged_registry_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     flat_e = idx.reshape(-1)
     counts = _bincount(flat_e, p.gate.shape[0])
     padded = [reg.policy.bucket_group(c) for c in counts.tolist()]
+    TALLY.add(phase, t * k, sum(padded), counts)
     rows = _layout_rows(flat_e, counts, torch.tensor(
         padded, dtype=counts.dtype, device=counts.device))
     xs = torch.zeros((sum(padded), d), dtype=xt.dtype, device=xt.device)
@@ -192,7 +265,8 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
     logits = dense(p.router, xt.float())                          # (t, E)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, k, dim=-1)                      # (t, k)
-    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    if mo.norm_topk_prob:
+        gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(dim=0)
@@ -200,19 +274,24 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, dropless: bool = False
         0, idx.reshape(-1), torch.ones((t * k,), device=x.device)) / (t * k)
     aux = e * torch.sum(me * ce) * mo.router_aux_weight
 
-    if dropless and mo.ragged_dropless and mo.inference_capacity_factor <= 0:
-        ragged = _ragged_registry_experts if cfg.kernel_plan == "measure" \
-            else _ragged_dropless_experts
-        y = ragged(p, xt, gate, idx)
-    else:
-        y = _capacity_experts(p, xt, gate, idx, cap)
+    # a serving call is tallied by phase; a training call is not
+    phase = ("decode" if s == 1 else "prefill") if dropless else None
+    with obs.span("moe.experts", cat="moe", rows=t * k):
+        if dropless and mo.ragged_dropless \
+                and mo.inference_capacity_factor <= 0:
+            ragged = _ragged_registry_experts \
+                if cfg.kernel_plan == "measure" else _ragged_dropless_experts
+            y = ragged(p, xt, gate, idx, phase)
+        else:
+            y = _capacity_experts(p, xt, gate, idx, cap, phase)
     if mo.n_shared_experts:
         y = y + swiglu(p.shared, xt)
     return y.reshape(b, s, d), aux
 
 
 def _capacity_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
-                      idx: torch.Tensor, cap: int) -> torch.Tensor:
+                      idx: torch.Tensor, cap: int,
+                      phase: Optional[str] = None) -> torch.Tensor:
     """Capacity dispatch: a stable sort of (expert, arrival) assigns slots,
     tokens scatter into an (E, cap + 1, d) buffer whose last row takes the
     overflow, the expert SwiGLU runs as batched products over the first cap
@@ -229,6 +308,8 @@ def _capacity_experts(p: MoE, xt: torch.Tensor, gate: torch.Tensor,
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
     counts = _bincount(flat_e, e)
+    if phase is not None:
+        TALLY.add(phase, t * k, e * cap, counts)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.empty_like(flat_e)
     pos[order] = torch.arange(t * k, device=dev) - starts[sorted_e]

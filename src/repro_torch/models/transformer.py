@@ -32,7 +32,7 @@ aux loss.  Training runs the plain routes: the kernels have no backward
 and refuse tensors that require grad (``kernels.ops``).
 
 Public API: ``Transformer``, ``forward``, ``loss_fn``, ``init_cache``,
-``decode_step``, ``plan_requests``.
+``decode_step`` (``decode_hidden`` then ``head_logits``), ``plan_requests``.
 """
 from __future__ import annotations
 
@@ -213,7 +213,9 @@ def _backbone(cfg, model: Transformer, x: torch.Tensor,
     return x, aux_total, (new_caches if caches is not None else None)
 
 
-def _logits(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
+def head_logits(cfg, model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the head over hidden states x (B, S, d): fp32
+    logits (B, S, V)."""
     x = rmsnorm(model.final_norm, x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return unembed(model.embed, x)
@@ -235,7 +237,7 @@ def forward(cfg, model: Transformer, tokens: torch.Tensor, *,
     x, aux, _ = _backbone(cfg, model, x, positions)
     if last_only:
         x = x[:, -1:]
-    return _logits(cfg, model, x), aux
+    return head_logits(cfg, model, x), aux
 
 
 def loss_fn(cfg, model: Transformer, batch: Dict) -> torch.Tensor:
@@ -259,7 +261,7 @@ def loss_fn(cfg, model: Transformer, batch: Dict) -> torch.Tensor:
         l2 = local_map(lambda lb: torch.nn.functional.pad(
             lb[:, 2:], (0, 2), value=-100), (batch["labels"],), ((0,),),
             (0,))
-        loss = loss + 0.1 * cross_entropy(_logits(cfg, model, h), l2)
+        loss = loss + 0.1 * cross_entropy(head_logits(cfg, model, h), l2)
     return loss + aux
 
 
@@ -380,6 +382,17 @@ def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,
     (``layers.SlotStep``; every layer's new ``pos`` is that one tensor).
     ``last_only`` projects only the final position (the Engine's prefill
     reads no other); the reference always projects all S."""
+    x, new_caches = decode_hidden(cfg, model, tokens, cache)
+    if last_only:
+        x = x[:, -1:]
+    return head_logits(cfg, model, x), new_caches
+
+
+def decode_hidden(cfg, model: Transformer, tokens: torch.Tensor,
+                  cache: Dict) -> Tuple[torch.Tensor, Dict]:
+    """``decode_step`` up to the final norm: the backbone's hidden states
+    (B, S, d) and the cache (``serve.prefill_graph`` captures this and
+    projects the one position it needs)."""
     x = embed(model.embed, tokens, cfg.activation_dtype)
     pos = cache[_segments(cfg)[0][0]][0]["pos"]
     steps = torch.arange(tokens.shape[1], device=x.device)
@@ -391,6 +404,4 @@ def decode_step(cfg, model: Transformer, tokens: torch.Tensor, cache: Dict, *,
         positions = pos + steps
     x, _, new_caches = _backbone(cfg, model, x, positions, caches=cache,
                                  slots=slots)
-    if last_only:
-        x = x[:, -1:]
-    return _logits(cfg, model, x), new_caches
+    return x, new_caches

@@ -10,7 +10,11 @@ host a few dozen launches a layer; replayed it costs one graph launch.
 **When it replays** (:func:`eager_reason`, from what the call observes):
 the engine's device is a CUDA device; ``pos`` is a per-slot tensor; no
 mesh; no host check of the logits (``nan_guard`` off, no fault rules); no
-MoE layer (its group sizes are read on the host); and every cache leaf is
+MoE layer on the ragged registry route (``kernel_plan='measure'`` with
+``ragged_dropless`` and ``inference_capacity_factor <= 0``: its group
+sizes are read on the host, reason ``moe``; the direct ragged route
+builds its tile table on the card and the capacity route reads nothing
+back, so both replay); and every cache leaf is
 ``pos`` or one the step writes in place (``k``, ``v``, MLA's ``c_kv`` and
 ``k_rope``).  An SSM state or conv window comes back as a new tensor, so
 SSM and hybrid caches stay eager, as does ``generate`` (an int ``pos``).
@@ -42,10 +46,14 @@ graph reads.
 **Launch counters.**  The capture leaves every
 ``repro_torch.kernels.<kernel>.launches`` where it was, and each replay
 adds the launches the capture recorded: the counters tell the launches
-the card ran, as on the eager path.
+the card ran, as on the eager path.  The MoE layers' host counts
+(``models.moe.TALLY``: calls, routed and buffer rows) are put back and
+added per replay alike; their experts-hit tally is on the card, inside
+the graph.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib
 import pkgutil
 import weakref
@@ -55,6 +63,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.testing import faults
 
 # cache leaves a decode step writes in place: the K/V rows and MLA's
@@ -82,6 +91,48 @@ def _launch_counters() -> list:
     return [m for m in mods if isinstance(getattr(m, "launches", None), int)]
 
 
+def registry_moe(cfg) -> bool:
+    """An MoE layer on the ragged registry route, which reads its group
+    sizes on the host."""
+    mo = cfg.moe
+    return mo is not None and cfg.kernel_plan == "measure" \
+        and mo.ragged_dropless and mo.inference_capacity_factor <= 0
+
+
+@contextlib.contextmanager
+def counts_put_back():
+    """Around a capture: yields a dict that gets, at the block's end, the
+    kernels' launch counts (``launched``: (module, n) pairs) and the MoE
+    tally's host counts (``tallied``: phase -> deltas) the block added,
+    and puts both counters back where they were."""
+    counters = _launch_counters()
+    before = [m.launches for m in counters]
+    tally = {p: list(h) for p, h in moe_mod.TALLY.host.items()}
+    rec: Dict = {}
+    try:
+        yield rec
+    finally:
+        rec["launched"] = [(m, m.launches - n)
+                           for m, n in zip(counters, before)
+                           if m.launches != n]
+        for m, n in zip(counters, before):
+            m.launches = n
+        rec["tallied"] = {p: [a - b for a, b in zip(h, tally[p])]
+                          for p, h in moe_mod.TALLY.host.items()
+                          if h != tally[p]}
+        for p, h in moe_mod.TALLY.host.items():
+            h[:] = tally[p]
+
+
+def add_counts(launched, tallied) -> None:
+    """A replay's share of the counters: what its capture put back."""
+    for m, n in launched:
+        m.launches += n
+    for p, d in tallied.items():
+        h = moe_mod.TALLY.host[p]
+        h[:] = [a + b for a, b in zip(h, d)]
+
+
 def eager_reason(cfg, cache, *, device: torch.device, mesh=None,
                  nan_guard: bool = False) -> Optional[str]:
     """Why a decode step over ``cache`` on ``device`` runs eagerly, or
@@ -98,7 +149,7 @@ def eager_reason(cfg, cache, *, device: torch.device, mesh=None,
         return "faults"
     if nan_guard:
         return "nan_guard"
-    if cfg.moe is not None:
+    if registry_moe(cfg):
         return "moe"
     if any(name != "pos" and name not in IN_PLACE
            for layer in layers for name in layer):
@@ -135,6 +186,7 @@ class DecodeGraph:
         self._key = self._anchor = self._graph = None
         self._tokens = self._pos = self._logits = self._next_pos = None
         self._launched: List[Tuple[object, int]] = []
+        self._tallied: Dict[str, List[int]] = {}
 
     def _hold(self, key: Tuple, first: torch.Tensor) -> None:
         """Remember ``key`` for a capture at its next step; the graph goes
@@ -185,29 +237,22 @@ class DecodeGraph:
         counters are put back and their capture's counts kept."""
         self._tokens = tokens.clone()
         self._pos = _layers(cache)[0]["pos"].clone()
-        counters = _launch_counters()
-        before = [m.launches for m in counters]
         graph = torch.cuda.CUDAGraph()
-        try:
+        with counts_put_back() as rec:
             with torch.cuda.graph(graph):
                 logits, new = model_mod.decode_step(
                     cfg, model, {"tokens": self._tokens},
                     _with_pos(cache, self._pos))
-        finally:
-            launched = [(m, m.launches - n) for m, n in zip(counters, before)]
-            for m, n in zip(counters, before):
-                m.launches = n
         self._graph, self._logits = graph, logits
         self._next_pos = _layers(new)[0]["pos"]
-        self._launched = [(m, n) for m, n in launched if n]
+        self._launched, self._tallied = rec["launched"], rec["tallied"]
         obs.count("engine.decode_graph_capture")
 
     def _replay(self, tokens: torch.Tensor, cache, layers: List[Dict]):
         self._tokens.copy_(tokens)
         self._pos.copy_(layers[0]["pos"])
         self._graph.replay()
-        for m, n in self._launched:
-            m.launches += n
+        add_counts(self._launched, self._tallied)
         self.replays += 1
         return self._logits.clone(), _with_pos(cache,
                                                self._next_pos.clone())

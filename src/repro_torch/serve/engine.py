@@ -55,9 +55,17 @@ cache whose leaves the step writes in place (K/V rows; the first step runs
 eagerly and plans its kernels) and keyed on the batch, the dtypes and
 those leaves' shapes and data pointers.  A replay copies the tokens and
 ``pos`` into the graph's static inputs and returns clones of its logits
-and next ``pos`` over the caller's leaves.  SSM, hybrid and MoE caches,
-an int ``pos`` (``generate``), a mesh and a guarded step (``nan_guard``,
-fault rules) stay eager.  ``Engine.prefill_chunk`` is the
+and next ``pos`` over the caller's leaves.  An MoE model replays on the
+direct ragged route (its tile table built on the card) and on the
+capacity route; on the ragged registry route (``kernel_plan='measure'``,
+group sizes read on the host) it stays eager, as do SSM and hybrid
+caches, an int ``pos`` (``generate``), a mesh and a guarded step
+(``nan_guard``, fault rules).  Under ``cfg.prefill_graph_bucket`` (b > 0)
+a fresh prefill of S tokens replays one CUDA graph too
+(:mod:`.prefill_graph`): the engine captures at construction, on a CUDA
+device, one graph of its batch for every multiple of b up to ``max_len``,
+and a prefill runs at the least of them that holds S, the padding after
+the prompt, the head projecting position S - 1 alone.  ``Engine.prefill_chunk`` is the
 continuation prefill under chunked prefill and preemption resume: a
 config with ``prefill_continuation=True`` and ``fresh_prefill_kernel=False``
 that attends over the whole written prefix and seeds the SSM scan from the
@@ -108,7 +116,11 @@ wall (``serve.decode_step_s`` for decode, ``engine.prefill_s`` and
 ``engine.decode_graph_capture`` counter and each eager step's
 ``engine.decode_graph_eager`` with its reason (``degraded`` for the
 bottom rung); and the engine's ``stats()`` as the ``serve.engine``
-snapshot view.  A replay ends ``engine.decode_enqueue_s`` at its return,
+snapshot view.  An MoE model's layers add the ``moe.experts`` span and,
+while a profiler records, one sample a step of each of
+``moe.<phase>_calls``, ``_rows``, ``_buffer_rows`` and ``_experts_hit``
+(``models.moe.ExpertTally``), read back after the step's synchronize.
+A replay ends ``engine.decode_enqueue_s`` at its return,
 inside ``serve.decode`` and before ``engine.sync_wait``, and adds to each
 kernel's ``launches`` what the capture launched (the capture itself leaves
 them as they were), so the counters match the kernels the card ran.
@@ -133,10 +145,13 @@ from repro_torch import obs
 from repro_torch.kernels._build import KernelError
 from repro_torch.launch.steps import StepTimer
 from repro_torch.models import model as model_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.obs.trace import profiling
 from repro_torch.testing import faults
 
 from . import prng
 from .decode_graph import DecodeGraph, count_eager
+from .prefill_graph import PrefillGraph
 
 # the bottom rung of the degradation ladder: plain PyTorch attention and
 # SSD, no plan registry
@@ -233,8 +248,17 @@ class Engine:
         # (serve.decode_graph), and its sample: 1 a replay, 0 eager
         self._decode = DecodeGraph(self.device, mesh, scfg.nan_guard)
         self._graph_hist = reg.histogram("engine.decode_graph")
+        # the fresh prefill, replayed per length bucket as a CUDA graph
+        # under cfg.prefill_graph_bucket (serve.prefill_graph)
+        self._prefill = PrefillGraph(self.device, mesh, scfg.nan_guard)
+        # an MoE model's expert tally, read back per step while profiled
+        self._tally = moe_mod.TALLY if cfg.moe is not None else None
         if scfg.warmup:
             self.warmup()
+            if self.device.type == "cuda":
+                with self._serving():
+                    self._prefill.warm(self.cfg, self.model, scfg.batch,
+                                       scfg.max_len, self.cache_dtype)
 
     def warmup(self) -> List[Dict[str, Any]]:
         """Plan the registry's bucket grid for this model and shape: one
@@ -335,13 +359,24 @@ class Engine:
         rung on any failure (an exception out of the step, an injected
         ``engine.{phase}`` fault, or, guarded, non-finite logits), from
         the caller's cache (exact: module docstring).  Re-raises a
-        ``KernelError``; raises if the bottom rung fails too."""
+        ``KernelError``; raises if the bottom rung fails too.  While a
+        profiler records, an MoE model's ``moe.TALLY`` is reset before
+        the step and folded into its samples after the step's
+        synchronize."""
+        tally = self._tally if self._tally is not None and profiling() \
+            else None
+        if tally is not None:
+            tally.reset()
         with self._on_mesh():
-            return self._guarded_step(phase, cache, batch, **kw)
+            out = self._guarded_step(phase, cache, batch, **kw)
+        if tally is not None:
+            tally.fold()
+        return out
 
     def _guarded_step(self, phase: str, cache, batch: Dict, **kw):
         cont = phase == "prefill_chunk"
-        step = self._decode if phase == "decode" else model_mod.decode_step
+        step = {"decode": self._decode, "prefill": self._prefill}.get(
+            phase, model_mod.decode_step)
         try:
             faults.check(f"engine.{phase}")
             with self._serving():

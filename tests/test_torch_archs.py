@@ -42,6 +42,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import transformer as port_tf  # noqa: E402
 from repro_torch.serve import engine as port_engine  # noqa: E402
+from torch_config_parity import assert_config_mirrors  # noqa: E402
 
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 # the caches: a KV or compressed MLA cache at the attention ops' 5e-6, a
@@ -159,10 +160,6 @@ def _leaf(tree, name):
     return node if layer is None else node[layer]
 
 
-def _as_dict(v):
-    return dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v
-
-
 # ------------------------------------------------------------------ config --
 @pytest.mark.parametrize("arch", ARCHS + ITEM5_ARCHS)
 def test_config_mirrors_reference(arch):
@@ -172,10 +169,7 @@ def test_config_mirrors_reference(arch):
         # the port defaults to the direct route, the reference to measured
         # plans (ROADMAP.md queue 3, divergences)
         assert (p.kernel_plan, r.kernel_plan) == ("direct", "measure")
-        for f in dataclasses.fields(p):
-            if f.name != "kernel_plan":
-                assert _as_dict(getattr(p, f.name)) == \
-                    _as_dict(getattr(r, f.name)), f"{name}.{f.name}"
+        assert_config_mirrors(p, r, name)
     assert load_arch(arch) is port.CONFIG
     assert load_arch(arch, smoke=True) is port.SMOKE
     assert port.CONFIG.activation_dtype == torch.bfloat16

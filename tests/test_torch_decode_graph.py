@@ -40,12 +40,20 @@ def metrics():
         obs.set_default_metrics(old)
 
 
-def _cache(arch: str, per_slot: bool = True):
-    """A small cache of ``arch``'s SMOKE config on the meta device."""
+def _cache(arch: str, per_slot: bool = True, **cfg_kw):
+    """A small cache of ``arch``'s SMOKE config on the meta device;
+    ``cfg_kw`` replaces config fields, ``moe`` MoE fields."""
     cfg = load_arch(arch, smoke=True)
+    if "moe" in cfg_kw:
+        cfg_kw["moe"] = dataclasses.replace(cfg.moe, **cfg_kw["moe"])
+    cfg = dataclasses.replace(cfg, **cfg_kw)
     return cfg, model_mod.init_cache(cfg, 2, 16, torch.float32,
                                      torch.device("meta"),
                                      per_slot_pos=per_slot)
+
+
+# the ragged routes: on the registry's (group sizes on the host) and direct
+RAGGED = dict(ragged_dropless=True, inference_capacity_factor=0.0)
 
 
 # ------------------------------------------------------------- the rule ---
@@ -58,14 +66,19 @@ def _cache(arch: str, per_slot: bool = True):
     ("qwen3-0.6b", True, dict(rules=True), "faults"),
     ("mamba2-1.3b", True, {}, "state"),
     ("zamba2-2.7b", True, {}, "state"),
-    ("deepseek-v2-lite-16b", True, {}, "moe"),
+    ("deepseek-v2-lite-16b", True,
+     dict(cfg=dict(moe=RAGGED, kernel_plan="measure")), "moe"),
+    ("deepseek-v2-lite-16b", True, dict(cfg=dict(moe=RAGGED)), None),
+    ("deepseek-v2-lite-16b", True, {}, None),
 ], ids=["dense", "cpu", "int_pos", "mesh", "nan_guard", "faults", "ssm",
-        "hybrid", "moe"])
+        "hybrid", "moe", "moe_ragged_direct", "moe_capacity"])
 def test_engage_rule(arch, per_slot, kw, want):
-    """Only the dense per-slot cache on a CUDA device, unguarded and off
-    any mesh, may replay; every other step is eager with its reason."""
-    cfg, cache = _cache(arch, per_slot)
+    """Only a per-slot cache that the step writes in place on a CUDA
+    device, unguarded, off any mesh and off the ragged MoE registry route
+    (whose group sizes come to the host) may replay; every other step is
+    eager with its reason."""
     kw = dict(kw)
+    cfg, cache = _cache(arch, per_slot, **kw.pop("cfg", {}))
     rules = kw.pop("rules", False)
     kw.setdefault("device", CUDA)
     with faults.inject(*([faults.FaultRule("engine.decode", "error")]
@@ -153,10 +166,10 @@ def card():
     return CUDA
 
 
-def _serve(eng, reqs, **kw):
+def _serve(eng, reqs, mods=None, **kw):
     """A stream's completions and the kernels' launch deltas."""
     from repro_torch.kernels import decode_attention, flash_attention
-    mods = (decode_attention, flash_attention)
+    mods = mods or (decode_attention, flash_attention)
     before = [m.launches for m in mods]
     done = eng.serve_stream(reqs, collect_logits=True, **kw)
     torch.cuda.synchronize()
@@ -285,3 +298,58 @@ def test_fault_and_failing_replay_degrade_the_step(card, streams, metrics,
         np.testing.assert_array_equal(got.tokens, ref.tokens)
         np.testing.assert_allclose(got.logits, ref.logits, rtol=0,
                                    atol=1e-5)
+
+
+def _published_deepseek(device, nan_guard=False):
+    """deepseek-v2-lite SMOKE as published (gates unnormalised, YaRN with
+    its ramp inside the rope dims) on the direct ragged route."""
+    from repro_torch.configs.base import RopeScaling
+    cfg = load_arch("deepseek-v2-lite-16b", smoke=True)
+    cfg = dataclasses.replace(
+        cfg, attention_impl="pallas", kernel_plan="direct",
+        moe=dataclasses.replace(cfg.moe, norm_topk_prob=False, **RAGGED),
+        rope_scaling=RopeScaling(factor=40.0, mscale=0.707,
+                                 mscale_all_dim=0.707))
+    model = convert.init_params(cfg, torch.Generator().manual_seed(0))
+    return Engine(cfg, model, ServeConfig(batch=4, max_len=48,
+                                          nan_guard=nan_guard),
+                  device=device)
+
+
+@pytest.mark.cuda
+def test_moe_stream_replays_give_eager_tokens_and_logits(card):
+    """The direct ragged MoE route replays: a deepseek SMOKE stream gives
+    the eager stream's tokens and logits bit for bit, with the same
+    grouped GEMM launches and the same expert tally."""
+    from repro_torch.kernels import grouped_gemm
+    out = {}
+    for name, guard in (("graph", False), ("eager", True)):
+        reg = obs.MetricsRegistry()
+        old = obs.set_default_metrics(reg)
+        try:
+            eng = _published_deepseek(card, nan_guard=guard)
+            # a recording profiler folds the tally into samples every step
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CPU]):
+                done, launched = _serve(eng, _workload(),
+                                        mods=(grouped_gemm,), **STREAM)
+        finally:
+            obs.set_default_metrics(old)
+        tally = {h: reg.histogram(f"moe.{h}").values
+                 for h in ("decode_calls", "decode_rows",
+                           "decode_experts_hit", "prefill_experts_hit")}
+        out[name] = dict(done=done, launched=launched, tally=tally,
+                         counters=_counters(reg), replays=eng._decode.replays)
+        del eng
+        gc.collect()
+    g, e = out["graph"], out["eager"]
+    assert g["counters"]["engine.decode_graph_capture"] == 1
+    assert g["replays"] > 5 and e["replays"] == 0
+    assert g["launched"] == e["launched"]
+    assert g["launched"]["repro_torch.kernels.grouped_gemm"] > 0
+    assert g["tally"] == e["tally"]
+    assert len(g["tally"]["decode_experts_hit"]) > g["replays"]
+    assert [c.rid for c in g["done"]] == [c.rid for c in e["done"]]
+    for cg, ce in zip(g["done"], e["done"]):
+        np.testing.assert_array_equal(cg.tokens, ce.tokens)
+        np.testing.assert_array_equal(cg.logits, ce.logits)

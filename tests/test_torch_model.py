@@ -22,6 +22,7 @@ from repro_torch.configs import qwen3_0_6b as port_qwen3  # noqa: E402
 from repro_torch.models import attention as port_attn  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
+from torch_config_parity import assert_config_mirrors  # noqa: E402
 
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
 PROMPT, STEPS, BATCH = 8, 8, 2
@@ -61,10 +62,8 @@ def test_config_mirrors_reference():
     from repro.configs import qwen3_0_6b as jax_qwen3
     for name in ("CONFIG", "SMOKE"):
         ref, port = getattr(jax_qwen3, name), getattr(port_qwen3, name)
-        for f in dataclasses.fields(port):
-            if f.name == "kernel_plan":   # a recorded divergence (below)
-                continue
-            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+        # kernel_plan: a recorded divergence (below)
+        assert_config_mirrors(port, ref, name)
         # the port defaults to the direct route, the reference to measured
         # plans (ROADMAP.md queue 3, divergences)
         assert (port.kernel_plan, ref.kernel_plan) == ("direct", "measure")

@@ -35,6 +35,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import moe as port_moe  # noqa: E402
 from repro_torch.serve import engine as port_engine  # noqa: E402
+from torch_config_parity import assert_config_mirrors  # noqa: E402
 
 TOL = dict(rtol=5e-6, atol=5e-6)
 LOGIT_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -79,13 +80,9 @@ def test_config_mirrors_reference():
     for name in ("CONFIG", "SMOKE"):
         ref, port = getattr(jax_ds, name), getattr(port_ds, name)
         assert (port.kernel_plan, ref.kernel_plan) == ("direct", "measure")
-        for f in dataclasses.fields(port):
-            if f.name == "kernel_plan":   # the port's default: 'direct'
-                continue
-            got, want = getattr(port, f.name), getattr(ref, f.name)
-            if dataclasses.is_dataclass(got):   # MoEConfig, MLAConfig
-                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
-            assert got == want, f.name
+        # kernel_plan: the port's default, 'direct'; MoEConfig and
+        # MLAConfig field by field
+        assert_config_mirrors(port, ref, name)
     assert port_ds.CONFIG.activation_dtype == torch.bfloat16
     assert port_ds.SMOKE.activation_dtype == torch.float32
 

@@ -30,6 +30,7 @@ from repro_torch.models import convert  # noqa: E402
 from repro_torch.models import model as port_model  # noqa: E402
 from repro_torch.models import ssm as port_ssm  # noqa: E402
 from repro_torch.serve import engine as port_engine  # noqa: E402
+from torch_config_parity import assert_config_mirrors  # noqa: E402
 
 TOL = dict(rtol=5e-6, atol=5e-6)
 STATE_TOL = dict(rtol=2e-5, atol=5e-6)
@@ -71,13 +72,9 @@ def test_config_mirrors_reference():
     for name in ("CONFIG", "SMOKE"):
         ref, port = getattr(jax_mamba2, name), getattr(port_mamba2, name)
         assert (port.kernel_plan, ref.kernel_plan) == ("direct", "measure")
-        for f in dataclasses.fields(port):
-            if f.name == "kernel_plan":   # the port's default: 'direct'
-                continue
-            got, want = getattr(port, f.name), getattr(ref, f.name)
-            if dataclasses.is_dataclass(got):      # SSMConfig, field by field
-                got, want = dataclasses.asdict(got), dataclasses.asdict(want)
-            assert got == want, f.name
+        # kernel_plan: the port's default, 'direct'; SSMConfig field by
+        # field
+        assert_config_mirrors(port, ref, name)
     assert port_mamba2.SMOKE.activation_dtype == torch.float32
     assert port_mamba2.CONFIG.activation_dtype == torch.bfloat16
 

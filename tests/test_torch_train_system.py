@@ -49,7 +49,10 @@ def test_training_loss_decreases():
     jax = pytest.importorskip("jax")
     from repro.configs.base import ModelConfig as JModelConfig
     from repro.models import model as jmodel
-    params = jmodel.init_params(JModelConfig(*dataclasses.astuple(TINY)),
+    # TINY's fields that the JAX config has (the port adds rope_scaling)
+    shared = {f.name: getattr(TINY, f.name)
+              for f in dataclasses.fields(JModelConfig)}
+    params = jmodel.init_params(JModelConfig(**shared),
                                 jax.random.PRNGKey(0))
     model = convert.from_jax_params(TINY, jax.tree.map(np.asarray, params))
     out = train(TINY, SHAPE,
