@@ -158,8 +158,9 @@ class ModelConfig:
     attn_block_kv: int = 1024          # KV chunk for chunked attention
     # the port's: the CUDA-graph prefill's length bucket (tokens).  On the
     # card a fresh prefill of S tokens replays the graph captured at S
-    # rounded up to a multiple of it (``serve.prefill_graph``); 0 runs
-    # every prefill eagerly, the reference's only form
+    # rounded up to a multiple of it (``serve.prefill_graph``); 0 leaves
+    # the choice to the engine, which takes its own bucket on the card and
+    # runs every prefill eagerly off it, the reference's only form
     prefill_graph_bucket: int = 0
     remat: bool = True
     dtype: str = "bfloat16"

@@ -60,12 +60,17 @@ direct ragged route (its tile table built on the card) and on the
 capacity route; on the ragged registry route (``kernel_plan='measure'``,
 group sizes read on the host) it stays eager, as do SSM and hybrid
 caches, an int ``pos`` (``generate``), a mesh and a guarded step
-(``nan_guard``, fault rules).  Under ``cfg.prefill_graph_bucket`` (b > 0)
-a fresh prefill of S tokens replays one CUDA graph too
-(:mod:`.prefill_graph`): the engine captures at construction, on a CUDA
-device, one graph of its batch for every multiple of b up to ``max_len``,
-and a prefill runs at the least of them that holds S, the padding after
-the prompt, the head projecting position S - 1 alone.  ``Engine.prefill_chunk`` is the
+(``nan_guard``, fault rules).  On a CUDA device a fresh prefill of S
+tokens replays one CUDA graph too (:mod:`.prefill_graph`): the engine
+takes the bucket b of ``cfg.prefill_graph_bucket``, or 128 where the
+configuration sets none (0), captures at construction one graph of its
+batch for every multiple of b up to ``max_len`` where the captured state
+takes at most 2% of the card's memory, and a prefill runs at the least of
+them that holds S, the padding after the prompt, the head projecting
+position S - 1 alone; a family other than dense and MoE, the MoE
+registry and capacity routes, a mesh and a guarded prefill stay eager.
+Off the card a configuration's 0 keeps every prefill eager.
+``Engine.prefill_chunk`` is the
 continuation prefill under chunked prefill and preemption resume: a
 config with ``prefill_continuation=True`` and ``fresh_prefill_kernel=False``
 that attends over the whole written prefix and seeds the SSM scan from the
@@ -115,9 +120,12 @@ wall (``serve.decode_step_s`` for decode, ``engine.prefill_s`` and
 ``engine.decode_graph`` sample (1 a replay, 0 an eager step), the
 ``engine.decode_graph_capture`` counter and each eager step's
 ``engine.decode_graph_eager`` with its reason (``degraded`` for the
-bottom rung); and the engine's ``stats()`` as the ``serve.engine``
-snapshot view.  An MoE model's layers add the ``moe.experts`` span and,
-while a profiler records, one sample a step of each of
+bottom rung); a fresh prefill's ``engine.prefill_graph`` sample (1 a
+replay, 0 an eager prefill) and the ``engine.prefill_graph_*`` counters
+of :mod:`.prefill_graph`; and the engine's ``stats()`` as the
+``serve.engine`` snapshot view.  An MoE model's layers add the
+``moe.experts`` span and, while a profiler records, one sample a step of
+each of
 ``moe.<phase>_calls``, ``_rows``, ``_buffer_rows`` and ``_experts_hit``
 (``models.moe.ExpertTally``), read back after the step's synchronize.
 A replay ends ``engine.decode_enqueue_s`` at its return,
@@ -151,7 +159,7 @@ from repro_torch.testing import faults
 
 from . import prng
 from .decode_graph import DecodeGraph, count_eager
-from .prefill_graph import PrefillGraph
+from .prefill_graph import PrefillGraph, engine_bucket
 
 # the bottom rung of the degradation ladder: plain PyTorch attention and
 # SSD, no plan registry
@@ -186,10 +194,14 @@ class Engine:
                  device: Optional[Union[str, torch.device]] = None,
                  mesh=None):
         model_mod.check_supported(cfg)
+        self.device = device_mod.resolve(device)
         if scfg.kernel_plan and scfg.kernel_plan != cfg.kernel_plan:
             cfg = dataclasses.replace(cfg, kernel_plan=scfg.kernel_plan)
         if not cfg.fresh_prefill_kernel:
             cfg = dataclasses.replace(cfg, fresh_prefill_kernel=True)
+        bucket = engine_bucket(cfg, self.device)
+        if bucket != cfg.prefill_graph_bucket:
+            cfg = dataclasses.replace(cfg, prefill_graph_bucket=bucket)
         self.cfg, self.scfg = cfg, scfg
         # continuation prefill: s > 1 into a cache already holding tokens,
         # so attention masks over the whole written prefix (the flash
@@ -202,7 +214,6 @@ class Engine:
         self._direct_cont_cfg = None
         self.degraded_requests = 0
         self._req_degraded = False
-        self.device = device_mod.resolve(device)
         self.model = model.to(self.device)
         self.mesh = mesh
         if mesh is not None:
@@ -249,8 +260,9 @@ class Engine:
         self._decode = DecodeGraph(self.device, mesh, scfg.nan_guard)
         self._graph_hist = reg.histogram("engine.decode_graph")
         # the fresh prefill, replayed per length bucket as a CUDA graph
-        # under cfg.prefill_graph_bucket (serve.prefill_graph)
+        # (serve.prefill_graph), and its sample: 1 a replay, 0 eager
         self._prefill = PrefillGraph(self.device, mesh, scfg.nan_guard)
+        self._prefill_hist = reg.histogram("engine.prefill_graph")
         # an MoE model's expert tally, read back per step while profiled
         self._tally = moe_mod.TALLY if cfg.moe is not None else None
         if scfg.warmup:
@@ -406,6 +418,7 @@ class Engine:
         ``enc_out``: an enc-dec model's encoder output (``encdec.encode``,
         run outside the engine)."""
         t0 = time.perf_counter()
+        replays = self._prefill.replays
         cache = model_mod.init_cache(self.cfg, int(tokens.shape[0]),
                                      self.scfg.max_len, self.cache_dtype,
                                      self.device)
@@ -416,6 +429,7 @@ class Engine:
                 "prefill", cache, self._batch(tokens, enc_out),
                 last_only=True)
         self._record_step("prefill", t0)
+        self._prefill_hist.record(float(self._prefill.replays > replays))
         return cache, logits[:, -1]
 
     @torch.no_grad()

@@ -302,7 +302,10 @@ def test_fault_and_failing_replay_degrade_the_step(card, streams, metrics,
 
 def _published_deepseek(device, nan_guard=False):
     """deepseek-v2-lite SMOKE as published (gates unnormalised, YaRN with
-    its ramp inside the rope dims) on the direct ragged route."""
+    its ramp inside the rope dims) on the direct ragged route.  Its
+    warmup is off, so the engine captures no prefill graph and every
+    prefill runs eagerly, as under ``nan_guard``: the decode step is what
+    the two streams differ in."""
     from repro_torch.configs.base import RopeScaling
     cfg = load_arch("deepseek-v2-lite-16b", smoke=True)
     cfg = dataclasses.replace(
@@ -312,7 +315,8 @@ def _published_deepseek(device, nan_guard=False):
                                  mscale_all_dim=0.707))
     model = convert.init_params(cfg, torch.Generator().manual_seed(0))
     return Engine(cfg, model, ServeConfig(batch=4, max_len=48,
-                                          nan_guard=nan_guard),
+                                          nan_guard=nan_guard,
+                                          warmup=False),
                   device=device)
 
 
